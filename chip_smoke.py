@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA card and hold its kernels to their
+plain versions.
+
+Run from the repository root, on a machine with a card and ``nvcc``::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result):
+
+1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
+2. build the CUDA kernels from ``randomprojection_tpu_torch/csrc`` and print
+   ``ptxas``'s registers and shared memory per kernel;
+3. each kernel against its plain PyTorch version on the card:
+   ``rp_lazy_matrix`` bit for bit, ``rp_fused_project`` within
+   ``max|Δ| ≤ 1e-5·max|Y|`` in the split2, f32 and bf16 modes;
+4. the main path at config-2 width: ``SparseRandomProjection(256,
+   density=1/3, materialization='lazy')`` fitted to 1,000,000 × 4096 and
+   transforming 1M device-resident rows in 65,536-row batches (rows/s by
+   CUDA events), with the launch counts read around the run; a full batch
+   and the short last one against the plain version; the model's matrix
+   (``components_as_numpy``, the mask writer's path, its launches read
+   around it) bit for bit; and the pairwise-distance distortion of a
+   2,000-row sample against a float64 product with that matrix (≤ 1e-3);
+5. the same fit on the dense route and with ``precision='split2'``
+   (distortion only), and a Gaussian model;
+6. ``transform_stream`` over a host source for 8 batches with a
+   checkpoint, cut after 3 batches and resumed: bit-identical to an
+   uninterrupted run;
+7. each kernel's time at the main path's shape beside its bound, its plain
+   version's time and one PyTorch call's time, printed as one JSON line.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it is
+the card as ``nvidia-smi`` names it.  Every number is printed beside the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+N_ROWS, N_FEATURES, N_COMPONENTS, DENSITY = 1_000_000, 4096, 256, 1 / 3
+BATCH = 65_536
+SAMPLE = 2_000
+STREAM_BATCHES = 8
+TOL = 1e-5  # kernel vs plain version: max|Δ| ≤ TOL·max|Y|
+DISTORTION_BUDGET = 1e-3
+# published H100 SXM peaks (NVIDIA H100 datasheet), at 700 W
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
+# 32-bit integer ops of one mask entry (3 multiplies by the constants, 3
+# xors to combine, the 6-op finalizer, the shift to 24 bits, 2 compares, 2
+# selects, the scale), counted on the CUDA cores at their float32 rate
+HASH_OPS_PER_ENTRY = 17
+
+CARD = ""
+
+
+def log(msg: str) -> None:
+    """Print a progress line, with the card's name and power limit beside
+    its numbers once they are known."""
+    print(f"{msg} [{CARD}]" if CARD else msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of ``fn`` on the card, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pdist2(a):
+    """Squared pairwise distances, upper triangle (the repo's distortion
+    metric: randomprojection_tpu/benchmark.py)."""
+    a = np.asarray(a, dtype=np.float64)
+    sq = (a * a).sum(1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (a @ a.T)
+    iu = np.triu_indices(a.shape[0], k=1)
+    return np.maximum(d2[iu], 1e-30)
+
+
+def distortion(est, x_sample) -> float:
+    """Max relative error of pairwise squared distances of the model's
+    output against a float64 product with its own matrix."""
+    y = est.transform(x_sample)
+    c = np.asarray(est.components_as_numpy(), dtype=np.float64)
+    xs = x_sample.double().cpu().numpy()
+    ys = y.double().cpu().numpy()
+    if not np.isfinite(ys).all() or ys.shape != (xs.shape[0], c.shape[0]):
+        raise AssertionError(f"output not finite or wrong shape {ys.shape}")
+    return float(np.max(np.abs(pdist2(ys) / pdist2(xs @ c.T) - 1.0)))
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# -- phases ----------------------------------------------------------------------
+
+
+def phase_build(fk, build_mod):
+    b = fk.build_info()
+    log(f"build: {b.path.name} in {b.seconds:.2f} s (nvcc -O3 sm_90a)")
+    for r in build_mod.kernel_resources(b.ptxas_log):
+        log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, "
+            f"{r.get('smem_bytes', 0)} bytes smem, "
+            f"{r.get('spill_store_bytes', 0)} bytes spill stores")
+
+
+def phase_kernels(torch, fk, errs):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for seed, k, d, off in ((0, 256, 4096, 0), (0, 256, 4100, 0),
+                            (12345678901, 256, 4096, 3), (0, 512, 16384, 0)):
+        got = fk.rp_lazy_matrix(seed, k, d, DENSITY, block_offset=off)
+        torch.cuda.synchronize()
+        want = fk.lazy_matrix_plain(seed, k, d, DENSITY, block_offset=off,
+                                    device="cuda")
+        exact = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        errs["rp_lazy_matrix"] = max(errs["rp_lazy_matrix"], err)
+        log(f"rp_lazy_matrix k={k} d={d} offset={off}: bit-exact={exact}")
+        check(exact, "rp_lazy_matrix differs from its plain version")
+    for n, d, k in ((8192, 4096, 256), (2048, 16384, 512)):
+        x = torch.randn((n, d), generator=g, device="cuda")
+        for mode in ("split2", "f32", "bf16"):
+            xin = x.to(torch.bfloat16) if mode == "bf16" else x
+            y = fk.rp_fused_project(xin, 0, k, DENSITY, mxu_mode=mode)
+            torch.cuda.synchronize()
+            ref = fk.fused_project(xin, 0, k, DENSITY, mxu_mode=mode)
+            err = (y - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            errs["rp_fused_project"] = max(errs["rp_fused_project"], err)
+            log(f"rp_fused_project {n}x{d}->{k} {mode}: max|d|={err:.3e} "
+                f"max|Y|={scale:.3e} ratio={err / scale:.3e} (tol {TOL})")
+            check(bool(torch.isfinite(y).all()), "non-finite kernel output")
+            check(err <= TOL * scale, f"rp_fused_project {mode} off tolerance")
+
+
+def phase_main_path(torch, rpt, fk, errs):
+    """Fit and transform at full width, then read the model's matrix, each
+    with the launch counts set to 0 just before and read just after.
+    Returns the model, its input and the launch count of each kernel in
+    its own run."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.empty((N_ROWS, N_FEATURES), dtype=torch.float32, device="cuda")
+    X.normal_(generator=g)
+    bounds = [(lo, min(lo + BATCH, N_ROWS)) for lo in range(0, N_ROWS, BATCH)]
+    torch.cuda.synchronize()
+
+    fk.reset_launches()
+    est = rpt.SparseRandomProjection(
+        N_COMPONENTS, density=DENSITY, random_state=0,
+        backend_options={"materialization": "lazy"},
+    ).fit(X)
+    check(est._backend.device.type == "cuda", "model is not on the card")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ys = [est.transform(X[lo:hi]) for lo, hi in bounds]
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    launched = dict(fk.LAUNCHES)
+    log(f"main path launches (fit + transform): {json.dumps(launched)}")
+    check(launched["rp_fused_project"] == len(bounds),
+          f"fused kernel launched {launched['rp_fused_project']} times for "
+          f"{len(bounds)} batches")
+    Y = torch.cat(ys)
+    check(Y.shape == (N_ROWS, N_COMPONENTS) and Y.dtype == torch.float32,
+          f"output {tuple(Y.shape)} {Y.dtype}")
+    check(bool(torch.isfinite(Y).all()), "non-finite output")
+    log(f"main path: lazy split2 {N_ROWS}x{N_FEATURES}->{N_COMPONENTS} in "
+        f"{len(bounds)} batches of {BATCH}: {ms:.3f} ms, "
+        f"{N_ROWS / (ms / 1e3):.1f} rows/s")
+
+    # the kernel at the main path's own shapes: a full batch and the short
+    # last one, against the plain version with the model's seed
+    for i in (0, len(bounds) - 1):
+        lo, hi = bounds[i]
+        ref = fk.fused_project(X[lo:hi], est.spec_.seed, N_COMPONENTS,
+                               est.spec_.density, mxu_mode="split2")
+        err = (ys[i] - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        errs["rp_fused_project"] = max(errs["rp_fused_project"], err)
+        log(f"main path batch {i} ({hi - lo} rows) vs plain version: "
+            f"max|d|={err:.3e} max|Y|={scale:.3e} ratio={err / scale:.3e} "
+            f"(tol {TOL})")
+        check(err <= TOL * scale, f"main path batch {i} off tolerance")
+
+    # the mask writer's path: a lazy model's matrix
+    fk.reset_launches()
+    components = est.components_as_numpy()
+    torch.cuda.synchronize()
+    launched["rp_lazy_matrix"] = fk.LAUNCHES["rp_lazy_matrix"]
+    log(f"components_as_numpy launches: {json.dumps(fk.LAUNCHES)}")
+    want = fk.lazy_matrix_plain(est.spec_.seed, N_COMPONENTS, N_FEATURES,
+                                est.spec_.density, device="cuda")
+    check(np.array_equal(components, want.cpu().numpy()),
+          "the model's matrix differs from the plain mask")
+    check(launched["rp_lazy_matrix"] == 1,
+          f"mask writer launched {launched['rp_lazy_matrix']} times for one "
+          f"matrix")
+
+    sample = X[:SAMPLE]
+    eps = distortion(est, sample)
+    # row tiles are independent: the sample's rows equal batch 0's rows
+    check(torch.equal(est.transform(sample), ys[0][:SAMPLE]),
+          "output depends on the batch split")
+    log(f"main path: distortion {eps:.3e} on {SAMPLE} rows vs float64 "
+        f"(budget {DISTORTION_BUDGET})")
+    check(eps <= DISTORTION_BUDGET, "main path distortion over budget")
+    return est, X, launched
+
+
+def phase_other_routes(torch, rpt, X):
+    sample = X[:SAMPLE]
+    for label, est in (
+        ("dense", rpt.SparseRandomProjection(N_COMPONENTS, density=DENSITY,
+                                             random_state=0)),
+        ("split2", rpt.SparseRandomProjection(
+            N_COMPONENTS, density=DENSITY, random_state=0,
+            backend_options={"precision": "split2"})),
+        ("gaussian", rpt.GaussianRandomProjection(N_COMPONENTS, random_state=0)),
+    ):
+        est.fit(X)
+        eps = distortion(est, sample)
+        log(f"route {label}: distortion {eps:.3e} (budget {DISTORTION_BUDGET})")
+        check(eps <= DISTORTION_BUDGET, f"{label} distortion over budget")
+
+
+def phase_stream(est, streaming, scratch: Path):
+    n = STREAM_BATCHES * BATCH
+
+    def read(lo, hi):
+        # uniform draws: the cheapest deterministic host rows
+        rng = np.random.default_rng([7, lo])
+        return rng.random((hi - lo, N_FEATURES), dtype=np.float32)
+
+    src = streaming.CallableSource(read, n, N_FEATURES, np.float32,
+                                   batch_rows=BATCH)
+    t0 = time.perf_counter()
+    full = streaming.stream_to_array(est, src)
+    full_s = time.perf_counter() - t0
+    ckpt = scratch / "cursor.json"
+    ckpt.unlink(missing_ok=True)
+    out = np.full_like(full, np.nan)
+    for i, (lo, y) in enumerate(est.transform_stream(src, checkpoint_path=str(ckpt))):
+        out[lo:lo + y.shape[0]] = y
+        if i == 2:
+            break
+    done = streaming.StreamCursor.load(str(ckpt)).rows_done
+    check(done == 2 * BATCH, f"cursor after the cut: {done}")
+    streaming.stream_to_array(est, src, out=out, checkpoint_path=str(ckpt))
+    check(streaming.StreamCursor.load(str(ckpt)).rows_done == n, "cursor at end")
+    check(np.array_equal(out, full), "resumed stream differs")
+    check(bool(np.isfinite(full).all()), "non-finite stream output")
+    log(f"stream: {STREAM_BATCHES} host batches of {BATCH}x{N_FEATURES}, cut "
+        f"after 3, resumed bit-identical; uninterrupted run {full_s:.3f} s "
+        f"({n / full_s:.1f} rows/s host source included)")
+
+
+def phase_timing(torch, fk, est, X, counts, errs):
+    from randomprojection_tpu_torch.ops.precision import fp32_matmul
+
+    x = X[:BATCH]
+    n, d, k = x.shape[0], N_FEATURES, N_COMPONENTS
+    seed, density = est.spec_.seed, est.spec_.density
+    m_scaled = fk.rp_lazy_matrix(seed, k, d, density)
+
+    def library():
+        with fp32_matmul():
+            return torch.matmul(x, m_scaled.t())
+
+    fused = {
+        "name": "rp_fused_project",
+        "route": "cuda",
+        "source": "randomprojection_tpu_torch/csrc/fused_project.cu",
+        "replaces": "randomprojection_tpu/ops/pallas_kernels.py:752",
+        "launches": counts["rp_fused_project"],
+        "max_abs_err": errs["rp_fused_project"],
+        "ms": cuda_ms(lambda: fk.rp_fused_project(x, seed, k, density,
+                                                  mxu_mode="split2"), reps=10),
+        "plain_ms": cuda_ms(lambda: fk.fused_project(x, seed, k, density,
+                                                     mxu_mode="split2"), reps=3),
+        "library_ms": cuda_ms(library, reps=10),
+    }
+    bytes_ = 4 * n * d + 4 * n * k
+    ops = 2 * (2 * n * d * k)  # split2: two bf16 products
+    fused.update(_bound(bytes_ / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S))
+    fused["shape"] = f"{n}x{d}->{k} split2"
+
+    lazy = {
+        "name": "rp_lazy_matrix",
+        "route": "cuda",
+        "source": "randomprojection_tpu_torch/csrc/fused_project.cu",
+        "replaces": "randomprojection_tpu/ops/pallas_kernels.py:963",
+        "launches": counts["rp_lazy_matrix"],
+        "max_abs_err": errs["rp_lazy_matrix"],
+        "ms": cuda_ms(lambda: fk.rp_lazy_matrix(seed, k, d, density), reps=100),
+        "plain_ms": cuda_ms(lambda: fk.lazy_matrix_plain(
+            seed, k, d, density, device="cuda"), reps=10),
+        "library_ms": None,
+    }
+    lazy.update(_bound(4 * k * d / HBM_BYTES_PER_S,
+                       HASH_OPS_PER_ENTRY * k * d / FP32_FLOP_PER_S))
+    lazy["shape"] = f"{k}x{d}"
+    for row in (fused, lazy):
+        row["card"] = CARD
+    return [fused, lazy]
+
+
+def _bound(bytes_s: float, ops_s: float) -> dict:
+    return {
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+    }
+
+
+def main() -> int:
+    global CARD
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        import randomprojection_tpu_torch as rpt
+        from randomprojection_tpu_torch import streaming
+        from randomprojection_tpu_torch.ops import _build as build_mod
+        from randomprojection_tpu_torch.ops import fused_kernels as fk
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    if Path(rpt.__file__).resolve().parent.parent != ROOT:
+        print(f"chip_smoke: imported the port from {rpt.__file__}, not from "
+              f"{ROOT}", file=sys.stderr)
+        return 2
+    scratch = ROOT / "build" / "chip_smoke"
+    try:
+        CARD = card_line()
+        log(f"card: {CARD}; torch.cuda: {torch.cuda.get_device_name(0)}; "
+            f"torch {torch.__version__} CUDA {torch.version.cuda}")
+        t0 = time.perf_counter()
+        phase_build(fk, build_mod)
+        errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0}
+        phase_kernels(torch, fk, errs)
+        est, X, counts = phase_main_path(torch, rpt, fk, errs)
+        phase_other_routes(torch, rpt, X)
+        scratch.mkdir(parents=True, exist_ok=True)
+        phase_stream(est, streaming, scratch)
+        kernels = phase_timing(torch, fk, est, X, counts, errs)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(json.dumps({"kernels": kernels}))
+    print(CARD)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

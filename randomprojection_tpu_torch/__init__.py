@@ -1,0 +1,48 @@
+"""randomprojection_tpu_torch — the PyTorch/CUDA port of randomprojection_tpu.
+
+The JL estimators (Gaussian and sparse Achlioptas/Li random projection,
+JL auto-dimensioning, streamed row-batch transform with cursor resume)
+behind the same ``ProjectionBackend`` boundary, executed on an NVIDIA
+card: plain products through torch, and the fused lazy-mask projection
+and mask writer as hand-written CUDA kernels for Hopper
+(``csrc/fused_project.cu``).  ``backend='auto'`` is the card; the CPU runs
+only when asked (``backend_options={'device': 'cpu'}``).
+
+The package imports neither JAX nor ``randomprojection_tpu``; the tests
+hold it to that package.
+"""
+
+from randomprojection_tpu_torch.jl import johnson_lindenstrauss_min_dim
+from randomprojection_tpu_torch.utils.validation import (
+    DataDimensionalityWarning,
+    NotFittedError,
+)
+
+__version__ = "0.1.0"
+
+_LAZY_ESTIMATORS = (
+    "BaseRandomProjection",
+    "GaussianRandomProjection",
+    "SparseRandomProjection",
+)
+
+__all__ = [
+    "johnson_lindenstrauss_min_dim",
+    "DataDimensionalityWarning",
+    "NotFittedError",
+    "from_reference",
+    *_LAZY_ESTIMATORS,
+]
+
+
+def __getattr__(name):
+    # lazy, as the reference package: importing the package stays cheap
+    if name in _LAZY_ESTIMATORS:
+        from randomprojection_tpu_torch import models
+
+        return getattr(models, name)
+    if name == "from_reference":
+        from randomprojection_tpu_torch.interop import from_reference
+
+        return from_reference
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
