@@ -28,7 +28,22 @@ Phases (any failure exits non-zero and prints no result):
    checkpoint, cut after 3 batches and resumed: bit-identical to an
    uninterrupted run;
 7. each kernel's time at the main path's shape beside its bound, its plain
-   version's time and one PyTorch call's time, printed as one JSON line.
+   version's time and one PyTorch call's time;
+8. the config-4 serving path at full width: ``SignRandomProjection(256)``
+   fitted to 768 features encodes 2^24 rows drawn on the card into 32-byte
+   codes (sign mismatch against a float64 product ≤ 1e-4); a
+   ``SimHashIndex`` of them answers ``query_topk`` of 2,048 queries at
+   m = 16 through ``rp_fused_topk`` (launches read around each run, 64
+   queries held bit for bit against ``topk_plain``), then again after a
+   seeded 1% ``delete`` (masked), an ``add`` of 2^20 codes and a
+   ``compact`` (equal through the mapping); a ``TopKServer`` serves 16
+   client threads × 4 requests × 128 rows, each bit-identical to a direct
+   ``query_topk``; the kernel against its plain version at its trouble
+   shapes (3-byte codes, 2^16-byte rows, m above the live rows, ties, the
+   plan's largest m, a ragged query tile); and its time at 2048 × 2^24 ×
+   32 B.
+
+The kernels' timings are printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card as ``nvidia-smi`` names it.  Every number is printed beside the
@@ -41,6 +56,7 @@ import json
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -62,6 +78,17 @@ FP32_FLOP_PER_S = 67e12
 # xors to combine, the 6-op finalizer, the shift to 24 bits, 2 compares, 2
 # selects, the scale), counted on the CUDA cores at their float32 rate
 HASH_OPS_PER_ENTRY = 17
+INT8_OPS_PER_S = 1979e12
+# config-4 serving (benchmark.py TOPK_BENCH_SHAPES["full"]): 2^24 codes of
+# 256 bits from 768-wide rows, m = 16, query tile 2048, 16 clients x 4
+# requests x 128 rows, max_batch 8192.  The cut from config 4's 1B codes
+# is depth only.
+SIGN_FEATURES, SIGN_BITS = 768, 256
+N_CODES, ENCODE_BATCH, N_ADD = 1 << 24, 131_072, 1 << 20
+N_QUERIES, TOPK_M, QUERY_TILE = 2048, 16, 2048
+CLIENTS, REQUESTS, REQUEST_ROWS, MAX_BATCH = 16, 4, 128, 8192
+HOLD_QUERIES = 64  # queries held against the plain version on the card
+SIGN_MISMATCH_BUDGET = 1e-4
 
 CARD = ""
 
@@ -126,13 +153,22 @@ def check(cond: bool, what: str) -> None:
 # -- phases ----------------------------------------------------------------------
 
 
-def phase_build(fk, build_mod):
-    b = fk.build_info()
-    log(f"build: {b.path.name} in {b.seconds:.2f} s (nvcc -O3 sm_90a)")
-    for r in build_mod.kernel_resources(b.ptxas_log):
-        log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, "
-            f"{r.get('smem_bytes', 0)} bytes smem, "
-            f"{r.get('spill_store_bytes', 0)} bytes spill stores")
+def phase_build(build_mod):
+    """Compile every csrc/*.cu at once, one nvcc each, then load them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sorted(p.stem for p in build_mod.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(build_mod.build, names))
+    log(f"build: {len(names)} sources in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc -O3 sm_90a, in parallel)")
+    for b in builds:
+        log(f"  {b.path.name}: {b.seconds:.2f} s")
+        for r in build_mod.kernel_resources(b.ptxas_log):
+            log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, "
+                f"{r.get('smem_bytes', 0)} bytes smem, "
+                f"{r.get('spill_store_bytes', 0)} bytes spill stores")
 
 
 def phase_kernels(torch, fk, errs):
@@ -336,6 +372,221 @@ def phase_timing(torch, fk, est, X, counts, errs):
     return [fused, lazy]
 
 
+def _hold(torch, tk, errs, got, want, what: str) -> None:
+    """Kernel (dist, idx) against the plain version's, bit for bit."""
+    for g, w in zip(got, want):
+        g = torch.as_tensor(g).to(w.device)
+        errs["rp_fused_topk"] = max(errs["rp_fused_topk"],
+                                    (g.long() - w.long()).abs().max().item())
+        check(torch.equal(g, w), f"rp_fused_topk differs from topk_plain: {what}")
+    log(f"{what}: bit-exact against topk_plain")
+
+
+def _encode(torch, est, g, n_rows):
+    """``n_rows`` standard-normal rows drawn on the card in batches, encoded
+    to packed codes on the card; returns the codes and the encode's
+    device milliseconds (CUDA events around each transform)."""
+    codes = torch.empty((n_rows, SIGN_BITS // 8), dtype=torch.uint8,
+                        device="cuda")
+    spans = []
+    for lo in range(0, n_rows, ENCODE_BATCH):
+        hi = min(lo + ENCODE_BATCH, n_rows)
+        x = torch.randn((hi - lo, SIGN_FEATURES), generator=g, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        codes[lo:hi] = est.transform(x)
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return codes, sum(s.elapsed_time(e) for s, e in spans)
+
+
+def phase_serving(torch, rpt, tk, errs):
+    """Config-4 serving at full width; returns what the timing needs and
+    the kernel's launches on the serving path."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    est = rpt.SignRandomProjection(SIGN_BITS, random_state=7).fit_schema(
+        N_CODES, SIGN_FEATURES, dtype=np.float32)
+    check(est._backend.device.type == "cuda", "sign model is not on the card")
+    codes, enc_ms = _encode(torch, est, g, N_CODES)
+    log(f"serving: encoded {N_CODES} x {SIGN_FEATURES} -> {SIGN_BITS} bits in "
+        f"{enc_ms:.3f} ms of transform, {N_CODES / (enc_ms / 1e3):.1f} rows/s")
+    # sign agreement with a float64 product with the model's own matrix
+    gs = torch.Generator(device="cuda").manual_seed(12)
+    xs = torch.randn((N_QUERIES, SIGN_FEATURES), generator=gs, device="cuda")
+    r64 = torch.as_tensor(est.components_as_numpy(), device="cuda").double()
+    y64 = xs.double() @ r64.t()
+    bits = np.unpackbits(est.transform(xs).cpu().numpy(), axis=1,
+                         bitorder="little")
+    want = (y64 > 0).cpu().numpy().astype(np.uint8)
+    mismatch = float((bits != want).mean())
+    log(f"serving: sign mismatch {mismatch:.3e} on {N_QUERIES} rows vs float64 "
+        f"(budget {SIGN_MISMATCH_BUDGET})")
+    check(mismatch <= SIGN_MISMATCH_BUDGET, "sign mismatch over budget")
+
+    queries = est.transform(torch.randn((N_QUERIES, SIGN_FEATURES),
+                                        generator=g, device="cuda"))
+    idx = rpt.SimHashIndex(codes)
+    check(idx.device.type == "cuda", "index is not on the card")
+    hold = queries[:HOLD_QUERIES]
+    launches = 0
+
+    def run(label, chunks):
+        nonlocal launches
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        out = idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+        wall = time.perf_counter() - t0
+        n = tk.LAUNCHES["rp_fused_topk"]
+        launches += n
+        tiles = -(-N_QUERIES // QUERY_TILE)
+        log(f"serving: query_topk {label}: {N_QUERIES} queries x {idx.n_codes} "
+            f"codes m={TOPK_M} in {wall * 1e3:.3f} ms, "
+            f"{N_QUERIES / wall:.1f} queries/s; rp_fused_topk launches {n} "
+            f"({tiles} tile x {chunks} chunk x 2 passes)")
+        check(n == 2 * tiles * chunks, f"{n} launches for {label}")
+        return out
+
+    idx.query_topk(queries[:QUERY_TILE], TOPK_M)  # first-call set-up
+    d, i = run("resident", 1)
+    _hold(torch, tk, errs, (d[:HOLD_QUERIES], i[:HOLD_QUERIES]),
+          tk.topk_plain(hold, codes, N_CODES, TOPK_M),
+          f"main path, {HOLD_QUERIES} queries")
+
+    rng = np.random.default_rng(13)
+    dead_ids = rng.choice(N_CODES, N_CODES // 100, replace=False)
+    check(idx.delete(dead_ids) == len(dead_ids), "delete count")
+    d, i = run("1% deleted", 1)
+    check(not np.isin(i, dead_ids).any(), "a deleted id was returned")
+    dead = torch.zeros(N_CODES, dtype=torch.uint8, device="cuda")
+    dead[torch.as_tensor(dead_ids, device="cuda")] = 1
+    _hold(torch, tk, errs, (d[:HOLD_QUERIES], i[:HOLD_QUERIES]),
+          tk.topk_plain(hold, codes, N_CODES, TOPK_M, dead=dead),
+          f"masked main path, {HOLD_QUERIES} queries")
+
+    extra, _ = _encode(torch, est, g, N_ADD)
+    idx.add(extra)
+    d, i = run(f"after add of {N_ADD}", 2)
+    mapping = idx.compact()
+    d2, i2 = run("after compact", 1)
+    check(np.array_equal(d2, d) and np.array_equal(mapping[i2], i),
+          "compact changed a result")
+    log(f"serving: compact kept {idx.n_codes} codes; results equal through "
+        f"the mapping")
+
+    # the server: concurrent clients, each result against a direct call
+    n_rows = CLIENTS * REQUESTS * REQUEST_ROWS
+    qs = est.transform(torch.randn((n_rows, SIGN_FEATURES), generator=g,
+                                   device="cuda")).cpu().numpy()
+    want_d, want_i = idx.query_topk(qs, TOPK_M, tile=QUERY_TILE)
+    results = {}
+    tk.reset_launches()
+    with rpt.TopKServer(idx, TOPK_M, max_batch=MAX_BATCH, max_delay_s=0.01,
+                        name="chip-smoke") as srv:
+        def client(c):
+            futs = []
+            for r in range(REQUESTS):
+                lo = (c * REQUESTS + r) * REQUEST_ROWS
+                futs.append((lo, srv.submit(qs[lo:lo + REQUEST_ROWS],
+                                            label=f"client{c}")))
+            results[c] = [(lo, f.result(timeout=300)) for lo, f in futs]
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        st = srv.stats()
+    n = tk.LAUNCHES["rp_fused_topk"]
+    launches += n
+    for c in range(CLIENTS):
+        for lo, (d, i) in results[c]:
+            check(np.array_equal(d, want_d[lo:lo + REQUEST_ROWS])
+                  and np.array_equal(i, want_i[lo:lo + REQUEST_ROWS]),
+                  f"server result of client {c} differs from query_topk")
+    check(n == 2 * st["batches"], f"{n} launches for {st['batches']} batches")
+    lat = st["latency"]
+    log(f"serving: TopKServer {CLIENTS} clients x {REQUESTS} x {REQUEST_ROWS} "
+        f"rows: {n_rows / wall:.1f} queries/s, {st['batches']} batches, "
+        f"rows_per_batch_mean {st['rows_per_batch_mean']}, latency p50 "
+        f"{lat['p50'] * 1e3:.3f} ms p99 {lat['p99'] * 1e3:.3f} ms; "
+        f"rp_fused_topk launches {n}; every result equals query_topk")
+    return codes, queries, launches
+
+
+def phase_topk_shapes(torch, tk, errs):
+    """The kernel against its plain version at its trouble shapes."""
+    g = np.random.default_rng(21)
+    for nq, rows, nb, m, n_dead, corpus, what in (
+        (300, 5000, 3, 16, 0, "random", "3-byte codes"),
+        (5, 128, 1 << 16, 16, 0, "random", "128 rows x 2^16 bytes"),
+        (20, 100, 32, 150, 10, "random", "m above the live rows"),
+        (37, 1000, 32, 40, 100, "dup", "duplicated rows"),
+        (3, 4000, 32, tk.MAX_M, 0, "random", f"m = {tk.MAX_M}"),
+        (2049, 70_000, 32, 16, 700, "random", "2049 queries, ragged tile"),
+    ):
+        B = g.integers(0, 256, size=(rows, nb), dtype=np.uint8)
+        A = g.integers(0, 256, size=(nq, nb), dtype=np.uint8)
+        if corpus == "dup":
+            B[rows // 2: rows // 2 + 40] = B[1]
+            A[:3] = B[1]
+        if nb == 3:
+            B[:, -1] &= 0x0F
+            A[:, -1] &= 0x0F
+        q = torch.from_numpy(A).cuda()
+        c = torch.from_numpy(B).cuda()
+        dead = None
+        if n_dead:
+            dead = torch.zeros(rows, dtype=torch.uint8, device="cuda")
+            dead[torch.from_numpy(g.choice(rows, n_dead, replace=False)).cuda()] = 1
+        got = tk.rp_fused_topk(q, c, rows - 1, m, dead=dead)
+        torch.cuda.synchronize()
+        _hold(torch, tk, errs, got, tk.topk_plain(q, c, rows - 1, m, dead=dead),
+              f"rp_fused_topk {what} ({nq}x{rows}x{nb}B m={m})")
+    # past the plan's largest m the launcher refuses, and launches nothing
+    n0 = tk.LAUNCHES["rp_fused_topk"]
+    try:
+        tk.rp_fused_topk(q[:3], c, rows, tk.MAX_M + 1)
+    except ValueError as e:
+        check("MAX_M" in str(e), f"unexpected refusal: {e}")
+    else:
+        raise AssertionError(f"rp_fused_topk took m = {tk.MAX_M + 1}")
+    check(tk.LAUNCHES["rp_fused_topk"] == n0, "a refused call launched")
+    log(f"rp_fused_topk refuses m = {tk.MAX_M + 1} (past MAX_M)")
+
+
+def timing_topk(torch, tk, codes, queries, launches, errs):
+    nq, rows, nb = queries.shape[0], codes.shape[0], codes.shape[1]
+    hold = queries[:HOLD_QUERIES]
+    row = {
+        "name": "rp_fused_topk",
+        "route": "cuda",
+        "source": "randomprojection_tpu_torch/csrc/topk.cu",
+        "replaces": "randomprojection_tpu/ops/topk_kernels.py:449",
+        "launches": launches,
+        "max_abs_err": errs["rp_fused_topk"],
+        "ms": cuda_ms(lambda: tk.rp_fused_topk(queries, codes, rows, TOPK_M),
+                      reps=3),
+        "plain_ms": cuda_ms(lambda: tk.topk_plain(hold, codes, rows, TOPK_M),
+                            reps=1, warmup=0),
+        "library_ms": None,
+    }
+    # each code and query read once, dist and idx written once; a +-1
+    # product per bit of every (query, code) pair, exact in int8
+    bytes_ = rows * nb + nq * nb + 2 * nq * TOPK_M * 4
+    row.update(_bound(bytes_ / HBM_BYTES_PER_S,
+                      2 * nq * rows * nb * 8 / INT8_OPS_PER_S))
+    row["shape"] = (f"{nq}x{rows}x{nb}B m={TOPK_M}; plain_ms on "
+                    f"{HOLD_QUERIES} queries")
+    row["card"] = CARD
+    return row
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -360,6 +611,7 @@ def main() -> int:
         from randomprojection_tpu_torch import streaming
         from randomprojection_tpu_torch.ops import _build as build_mod
         from randomprojection_tpu_torch.ops import fused_kernels as fk
+        from randomprojection_tpu_torch.ops import topk_kernels as tk
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -374,14 +626,21 @@ def main() -> int:
         log(f"card: {CARD}; torch.cuda: {torch.cuda.get_device_name(0)}; "
             f"torch {torch.__version__} CUDA {torch.version.cuda}")
         t0 = time.perf_counter()
-        phase_build(fk, build_mod)
-        errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0}
+        phase_build(build_mod)
+        errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0,
+                "rp_fused_topk": 0}
         phase_kernels(torch, fk, errs)
         est, X, counts = phase_main_path(torch, rpt, fk, errs)
         phase_other_routes(torch, rpt, X)
         scratch.mkdir(parents=True, exist_ok=True)
         phase_stream(est, streaming, scratch)
         kernels = phase_timing(torch, fk, est, X, counts, errs)
+        del X, est
+        torch.cuda.empty_cache()
+        codes, queries, topk_launches = phase_serving(torch, rpt, tk, errs)
+        phase_topk_shapes(torch, tk, errs)
+        kernels.append(timing_topk(torch, tk, codes, queries, topk_launches,
+                                   errs))
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

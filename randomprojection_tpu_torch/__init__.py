@@ -2,10 +2,12 @@
 
 The JL estimators (Gaussian and sparse Achlioptas/Li random projection,
 JL auto-dimensioning, streamed row-batch transform with cursor resume)
-behind the same ``ProjectionBackend`` boundary, executed on an NVIDIA
-card: plain products through torch, and the fused lazy-mask projection
-and mask writer as hand-written CUDA kernels for Hopper
-(``csrc/fused_project.cu``).  ``backend='auto'`` is the card; the CPU runs
+behind the same ``ProjectionBackend`` boundary, and config-4 SimHash
+serving (``SignRandomProjection`` codes, ``SimHashIndex.query_topk``,
+``TopKServer``), executed on an NVIDIA card: plain products through
+torch; the fused lazy-mask projection and mask writer
+(``csrc/fused_project.cu``) and the fused Hamming top-k
+(``csrc/topk.cu``) as hand-written CUDA kernels for Hopper.  ``backend='auto'`` is the card; the CPU runs
 only when asked (``backend_options={'device': 'cpu'}``).
 
 The package imports neither JAX nor ``randomprojection_tpu``; the tests
@@ -24,6 +26,13 @@ _LAZY_ESTIMATORS = (
     "BaseRandomProjection",
     "GaussianRandomProjection",
     "SparseRandomProjection",
+    "SignRandomProjection",
+    "SimHashIndex",
+    "TopKServer",
+    "pairwise_hamming",
+    "pairwise_hamming_device",
+    "cosine_from_hamming",
+    "topk_bruteforce",
 )
 
 __all__ = [

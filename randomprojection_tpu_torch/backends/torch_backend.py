@@ -45,7 +45,7 @@ from randomprojection_tpu_torch.backends.base import (
 )
 from randomprojection_tpu_torch.utils.validation import bfloat16_dtype
 
-__all__ = ["TorchBackend"]
+__all__ = ["TorchBackend", "resolve_device"]
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -79,15 +79,18 @@ class _SplitMask:
         self.scale = float(scale)
 
 
-def _resolve_device(device):
+def resolve_device(device, *, how="backend_options={'device': 'cpu'}"):
+    """The torch device an entry point runs on: the card for ``None``
+    (raising when there is none, with ``how`` naming the way to ask for
+    the CPU), else the CUDA device or the CPU asked for."""
     import torch
 
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "the torch backend runs on a CUDA card and none is available "
-                "(torch.cuda.is_available() is False); pass "
-                "backend_options={'device': 'cpu'} to run on the CPU"
+                "the port runs on a CUDA card and none is available "
+                f"(torch.cuda.is_available() is False); pass {how} to run "
+                "on the CPU"
             )
         return torch.device("cuda")
     dev = torch.device(device)
@@ -96,6 +99,20 @@ def _resolve_device(device):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be a CUDA device or 'cpu', got {device!r}")
     return dev
+
+
+def pack_signs(y):
+    """``(n, k)`` coordinates → ``(n, ceil(k/8))`` uint8 sign codes: bit
+    ``j % 8`` of byte ``j // 8`` is ``y[:, j] > 0`` (torch has no
+    ``packbits``: the bits are shifted by ``arange(8)`` and summed)."""
+    import torch
+
+    n, k = y.shape
+    bits = (y > 0).to(torch.uint8)
+    if k % 8:
+        bits = torch.nn.functional.pad(bits, (0, 8 - k % 8))
+    shifts = torch.arange(8, dtype=torch.uint8, device=y.device)
+    return (bits.view(n, -(-k // 8), 8) << shifts).sum(-1, dtype=torch.uint8)
 
 
 def _to_numpy(y, np_dtype):
@@ -147,7 +164,7 @@ class TorchBackend(ProjectionBackend):
                     f"{name}={value!r} is not ported yet (ROADMAP {item}); "
                     f"the torch backend takes {name}={default!r} only"
                 )
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {_COMPUTE_DTYPES}, got {compute_dtype!r}"
@@ -343,6 +360,33 @@ class TorchBackend(ProjectionBackend):
         # the host and fetches it later, overlapping the next batch's work
         y, _ = self._transform_impl(X, state, spec)
         return y
+
+    def transform_packed_signs(self, X, state, spec: ProjectionSpec, *,
+                               materialize: bool = True):
+        """SimHash codes on the device: the projection, then ``y > 0``
+        packed 8 bits a byte, little-endian, as ``np.packbits(...,
+        bitorder='little')`` (pad bits of a ragged last byte are zero).
+
+        The dense route takes one float32 product under the precision
+        policy; the lazy and split2 routes compute their coordinates as
+        ``transform`` does.  Output ``(n, ceil(k/8))`` uint8: a tensor for a
+        tensor input or ``materialize=False`` (the streaming pipeline),
+        else a host array."""
+        from randomprojection_tpu_torch.ops.precision import matmul_nt
+
+        if isinstance(state, (_LazyMask, _SplitMask)):
+            y, device_resident = self._transform_impl(X, state, spec)
+        else:
+            x, device_resident = self._prepare_rows(
+                X, allow_bf16=spec.dtype == "bfloat16"
+            )
+            y = matmul_nt(x, state, self._einsum_precision())
+        codes = pack_signs(y)
+        if device_resident:
+            return codes.to(X.device)
+        if not materialize:
+            return codes
+        return codes.cpu().numpy()
 
     def _matrix(self, state, spec: ProjectionSpec):
         """``R`` as a float32 device tensor (the mask kernel for lazy)."""

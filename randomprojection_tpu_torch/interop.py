@@ -8,6 +8,11 @@ gives as plain Python and numpy — ``est.spec_.to_dict()`` and
 state is exactly those components, so both packages compute with the same
 matrix.
 
+A ``SignRandomProjection`` of the reference carries a Gaussian spec
+(its hyperplanes), which alone does not say which estimator it belongs
+to: pass ``estimator='sign'`` and the port's ``SignRandomProjection``
+comes back, holding the reference's components.
+
 A lazy spec needs no components: the port's lazy matrix is the hash
 stream that the JAX package's kernels contract under ``interpret=True``,
 a pure function of ``(seed, density)``.  (A lazy model fitted on a TPU
@@ -26,17 +31,21 @@ from randomprojection_tpu_torch.models.projections import (
     GaussianRandomProjection,
     SparseRandomProjection,
 )
+from randomprojection_tpu_torch.models.sketch import SignRandomProjection
 
 __all__ = ["from_reference"]
 
+#: estimator name → (class, the spec kind it holds)
 _ESTIMATORS = {
-    "gaussian": GaussianRandomProjection,
-    "sparse": SparseRandomProjection,
+    "gaussian": (GaussianRandomProjection, "gaussian"),
+    "sparse": (SparseRandomProjection, "sparse"),
+    "sign": (SignRandomProjection, "gaussian"),
 }
 
 
 def from_reference(spec_dict: dict, components=None,
-                   backend_options: Optional[dict] = None):
+                   backend_options: Optional[dict] = None, *,
+                   estimator: Optional[str] = None):
     """A fitted port estimator for a reference model.
 
     ``spec_dict`` is the reference's ``spec_.to_dict()``; ``components`` its
@@ -44,13 +53,22 @@ def from_reference(spec_dict: dict, components=None,
     ``backend_options`` asks for ``materialization='lazy'``.  With
     ``precision='split2'`` the components must be the scaled ±1/0 mask
     of a sparse spec; the port then holds the mask in bf16 and the scale.
+    ``estimator`` names the reference's estimator (``'gaussian'``,
+    ``'sparse'`` or ``'sign'``); by default the one of the spec's kind.
     """
     spec = ProjectionSpec.from_dict(dict(spec_dict))
-    cls = _ESTIMATORS.get(spec.kind)
-    if cls is None:
+    name = spec.kind if estimator is None else estimator
+    if name not in _ESTIMATORS:
         raise NotImplementedError(
-            f"kind={spec.kind!r} has no estimator in the port yet "
-            "(ROADMAP A7: SignRandomProjection)"
+            f"no port estimator for estimator={estimator!r}, kind="
+            f"{spec.kind!r}; the port has {sorted(_ESTIMATORS)} (a "
+            "SignRandomProjection spec is kind 'gaussian': pass "
+            "estimator='sign')"
+        )
+    cls, kind = _ESTIMATORS[name]
+    if spec.kind != kind:
+        raise ValueError(
+            f"estimator={name!r} holds a {kind!r} spec, got kind={spec.kind!r}"
         )
     options = dict(backend_options or {})
     kwargs = dict(

@@ -361,17 +361,16 @@ def fused_sparse_project(x, seed, n_components: int, density: float, *,
 
 
 def lazy_matrix(seed, n_components: int, n_features: int, density: float, *,
-                block_offset: int = 0, device="cpu"):
+                block_offset: int = 0, device=None):
     """The exact matrix ``fused_sparse_project`` contracts, ``M·scale`` as
     ``(k, d)`` float32 on ``device``: the plain version on the CPU, the
-    mask kernel on a card."""
-    import torch
+    mask kernel on a card.  ``device=None`` is the card, and raises when
+    there is none: the CPU runs only when asked (``device='cpu'``)."""
+    from randomprojection_tpu_torch.backends.torch_backend import resolve_device
 
-    device = torch.device(device)
+    device = resolve_device(device, how="device='cpu'")
     if device.type == "cpu":
         return lazy_matrix_plain(seed, n_components, n_features, density,
                                  block_offset=block_offset, device=device)
-    if device.type == "cuda":
-        return rp_lazy_matrix(seed, n_components, n_features, density,
-                              block_offset=block_offset, device=device)
-    raise ValueError(f"no mask kernel for device {device}")
+    return rp_lazy_matrix(seed, n_components, n_features, density,
+                          block_offset=block_offset, device=device)

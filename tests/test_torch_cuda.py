@@ -180,3 +180,126 @@ def test_card_stream_resume_bit_identical(cuda, tmp_path):
     rows = np.concatenate([read(lo, min(lo + 128, 1000))
                            for lo in range(0, 1000, 128)])
     np.testing.assert_array_equal(full, est.transform(rows))
+
+
+# -- the top-k kernel --------------------------------------------------------------
+
+# (queries, rows, bytes a row, m, tombstones, corpus): ragged query tiles
+# and row tiles throughout
+TOPK_SHAPES = [
+    (37, 1000, 32, 40, 100, "dup"),        # ties from duplicated rows
+    (300, 5000, 3, 16, 0, "random"),       # 3-byte (20-bit) codes, unaligned
+    (5, 128, 1 << 16, 16, 0, "random"),    # very wide rows, 2048 word chunks
+    (20, 100, 8, 150, 10, "random"),       # m above the live rows
+    (3, 2000, 32, 1024, 0, "random"),      # the plan's largest m
+    (130, 70_000, 32, 16, 700, "ties"),    # many splits, 3 distinct codes
+    (4, 60, 32, 5, 60, "random"),          # every row deleted
+]
+
+
+def _topk_inputs(nq, rows, nb, n_dead, corpus, device):
+    rng = np.random.default_rng(rows + nb)
+    if corpus == "ties":
+        basis = rng.integers(0, 256, size=(3, nb), dtype=np.uint8)
+        B, A = basis[rng.integers(0, 3, rows)], basis[rng.integers(0, 3, nq)]
+    else:
+        B = rng.integers(0, 256, size=(rows, nb), dtype=np.uint8)
+        A = rng.integers(0, 256, size=(nq, nb), dtype=np.uint8)
+        if corpus == "dup":
+            B[rows // 2: rows // 2 + 20] = B[0]
+            A[0] = B[0]
+    if nb == 3:
+        B[:, -1] &= 0x0F  # 20 bits: pad bits zero on both sides
+        A[:, -1] &= 0x0F
+    dead = None
+    if n_dead:
+        dead = np.zeros(rows, np.uint8)
+        dead[rng.choice(rows, n_dead, replace=False)] = 1
+        dead = torch.from_numpy(dead).to(device)
+    return (torch.from_numpy(A).to(device), torch.from_numpy(B).to(device),
+            dead)
+
+
+@pytest.mark.parametrize("nq,rows,nb,m,n_dead,corpus", TOPK_SHAPES)
+def test_topk_kernel_matches_plain(cuda, nq, rows, nb, m, n_dead, corpus):
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    q, codes, dead = _topk_inputs(nq, rows, nb, n_dead, corpus, cuda)
+    n_real = rows - 3
+    tk.reset_launches()
+    d, i = tk.fused_topk(q, codes, n_real, m, dead=dead)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == {"rp_fused_topk": 2}  # the scan and the merge
+    wd, wi = tk.topk_plain(q, codes, n_real, m, dead=dead)
+    assert d.shape == (nq, m) and d.dtype == i.dtype == torch.int32
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+def test_topk_kernel_smem_formula_matches_the_source(cuda):
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    lib = tk._lib()
+    for tq in (16, 32, 64):
+        for m in (1, 16, 1024):
+            assert lib.rp_topk_smem_bytes(tq, m) == tk.smem_bytes(tq, m)
+
+
+def test_topk_kernel_refuses_m_past_its_plan(cuda):
+    from randomprojection_tpu_torch.models import sketch as sk
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    q, codes, _ = _topk_inputs(3, 2000, 32, 0, "random", cuda)
+    tk.reset_launches()
+    with pytest.raises(ValueError, match=f"MAX_M={tk.MAX_M}"):
+        tk.fused_topk(q, codes, 2000, tk.MAX_M + 1)
+    with pytest.raises(ValueError, match=f"MAX_M={tk.MAX_M}"):
+        sk.SimHashIndex(codes).query_topk(q, tk.MAX_M + 1)
+    assert tk.LAUNCHES == {"rp_fused_topk": 0}
+
+
+# -- the serving path on the card ------------------------------------------------
+
+
+def test_query_topk_launches_the_kernel_per_tile_chunk_and_pass(cuda):
+    from randomprojection_tpu_torch.models import sketch as sk
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    rng = np.random.default_rng(3)
+    parts = [rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+             for n in (5000, 700)]
+    A = rng.integers(0, 256, size=(300, 32), dtype=np.uint8)
+    card = sk.SimHashIndex(parts[0])
+    cpu = sk.SimHashIndex(parts[0], device="cpu")
+    for idx in (card, cpu):
+        idx.add(parts[1])
+        idx.delete([0, 9, 5001])
+    assert card.device.type == "cuda"
+    tk.reset_launches()
+    got = card.query_topk(A, 16, tile=128)  # 3 tiles x 2 chunks x 2 passes
+    assert tk.LAUNCHES == {"rp_fused_topk": 12}
+    want = cpu.query_topk(A, 16, tile=128)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    # queries already on the card give the same answer
+    got_t = card.query_topk(torch.from_numpy(A).to(cuda), 16, tile=128)
+    np.testing.assert_array_equal(got_t[1], want[1])
+    with sk.TopKServer(card, 16, name="card-test") as srv:
+        d, i = srv.query(A[:37])
+    np.testing.assert_array_equal(i, want[1][:37])
+
+
+def test_sign_codes_on_the_card_match_the_cpu(cuda):
+    import randomprojection_tpu_torch as rpt
+
+    X = np.random.default_rng(6).normal(size=(1000, 768)).astype(np.float32)
+    card = rpt.SignRandomProjection(256, random_state=7).fit(X)
+    cpu = rpt.SignRandomProjection(256, random_state=7,
+                                   backend_options={"device": "cpu"}).fit(X)
+    got, want = card.transform(X), cpu.transform(X)
+    assert got.dtype == np.uint8 and got.shape == (1000, 32)
+    y = X.astype(np.float64) @ cpu.components_as_numpy().astype(np.float64).T
+    diff = np.unpackbits(got ^ want, axis=1, bitorder="little").astype(bool)
+    # bits may differ only where |y| ≤ 1e-5·max|y|: sums in another order
+    assert not (diff & (np.abs(y) > 1e-5 * np.abs(y).max())).any()
+    codes = card.transform(torch.from_numpy(X).to(cuda))
+    assert codes.is_cuda and codes.dtype == torch.uint8

@@ -34,7 +34,7 @@ def test_lazy_matrix_equals_interpreter_matrix(seed, density):
         want = np.asarray(
             pk.pallas_sparse_matrix(seed, k, d, density, interpret=True)
         )
-        got = fk.lazy_matrix(seed, k, d, density).numpy()
+        got = fk.lazy_matrix(seed, k, d, density, device="cpu").numpy()
         assert got.dtype == want.dtype == np.float32
         np.testing.assert_array_equal(got, want)
 
@@ -46,7 +46,8 @@ def test_lazy_matrix_block_offset_is_a_column_slice(offset, d):
     full = np.asarray(
         pk.pallas_sparse_matrix(12345678901, 16, lo + d, 0.25, interpret=True)
     )
-    got = fk.lazy_matrix(12345678901, 16, d, 0.25, block_offset=offset)
+    got = fk.lazy_matrix(12345678901, 16, d, 0.25, block_offset=offset,
+                         device="cpu")
     np.testing.assert_array_equal(got.numpy(), full[:, lo:])
 
 
@@ -114,7 +115,8 @@ def test_fused_project_is_x_times_lazy_matrix():
     x = _x(33, 1030, seed=3)
     y = fk.fused_sparse_project(torch.from_numpy(x), 9, 24, 1 / 3,
                                 mxu_mode="split2").numpy()
-    R = fk.lazy_matrix(9, 24, 1030, 1 / 3).numpy().astype(np.float64)
+    R = fk.lazy_matrix(9, 24, 1030, 1 / 3, device="cpu").numpy().astype(
+        np.float64)
     ref = x.astype(np.float64) @ R.T
     assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
 
@@ -126,7 +128,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     torch.testing.assert_close(
         got, fk.fused_project(x, 1, 8, 0.5, mxu_mode="split2"), rtol=0, atol=0
     )
-    fk.lazy_matrix(1, 8, 512, 0.5)
+    fk.lazy_matrix(1, 8, 512, 0.5, device="cpu")
     assert fk.LAUNCHES == {"rp_fused_project": 0, "rp_lazy_matrix": 0}
 
 
@@ -158,3 +160,10 @@ def test_validation_as_fused_raw(kwargs, match):
                       kwargs.get("density", 0.5), block_n=None,
                       block_offset=0, mxu_mode=kwargs.get("mxu_mode", "f32"),
                       interpret=True, no_cache=False)
+
+
+def test_lazy_matrix_needs_the_card_unless_the_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="none is available.*device='cpu'"):
+        fk.lazy_matrix(1, 8, 512, 0.5)
+    assert fk.lazy_matrix(1, 8, 512, 0.5, device="cpu").shape == (8, 512)
