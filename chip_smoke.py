@@ -41,7 +41,25 @@ Phases (any failure exits non-zero and prints no result):
    ``query_topk``; the kernel against its plain version at its trouble
    shapes (3-byte codes, 2^16-byte rows, m above the live rows, ties, the
    plan's largest m, a ragged query tile); and its time at 2048 × 2^24 ×
-   32 B.
+   32 B;
+9. the multi-probe LSH tier at the reference's own bench shape
+   (``benchmark.py`` ``LSH_BENCH_SHAPES["full"]``): 2^20 planted-neighbour
+   codes of 32 bytes (clusters of 16, 6 noise bits) in an
+   ``LSHSimHashIndex(bands=8, band_bits=16, fallback_density=1.0)`` on the
+   card; for 1, 2, 4, 8 and 16 probes ``query_topk`` of 256 queries (m = 10,
+   tile 64) on the device rung (``rp_probe`` then ``rp_fused_topk``, launches
+   read around each call) equals the host rung bit for bit with zero
+   fallbacks, with recall@10 against the exact answer (``probes=0`` through
+   the same index), the candidate fraction, q/s over 3 other query sets and
+   the host-prep/dispatch split; some probe count reaches recall ≥ 0.95 at a
+   candidate fraction ≤ 0.10 (the reference's tripwire); the probe kernel
+   against its plain version at the bench shape and its trouble shapes;
+   full probe coverage and adaptive probing at their ceiling on a two-chunk
+   index with tombstones across the seam equal a brute force; a
+   ``TopKServer`` with a two-label ``probe_policy`` answers each request as a
+   direct ``query_topk`` with that label's probes does; and
+   ``torch.profiler`` splits one device-rung call at 16 probes into device
+   time by kernel beside its host wall.
 
 The kernels' timings are printed as one JSON line.
 
@@ -89,6 +107,15 @@ N_QUERIES, TOPK_M, QUERY_TILE = 2048, 16, 2048
 CLIENTS, REQUESTS, REQUEST_ROWS, MAX_BATCH = 16, 4, 128, 8192
 HOLD_QUERIES = 64  # queries held against the plain version on the card
 SIGN_MISMATCH_BUDGET = 1e-4
+# the LSH tier (benchmark.py LSH_BENCH_SHAPES["full"], the reference's own
+# bench shape, nothing cut): planted neighbours, probes 1..16, 3 timed query
+# sets; the tripwire of benchmark.py:64-65
+LSH_N, LSH_BYTES, LSH_CLUSTER, LSH_NOISE = 1 << 20, 32, 16, 6
+LSH_NQ, LSH_M, LSH_BANDS, LSH_BAND_BITS = 256, 10, 8, 16
+LSH_PROBES, LSH_CALLS, LSH_TILE = (1, 2, 4, 8, 16), 3, 64
+LSH_RECALL_GATE, LSH_FRACTION_GATE = 0.95, 0.10
+# full coverage: 4 bands x 8 bits over 2^16 codes in two chunks
+FULL_N, FULL_BANDS, FULL_BAND_BITS, FULL_NQ = 1 << 16, 4, 8, 64
 
 CARD = ""
 
@@ -587,6 +614,385 @@ def timing_topk(torch, tk, codes, queries, launches, errs):
     return row
 
 
+# -- the LSH tier --------------------------------------------------------------------
+
+
+def _lsh_flip_bits(rng, codes, flips: int, n_bits: int):
+    """XOR ``flips`` random bit positions into every row (duplicate
+    positions cancel); the reference bench's generator
+    (randomprojection_tpu/benchmark.py ``_lsh_flip_bits``)."""
+    out = codes.copy()
+    rows = np.repeat(np.arange(out.shape[0], dtype=np.int64), flips)
+    pos = rng.integers(0, n_bits, size=rows.size)
+    np.bitwise_xor.at(out, (rows, pos >> 3),
+                      np.left_shift(np.uint8(1), (pos & 7).astype(np.uint8)))
+    return out
+
+
+def _lsh_data():
+    """The reference bench's planted-neighbour corpus and 4 query sets,
+    seed 15, drawn in the reference's order (benchmark.py
+    ``measure_topk_lsh``)."""
+    n_bits = LSH_BYTES * 8
+    rng = np.random.default_rng(15)
+    n_clusters = LSH_N // LSH_CLUSTER
+    centers = rng.integers(0, 256, size=(n_clusters, LSH_BYTES), dtype=np.uint8)
+    codes = _lsh_flip_bits(rng, np.repeat(centers, LSH_CLUSTER, axis=0),
+                           LSH_NOISE, n_bits)
+    qc = rng.integers(0, n_clusters, size=(LSH_CALLS + 1) * LSH_NQ)
+    return codes, _lsh_flip_bits(rng, centers[qc], LSH_NOISE, n_bits)
+
+
+def _lsh_counters(reg):
+    return (reg.counter("index.lsh.dispatches"),
+            reg.counter("index.lsh.candidates"),
+            reg.counter("index.lsh.fallbacks"),
+            reg.hist_sum("index.lsh.probe.host_s"),
+            reg.hist_sum("index.lsh.probe.dispatch_s"))
+
+
+def _hold_probe(torch, pk, errs, planes, cap, what):
+    """The probe kernel against its plain version on the same planes: slots,
+    counts and stats bit for bit (the same algorithm, overflow included)."""
+    got = pk.rp_probe_gather(*planes, cap=cap)
+    torch.cuda.synchronize()
+    want = pk.probe_plain(*planes, cap=cap)
+    for g, w in zip(got, want):
+        errs["rp_probe"] = max(errs["rp_probe"],
+                               (g.long() - w.long()).abs().max().item())
+        check(torch.equal(g, w), f"rp_probe_gather differs from probe_plain: {what}")
+    st = got[2].tolist()
+    log(f"{what}: bit-exact against probe_plain (written {st[0]}, overflow "
+        f"{st[1]}, attempted {int(got[1].long().sum())}, cap {cap})")
+    return st
+
+
+def _tile_planes(torch, pk, index, q, p, inactive=()):
+    """The probe planes the device rung builds for one query tile."""
+    qd = torch.as_tensor(q).cuda()
+    masks = index._lsh_device_masks(index._probe_masks(p))
+    active = torch.ones((1, q.shape[0]), dtype=torch.int32, device="cuda")
+    active[0, list(inactive)] = 0
+    indptr, ids = index._lsh_device_csr()
+    qkeys = pk.device_band_keys(qd, index.band_plan.bands,
+                                index.band_plan.band_bits)
+    return [qkeys, masks, active, indptr, ids]
+
+
+def phase_lsh(torch, pk, tk, errs):
+    """The LSH tier at the reference's bench shape: the curve, its checks,
+    the probe kernel against its plain version at the bench shape, and the
+    inputs of its timing.  Returns those inputs and ``rp_probe``'s launches
+    on the curve (each device-rung call read with the counts set to 0 just
+    before it)."""
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.utils import telemetry
+
+    reg = telemetry.registry()
+    t0 = time.perf_counter()
+    codes, queries = _lsh_data()
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = LSHSimHashIndex(codes, bands=LSH_BANDS, band_bits=LSH_BAND_BITS,
+                            fallback_density=1.0)
+    build_s = time.perf_counter() - t0
+    check(index.device.type == "cuda", "LSH index is not on the card")
+    log(f"lsh: {LSH_N} planted codes x {LSH_BYTES} B made in {data_s:.3f} s; "
+        f"index ({LSH_BANDS} bands x {LSH_BAND_BITS} bits) built in "
+        f"{build_s:.3f} s on the host")
+    q0 = queries[:LSH_NQ]
+    sets = [queries[(c + 1) * LSH_NQ: (c + 2) * LSH_NQ] for c in range(LSH_CALLS)]
+    true_d, true_i = index.query_topk(q0, LSH_M, probes=0)
+    t0 = time.perf_counter()
+    for qs in sets:
+        index.query_topk(qs, LSH_M, probes=0)
+    exact_qps = LSH_CALLS * LSH_NQ / (time.perf_counter() - t0)
+    log(f"lsh: exact baseline (probes=0, rp_fused_topk over all {LSH_N} "
+        f"codes): {exact_qps:.1f} queries/s")
+    tiles = -(-LSH_NQ // LSH_TILE)
+    launches = 0
+    curve = []
+    for p in LSH_PROBES:
+        def device_call(qs):
+            nonlocal launches
+            pk.reset_launches()
+            tk.reset_launches()
+            out = index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
+            n_probe, n_topk = pk.LAUNCHES["rp_probe"], tk.LAUNCHES["rp_fused_topk"]
+            launches += n_probe
+            check(n_probe == 3 * tiles and n_topk == 2 * tiles,
+                  f"probes={p}: rp_probe {n_probe}, rp_fused_topk {n_topk} "
+                  f"launches for {tiles} tiles (want 3 and 2 a tile)")
+            return out, n_probe, n_topk
+
+        c0 = _lsh_counters(reg)
+        (got_d, got_i), n_probe, n_topk = device_call(q0)
+        check(_lsh_counters(reg)[2] == c0[2], f"probes={p}: a fallback")
+        host_d, host_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p,
+                                          probe_path="host")
+        check(np.array_equal(got_d, host_d) and np.array_equal(got_i, host_i),
+              f"probes={p}: device rung differs from the host rung")
+        recall = sum(np.intersect1d(g, t).size
+                     for g, t in zip(got_i, true_i)) / true_i.size
+        d0, k0, f0, h0, w0 = _lsh_counters(reg)
+        t0 = time.perf_counter()
+        for qs in sets:
+            device_call(qs)
+        elapsed = time.perf_counter() - t0
+        d1, k1, f1, h1, w1 = _lsh_counters(reg)
+        frac = (k1 - k0) / (d1 - d0) / index.n_live
+        point = {"probes": p, "recall_at_m": recall,
+                 "candidate_fraction": frac,
+                 "queries_per_s": LSH_CALLS * LSH_NQ / elapsed,
+                 "fallbacks": int(f1 - f0), "probe_host_s": h1 - h0,
+                 "probe_dispatch_s": w1 - w0}
+        curve.append(point)
+        log(f"lsh probes={p}: recall@{LSH_M} {recall:.4f}, candidate fraction "
+            f"{frac:.6f}, {point['queries_per_s']:.1f} queries/s "
+            f"({point['queries_per_s'] / exact_qps:.2f}x exact), host prep "
+            f"{point['probe_host_s']:.6f} s vs dispatch "
+            f"{point['probe_dispatch_s']:.6f} s over {LSH_CALLS} calls, "
+            f"fallbacks {point['fallbacks']}; launches a call: rp_probe "
+            f"{n_probe}, rp_fused_topk {n_topk}; device rung == host rung")
+        check(point["fallbacks"] == 0, f"probes={p}: fallbacks in the timed calls")
+        # the probe kernel at this probe count's first tile
+        pplan = pk.plan_probe(LSH_TILE, LSH_N, LSH_BANDS, LSH_BAND_BITS, p, LSH_M)
+        _hold_probe(torch, pk, errs, _tile_planes(torch, pk, index, q0[:LSH_TILE], p),
+                    pplan.cap, f"rp_probe_gather bench tile, probes={p}")
+    gate = [c for c in curve if c["recall_at_m"] >= LSH_RECALL_GATE
+            and c["candidate_fraction"] <= LSH_FRACTION_GATE]
+    check(bool(gate), f"no probe count reaches recall >= {LSH_RECALL_GATE} at "
+          f"candidate fraction <= {LSH_FRACTION_GATE}")
+    log(f"lsh: tripwire holds at probes={gate[0]['probes']} (recall "
+        f"{gate[0]['recall_at_m']:.4f}, fraction "
+        f"{gate[0]['candidate_fraction']:.6f}); curve "
+        f"{json.dumps(curve)}")
+    return index, codes, queries, launches
+
+
+def phase_lsh_wide(pk, tk, codes, queries):
+    """The bench corpus under 8 bands of 2^20 buckets, a shape the
+    reference's planner refuses (its TPU budget): the device rung sizes
+    each tile by its runs and serves it on the card with no fallback,
+    equal to the host rung."""
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.utils import telemetry
+
+    reg = telemetry.registry()
+    t0 = time.perf_counter()
+    index = LSHSimHashIndex(codes, bands=8, band_bits=20, fallback_density=1.0)
+    build_s = time.perf_counter() - t0
+    q0 = queries[:LSH_NQ]
+    tiles = -(-LSH_NQ // LSH_TILE)
+    for p in (1, 16):
+        check(pk.plan_probe(LSH_TILE, LSH_N, 8, 20, p, LSH_M) is None,
+              f"wide bands, probes={p}: the reference planner has a tile")
+        f0 = reg.counter("index.lsh.fallbacks")
+        pk.reset_launches()
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        got_d, got_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p)
+        wall = time.perf_counter() - t0
+        n_probe, n_topk = pk.LAUNCHES["rp_probe"], tk.LAUNCHES["rp_fused_topk"]
+        check(n_probe == 3 * tiles and n_topk == 2 * tiles,
+              f"wide bands, probes={p}: rp_probe {n_probe}, rp_fused_topk "
+              f"{n_topk} launches for {tiles} tiles (want 3 and 2 a tile)")
+        check(reg.counter("index.lsh.fallbacks") == f0,
+              f"wide bands, probes={p}: a fallback")
+        host_d, host_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p,
+                                          probe_path="host")
+        check(np.array_equal(got_d, host_d) and np.array_equal(got_i, host_i),
+              f"wide bands, probes={p}: device rung differs from the host rung")
+        log(f"lsh wide bands (8 x 20 bits, no reference plan; index built in "
+            f"{build_s:.3f} s) probes={p}: {LSH_NQ} queries in {wall * 1e3:.3f} "
+            f"ms, launches rp_probe {n_probe}, rp_fused_topk {n_topk}, no "
+            f"fallback; device rung == host rung")
+    del index
+
+
+def profile_lsh(torch, index, queries):
+    """Device time by kernel of one device-rung call at 16 probes
+    (``torch.profiler`` through CUPTI), beside the call's host wall: the
+    device's busy share of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    qs = queries[LSH_NQ: 2 * LSH_NQ]
+    p = LSH_PROBES[-1]
+    index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(
+        ((e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+         for e in prof.key_averages()
+         if getattr(e, "device_type", None) == DeviceType.CUDA),
+        key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    if busy_us <= 0:
+        log(f"lsh profile: the profiler saw no device time (busy share not "
+            f"measured); call wall {wall * 1e3:.3f} ms")
+        return
+    log(f"lsh profile, probes={p}, {LSH_NQ} queries in "
+        f"{-(-LSH_NQ // LSH_TILE)} tiles: call wall {wall * 1e3:.3f} ms "
+        f"(under the profiler), device busy {busy_us / 1e3:.3f} ms "
+        f"({busy_us / 1e3 / (wall * 1e3):.1%} of the wall) in "
+        f"{sum(r[2] for r in rows)} device events")
+    for name, us, n in rows[:10]:
+        log(f"  {us:10.1f} us  x{n:<4} {name[:100]}")
+
+
+def phase_probe_shapes(torch, pk, index, queries, errs):
+    """The probe kernel against its plain version at its trouble shapes."""
+    from randomprojection_tpu_torch.ann import lsh
+
+    # an overflowing tile, and a ragged tile with inactive queries, on the
+    # bench CSR
+    planes = _tile_planes(torch, pk, index, queries[:LSH_TILE], 16)
+    st = _hold_probe(torch, pk, errs, planes, 4096, "overflowing bench tile")
+    check(st[:2] == [0, 1], f"overflow not flagged: {st}")
+    _hold_probe(torch, pk, errs,
+                _tile_planes(torch, pk, index, queries[:37], 4, inactive=(0, 5, 36)),
+                1 << 18, "37 queries, 3 inactive")
+    g = np.random.default_rng(31)
+    for rows, nb, bands, b, nq, masks, dup, what in (
+        (2000, 32, 4, 12, 64, [0, 1, 2], 0, "empty buckets (2^12 a band, 2000 rows)"),
+        (20_000, 32, 2, 8, 16, [0, 1], 5000, "a run of 5000 ids"),
+        (3000, 32, 3, 3, 9, [0, 1, 2, 3, 4, 5, 6, 7, 0, 1], 0, "P = 10 > 2^3"),
+        (1 << 18, 32, 2, 20, 64, [0, 1, 2, 4, 8], 0, "band_bits = 20"),
+        (3000, 32, 16, 8, 1024, list(range(128)), 0, "2^21 runs, 2048 blocks"),
+    ):
+        codes = g.integers(0, 256, size=(rows, nb), dtype=np.uint8)
+        codes[:dup] = codes[0]
+        plan = lsh.BandPlan(nb * 8, bands=bands, band_bits=b)
+        bk = lsh.BandedBuckets(plan)
+        bk.add(codes)
+        q = codes[g.integers(0, rows, nq)]
+        q[0] = codes[0]  # the repeated rows' bucket is probed
+        planes = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+            lsh.band_keys(q, plan).astype(np.int32),
+            np.asarray(masks, np.int32)[None, :], np.ones((1, nq), np.int32),
+            np.stack([ip.astype(np.int32) for ip in bk._indptr]),
+            np.stack(bk._ids))]
+        cap = 1 << 25
+        _hold_probe(torch, pk, errs, planes, cap, f"rp_probe_gather {what}")
+
+
+def _masked_brute(A, B, m, dead_ids):
+    """Exact top-m of ``A`` against ``B`` on the host, tombstones excluded,
+    (distance, lower id) order; codes in blocks."""
+    pop = np.array([bin(v).count("1") for v in range(256)], np.int64)
+    D = np.empty((A.shape[0], B.shape[0]), np.int64)
+    for lo in range(0, B.shape[0], 4096):
+        D[:, lo:lo + 4096] = pop[A[:, None, :] ^ B[None, lo:lo + 4096, :]].sum(-1)
+    D[:, dead_ids] = B.shape[1] * 8 + 1
+    key = (D << 20) | np.arange(B.shape[0])
+    sel = np.argsort(key, axis=1)[:, :m]
+    return np.take_along_axis(D, sel, 1).astype(np.int32), sel.astype(np.int32)
+
+
+def phase_lsh_full(pk):
+    """Full probe coverage and adaptive probing at their ceiling on a
+    two-chunk index with tombstones across the seam: a brute force."""
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+
+    g = np.random.default_rng(33)
+    codes = g.integers(0, 256, size=(FULL_N, LSH_BYTES), dtype=np.uint8)
+    A = codes[g.integers(0, FULL_N, FULL_NQ)] ^ np.uint8(0x11)
+    half = FULL_N // 2
+    index = LSHSimHashIndex(codes[:half], bands=FULL_BANDS,
+                            band_bits=FULL_BAND_BITS, fallback_density=1.0)
+    index.add(codes[half:])
+    dead = np.concatenate([np.arange(half - 70, half + 70),
+                           g.choice(FULL_N, 600, replace=False)])
+    index.delete(dead)
+    want = _masked_brute(A, codes, LSH_M, np.unique(dead))
+    full = 1 << FULL_BAND_BITS
+    for adaptive in (False, True):
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        d, i = index.query_topk(A, LSH_M, tile=LSH_TILE, probes=full,
+                                adaptive=adaptive)
+        wall = time.perf_counter() - t0
+        check(np.array_equal(d, want[0]) and np.array_equal(i, want[1]),
+              f"full coverage (adaptive={adaptive}) differs from brute force")
+        check(pk.LAUNCHES["rp_probe"] > 0, "full coverage launched no rp_probe")
+        log(f"lsh full coverage ({FULL_BANDS} bands x {FULL_BAND_BITS} bits, "
+            f"{FULL_N} codes in 2 chunks, {dead.size} tombstones across the "
+            f"seam, adaptive={adaptive}): {FULL_NQ} queries equal a brute force "
+            f"in {wall * 1e3:.3f} ms; rp_probe launches {pk.LAUNCHES['rp_probe']}")
+
+
+def phase_lsh_server(index, queries):
+    """A TopKServer with a two-label probe_policy: each request's answer is
+    a direct query_topk of its label's coalesced group with its probes."""
+    from randomprojection_tpu_torch.models import sketch as sk
+
+    policy = {"fast": 2, "deep": 8}
+    srv = sk.TopKServer(index, LSH_M, max_batch=8192, max_delay_s=0.05,
+                        probe_policy=policy, name="chip-smoke-lsh", start=False)
+    labels = ["fast", "deep"] * 4
+    futs = [srv.submit(queries[64 * k: 64 * k + 64], label=lab)
+            for k, lab in enumerate(labels)]
+    t0 = time.perf_counter()
+    srv.start()  # every request is queued: one coalesced batch, two classes
+    got = [f.result(timeout=300) for f in futs]
+    wall = time.perf_counter() - t0
+    srv.close()
+    st = srv.stats()
+    check(st["batches"] == 2, f"{st['batches']} dispatches for two probe classes")
+    for label, p in policy.items():
+        ks = [k for k, lab in enumerate(labels) if lab == label]
+        arr = np.concatenate([queries[64 * k: 64 * k + 64] for k in ks])
+        pad = sk.row_bucket(arr.shape[0])
+        arr = np.pad(arr, ((0, pad - arr.shape[0]), (0, 0)))
+        wd, wi = index.query_topk(arr, LSH_M, tile=pad, probes=p)
+        for j, k in enumerate(ks):
+            check(np.array_equal(got[k][0], wd[64 * j: 64 * j + 64])
+                  and np.array_equal(got[k][1], wi[64 * j: 64 * j + 64]),
+                  f"server request {k} ({label}) differs from query_topk")
+    log(f"lsh: TopKServer probe_policy {json.dumps(policy)}: {len(labels)} "
+        f"requests x 64 rows in {st['batches']} dispatches, {wall * 1e3:.3f} ms; "
+        f"every result equals a direct query_topk with its label's probes")
+
+
+def timing_probe(torch, pk, index, queries, launches, errs):
+    """K5 at the bench shape (one tile of 64 queries at 16 probes)."""
+    p = LSH_PROBES[-1]
+    planes = _tile_planes(torch, pk, index, queries[:LSH_TILE], p)
+    cap = pk.plan_probe(LSH_TILE, LSH_N, LSH_BANDS, LSH_BAND_BITS, p, LSH_M).cap
+    _, _, stats = pk.rp_probe_gather(*planes, cap=cap)
+    written = int(stats[0])
+    row = {
+        "name": "rp_probe",
+        "route": "cuda",
+        "source": "randomprojection_tpu_torch/csrc/probe.cu",
+        "replaces": "randomprojection_tpu/ops/probe_kernels.py:262",
+        "launches": launches,
+        "max_abs_err": errs["rp_probe"],
+        "ms": cuda_ms(lambda: pk.rp_probe_gather(*planes, cap=cap), reps=200,
+                      warmup=5),
+        "plain_ms": cuda_ms(lambda: pk.probe_plain(*planes, cap=cap), reps=20,
+                            warmup=2),
+        "library_ms": None,
+    }
+    runs = LSH_TILE * LSH_BANDS * p
+    # inputs read once (keys, masks, active; two indptr words a run; the
+    # gathered ids), outputs written once (cap slots, counts, stats); a
+    # dozen integer operations a run and two a gathered id
+    bytes_ = (4 * (LSH_BANDS * LSH_TILE + p + LSH_TILE) + 8 * runs
+              + 4 * written + 4 * cap + 4 * LSH_TILE + 32)
+    row.update(_bound(bytes_ / HBM_BYTES_PER_S,
+                      (12 * runs + 2 * written) / FP32_FLOP_PER_S))
+    row["shape"] = (f"{LSH_TILE} queries x {LSH_BANDS} bands x {p} probes over "
+                    f"{LSH_N} ids, {written} gathered, cap {cap}")
+    row["card"] = CARD
+    return row
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -611,6 +1017,7 @@ def main() -> int:
         from randomprojection_tpu_torch import streaming
         from randomprojection_tpu_torch.ops import _build as build_mod
         from randomprojection_tpu_torch.ops import fused_kernels as fk
+        from randomprojection_tpu_torch.ops import probe_kernels as pk
         from randomprojection_tpu_torch.ops import topk_kernels as tk
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -628,7 +1035,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_build(build_mod)
         errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0,
-                "rp_fused_topk": 0}
+                "rp_fused_topk": 0, "rp_probe": 0}
         phase_kernels(torch, fk, errs)
         est, X, counts = phase_main_path(torch, rpt, fk, errs)
         phase_other_routes(torch, rpt, X)
@@ -641,6 +1048,18 @@ def main() -> int:
         phase_topk_shapes(torch, tk, errs)
         kernels.append(timing_topk(torch, tk, codes, queries, topk_launches,
                                    errs))
+        del codes, queries
+        torch.cuda.empty_cache()
+        index, lsh_codes, lsh_queries, probe_launches = phase_lsh(
+            torch, pk, tk, errs)
+        profile_lsh(torch, index, lsh_queries)
+        phase_lsh_wide(pk, tk, lsh_codes, lsh_queries)
+        del lsh_codes
+        phase_probe_shapes(torch, pk, index, lsh_queries, errs)
+        phase_lsh_full(pk)
+        phase_lsh_server(index, lsh_queries)
+        kernels.append(timing_probe(torch, pk, index, lsh_queries,
+                                    probe_launches, errs))
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

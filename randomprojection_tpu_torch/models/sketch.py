@@ -15,9 +15,10 @@ The port of the serving half of ``randomprojection_tpu/models/sketch.py``:
 
 The index and the server run on the card unless the caller asks for the
 CPU (``SimHashIndex(..., device='cpu')``), where the kernel's plain
-version serves.  Meshes (ROADMAP A10), tiered residency (A12), snapshots
-(A9) and LSH probe policies (A11) are later slices and raise naming their
-item.
+version serves.  Meshes (ROADMAP A10), tiered residency (A12) and
+snapshots (A9) are later slices and raise naming their item.  The
+multi-probe LSH tier on top of the index is ``ann.LSHSimHashIndex``; a
+``TopKServer`` takes per-label probe budgets for it (``probe_policy``).
 """
 
 from __future__ import annotations
@@ -268,6 +269,16 @@ class SimHashIndex:
             return t.clone()
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _codes_appended(self, codes, row0: int) -> None:
+        """Subclass hook: ``codes`` (the chunk as given: a host array or a
+        tensor) just became global rows ``[row0, row0 + len(codes))`` of
+        this index.  Every append path (the constructor, ``add``,
+        ``compact``'s re-upload) funnels through ``_upload_chunk`` and
+        lands here.  The multi-probe LSH tier (``ann.LSHSimHashIndex``)
+        folds the new rows into its bucket index from this hook, copying a
+        tensor chunk to the host once; the base index keeps no derived
+        structures and copies nothing."""
+
     def _upload_chunk(self, codes):
         n = int(codes.shape[0])
         if self.n_codes + n >= 2**31:
@@ -285,7 +296,9 @@ class SimHashIndex:
         self._chunks.append(_IndexChunk(self._to_device(codes), n, self.n_codes))
         if self._dead is not None:
             self._dead = np.concatenate([self._dead, np.zeros(n, dtype=bool)])
+        row0 = self.n_codes
         self.n_codes += n
+        self._codes_appended(codes, row0)
 
     def add(self, codes):
         """Append codes as a new resident chunk — ships only the new rows."""
@@ -576,6 +589,12 @@ class TopKServer:
     Results equal per-request ``query_topk`` calls: the selection is
     independent per query row.  ``m`` is fixed per server.
 
+    ``probe_policy`` (an LSH-tier index only): ``{label: probes}``.  A
+    batch splits by the labels' probe budgets and each class runs its own
+    ``query_topk(..., probes=p)``; unlabelled requests and labels outside
+    the policy keep the index's default probes, and 0 pins a label onto
+    the exact path.
+
     The dispatcher pins the index's card in its own thread and launches on
     that thread's current stream.
 
@@ -605,9 +624,31 @@ class TopKServer:
         if not isinstance(m, numbers.Integral) or m <= 0:
             raise ValueError(f"m must be a positive int, got {m!r}")
         if probe_policy is not None:
-            raise ValueError(
-                "probe_policy is not ported yet (ROADMAP A11, the LSH tier)"
-            )
+            # per-label probe classes: label -> probes, keyed by the
+            # sanitized label (submit sanitizes before routing); 0 pins a
+            # label onto the exact path
+            if not isinstance(probe_policy, dict):
+                raise ValueError(
+                    f"probe_policy must be a dict of label -> probes, "
+                    f"got {probe_policy!r}"
+                )
+            if not hasattr(index, "probes"):
+                raise ValueError(
+                    "probe_policy requires an LSH-tier index (its "
+                    "query_topk must accept probes=); got "
+                    f"{type(index).__name__}"
+                )
+            pol = {}
+            for k, v in probe_policy.items():
+                if (isinstance(v, bool)
+                        or not isinstance(v, numbers.Integral) or v < 0):
+                    raise ValueError(
+                        f"probe_policy[{k!r}] must be a non-negative "
+                        f"int, got {v!r}"
+                    )
+                pol[_metric_label(k)] = int(v)
+            probe_policy = pol
+        self.probe_policy = probe_policy
         if not isinstance(max_batch, numbers.Integral) or max_batch < 1:
             raise ValueError(
                 f"max_batch must be a positive int, got {max_batch!r}"
@@ -754,7 +795,22 @@ class TopKServer:
         return batch, False
 
     def _serve(self, batch) -> None:
-        """Run one coalesced ``query_topk`` and scatter its results."""
+        """Run one coalesced dispatch (one per probe class when a
+        ``probe_policy`` is set: labels with different probe budgets cannot
+        share a candidate dispatch) and scatter its results."""
+        if self.probe_policy is None:
+            self._serve_group(batch, None)
+            return
+        groups: dict = {}
+        for req in batch:
+            p = self.probe_policy.get(req[2]) if req[2] is not None else None
+            groups.setdefault(p, []).append(req)
+        for p, group in groups.items():
+            self._serve_group(group, p)
+
+    def _serve_group(self, batch, probes: Optional[int]) -> None:
+        """One coalesced ``query_topk`` for one probe class; unlabelled
+        traffic (``probes=None``) keeps the index's own default."""
         arr = (
             batch[0][0]
             if len(batch) == 1
@@ -767,8 +823,9 @@ class TopKServer:
         if pad_to != n:
             arr = np.pad(arr, ((0, pad_to - n), (0, 0)))
         t0 = time.perf_counter()
+        kw = {} if probes is None else {"probes": probes}
         try:
-            d, i = self.index.query_topk(arr, self.m, tile=pad_to)
+            d, i = self.index.query_topk(arr, self.m, tile=pad_to, **kw)
         except BaseException as e:
             # every caller sees the exception through its future; the
             # failed dispatch also lands on the telemetry spine
@@ -796,6 +853,7 @@ class TopKServer:
             telemetry.emit(
                 EVENTS.SERVE_TOPK_BATCH, rows=int(n), padded=int(pad_to),
                 requests=len(batch), m=int(self.m), wall_s=round(wall, 6),
+                **kw,
             )
         lo = 0
         for codes, fut, label, t_enq in batch:

@@ -253,6 +253,12 @@ class MetricsRegistry:
             b = self._bucket(seconds)
             h["buckets"][b] = h["buckets"].get(b, 0) + 1
 
+    def hist_sum(self, name: str) -> float:
+        """Exact total seconds observed under ``name`` (0.0 when never)."""
+        with self._lock:
+            h = self._hists.get(name)
+            return h["sum"] if h else 0.0
+
     def hist_quantiles(self, name: str,
                        qs=(0.5, 0.9, 0.99, 0.999)) -> Optional[dict]:
         """HDR-style quantile extraction from a log2-bucket histogram:

@@ -303,3 +303,120 @@ def test_sign_codes_on_the_card_match_the_cpu(cuda):
     assert not (diff & (np.abs(y) > 1e-5 * np.abs(y).max())).any()
     codes = card.transform(torch.from_numpy(X).to(cuda))
     assert codes.is_cuda and codes.dtype == torch.uint8
+
+
+# -- the LSH probe kernel and the LSH tier -------------------------------------
+
+
+def _probe_inputs(rows, nb, bands, band_bits, tq, masks, seed, *, dup=0,
+                  inactive=(), device="cuda"):
+    """A banded CSR of random codes (``dup`` leading rows equal, for a long
+    run) and a tile of query keys, as the kernel takes them."""
+    from randomprojection_tpu_torch.ann import lsh
+
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 256, size=(rows, nb), dtype=np.uint8)
+    codes[:dup] = codes[0]
+    plan = lsh.BandPlan(nb * 8, bands=bands, band_bits=band_bits)
+    b = lsh.BandedBuckets(plan)
+    b.add(codes)
+    q = rng.integers(0, 256, size=(tq, nb), dtype=np.uint8)
+    q[: tq // 2] = codes[rng.integers(0, rows, tq // 2)]
+    active = np.ones((1, tq), np.int32)
+    active[0, list(inactive)] = 0
+    planes = (lsh.band_keys(q, plan).astype(np.int32),
+              np.asarray(masks, np.int32)[None, :], active,
+              np.stack([ip.astype(np.int32) for ip in b._indptr]),
+              np.stack(b._ids))
+    return [torch.from_numpy(np.ascontiguousarray(p)).to(device) for p in planes]
+
+
+# (rows, bytes, bands, band_bits, queries, masks, cap, repeated rows,
+# inactive queries)
+PROBE_SHAPES = [
+    (5000, 8, 4, 8, 37, [0, 1, 2, 4, 8], 1 << 16, 0, (3, 36)),  # ragged tile
+    (5000, 8, 4, 8, 37, [0, 1, 2, 4, 8], 1000, 0, ()),          # overflow
+    (100, 8, 4, 12, 16, [0, 1, 2], 4096, 0, ()),                # empty buckets
+    (4000, 8, 2, 8, 8, [0, 1], 1 << 15, 3000, (1,)),            # runs of 3000
+    (300, 8, 3, 2, 9, [0, 1, 2, 3, 0, 1, 2], 1 << 14, 0, ()),   # P > 2^b
+    (1 << 16, 8, 3, 20, 64, [0, 1, 2, 4], 1 << 14, 0, (0,)),    # b = 20
+    (1000, 16, 16, 8, 1024, list(range(128)), 1 << 24, 0, ()),  # 2^21 runs
+]
+
+
+@pytest.mark.parametrize("rows,nb,bands,b,tq,masks,cap,dup,inactive",
+                         PROBE_SHAPES)
+def test_probe_kernel_matches_plain(cuda, rows, nb, bands, b, tq, masks, cap,
+                                    dup, inactive):
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    planes = _probe_inputs(rows, nb, bands, b, tq, masks, rows + tq, dup=dup,
+                           inactive=inactive)
+    pk.reset_launches()
+    got = pk.probe_gather(*planes, cap=cap)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == {"rp_probe": 3}  # count, scan, copy
+    want = pk.probe_plain(*planes, cap=cap)
+    # the same algorithm: bit for bit, overflow included
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_lsh_device_rung_equals_host_rung_on_the_card(cuda):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.models import sketch as sk
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    rng = np.random.default_rng(8)
+    parts = [rng.integers(0, 256, size=(n, 8), dtype=np.uint8)
+             for n in (3000, 1200)]
+    A = np.concatenate([parts[0][:40], rng.integers(0, 256, size=(60, 8),
+                                                    dtype=np.uint8)])
+    card = LSHSimHashIndex(parts[0], bands=4, band_bits=8, probes=4,
+                           fallback_density=1.0)
+    assert card.device.type == "cuda"
+    card.add(parts[1])
+    card.delete([0, 1, 2999, 3000, 3001])
+    pk.reset_launches()
+    tk.reset_launches()
+    dev = card.query_topk(A, 7, tile=32)
+    assert pk.LAUNCHES["rp_probe"] == 3 * 4  # 4 tiles, 3 passes each
+    assert tk.LAUNCHES["rp_fused_topk"] == 2 * 4
+    host = card.query_topk(A, 7, tile=32, probe_path="host")
+    np.testing.assert_array_equal(dev[0], host[0])
+    np.testing.assert_array_equal(dev[1], host[1])
+    # full coverage: the answer of a brute force over the live codes
+    full = card.query_topk(A, 7, tile=32, probes=256)
+    live = np.concatenate(parts)
+    D = sk.pairwise_hamming(A, live).astype(np.int64)
+    D[:, [0, 1, 2999, 3000, 3001]] = 8 * 8 + 1
+    order = np.argsort((D << 13) | np.arange(live.shape[0]), axis=1)[:, :7]
+    np.testing.assert_array_equal(full[1], order.astype(np.int32))
+    np.testing.assert_array_equal(full[0], np.take_along_axis(D, order, 1))
+    ada = card.query_topk(A, 7, tile=32, probes=256, adaptive=True)
+    np.testing.assert_array_equal(ada[1], full[1])
+
+
+def test_lsh_unplanned_wide_bands_launch_the_probe_kernel(cuda):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+    from randomprojection_tpu_torch.utils import telemetry
+
+    rng = np.random.default_rng(9)
+    codes = rng.integers(0, 256, size=(20_000, 32), dtype=np.uint8)
+    A = codes[rng.integers(0, 20_000, 96)] ^ np.uint8(4)
+    card = LSHSimHashIndex(codes, bands=8, band_bits=20, fallback_density=1.0)
+    # 8 bands of 2^20 buckets: past the reference planner's TPU budget
+    assert pk.plan_probe(32, 20_000, 8, 20, 16, 7) is None
+    reg = telemetry.registry()
+    for adaptive in (False, True):
+        f0 = reg.counter("index.lsh.fallbacks")
+        pk.reset_launches()
+        dev = card.query_topk(A, 7, tile=32, probes=16, adaptive=adaptive)
+        assert pk.LAUNCHES["rp_probe"] >= 3 * 3  # 3 tiles, 3 passes each
+        assert reg.counter("index.lsh.fallbacks") == f0
+    host = card.query_topk(A, 7, tile=32, probes=16, probe_path="host")
+    dev = card.query_topk(A, 7, tile=32, probes=16)
+    np.testing.assert_array_equal(dev[0], host[0])
+    np.testing.assert_array_equal(dev[1], host[1])

@@ -305,7 +305,7 @@ def test_server_lifecycle_and_validation():
     for kw, match in (({"m": 0}, "m must be"), ({"max_batch": 0}, "max_batch"),
                       ({"max_delay_s": -1}, "max_delay_s"),
                       ({"max_pending": 0}, "max_pending"),
-                      ({"probe_policy": {"a": 1}}, "ROADMAP A11")):
+                      ({"probe_policy": {"a": 1}}, "LSH-tier index")):
         with pytest.raises(ValueError, match=match):
             sk.TopKServer(idx, **({"m": 2} | kw))
     srv = sk.TopKServer(idx, 2, max_delay_s=0.0)
