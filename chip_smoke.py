@@ -10,14 +10,21 @@ Phases (any failure exits non-zero and prints no result):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build the CUDA kernels from ``randomprojection_tpu_torch/csrc`` and print
-   ``ptxas``'s registers and shared memory per kernel;
-3. each kernel against its plain PyTorch version on the card:
-   ``rp_lazy_matrix`` bit for bit, ``rp_fused_project`` within
-   ``max|Δ| ≤ 1e-5·max|Y|`` in the split2, f32 and bf16 modes;
+   ``ptxas``'s registers, shared memory and spill stores per kernel (the
+   tensor-core projection kernels must spill nothing);
+3. the main path's launch plan, then each kernel against its plain PyTorch
+   version on the card:
+   ``rp_lazy_matrix`` and ``rp_mask_cache`` bit for bit,
+   ``rp_fused_project`` within ``max|Δ| ≤ 1e-5·max|Y|`` in the split2, f32
+   and bf16 modes at its trouble shapes (1 and 3 rows, k = 8, 64, 512,
+   d = 4097 and bf16 rows of 1100, a block offset, a persistent grid of
+   more tiles than SMs), and a row's bits independent of its place in a
+   tile;
 4. the main path at config-2 width: ``SparseRandomProjection(256,
    density=1/3, materialization='lazy')`` fitted to 1,000,000 × 4096 and
    transforming 1M device-resident rows in 65,536-row batches (rows/s by
-   CUDA events), with the launch counts read around the run; a full batch
+   CUDA events), with the launch counts read around the run (one
+   ``rp_mask_cache`` and one ``rp_fused_project`` a batch); a full batch
    and the short last one against the plain version; the model's matrix
    (``components_as_numpy``, the mask writer's path, its launches read
    around it) bit for bit; and the pairwise-distance distortion of a
@@ -28,7 +35,11 @@ Phases (any failure exits non-zero and prints no result):
    checkpoint, cut after 3 batches and resumed: bit-identical to an
    uninterrupted run;
 7. each kernel's time at the main path's shape beside its bound, its plain
-   version's time and one PyTorch call's time;
+   version's time and one PyTorch call's time; ``rp_fused_project`` in all
+   three modes (f32 and split2 against ``torch.matmul`` in float32, bf16
+   against ``torch.matmul`` of bf16 x and the bf16 mask) and, beside
+   split2, the port's dense split2 route (``split2_project`` against a
+   materialized bf16 mask);
 8. the config-4 serving path at full width: ``SignRandomProjection(256)``
    fitted to 768 features encodes 2^24 rows drawn on the card into 32-byte
    codes (sign mismatch against a float64 product ≤ 1e-4); a
@@ -87,6 +98,14 @@ BATCH = 65_536
 SAMPLE = 2_000
 STREAM_BATCHES = 8
 TOL = 1e-5  # kernel vs plain version: max|Δ| ≤ TOL·max|Y|
+# rp_fused_project's trouble shapes (n, d, k, block_offset): one and three
+# rows, k = 8, 64 and 512 (two slices), odd d (the cp.async route; bf16
+# padded to even), bf16 rows of 1100 (2200 bytes, not 16-byte aligned), a
+# block offset, and more tiles than SMs (the persistent grid's second pass)
+FUSED_SHAPES = ((8192, 4096, 256, 0), (2048, 16384, 512, 0),
+                (1, 4097, 512, 0), (3, 4097, 64, 2), (1000, 1100, 64, 0),
+                (130, 1100, 8, 2), (8517, 1024, 256, 0),
+                (20_000, 520, 512, 1))
 DISTORTION_BUDGET = 1e-3
 # published H100 SXM peaks (NVIDIA H100 datasheet), at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -196,9 +215,17 @@ def phase_build(build_mod):
             log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, "
                 f"{r.get('smem_bytes', 0)} bytes smem, "
                 f"{r.get('spill_store_bytes', 0)} bytes spill stores")
+            if "fused_project_kernel" in r["kernel"]:
+                check(r.get("spill_store_bytes", 0) == 0,
+                      f"{r['kernel']} spills registers")
 
 
 def phase_kernels(torch, fk, errs):
+    plan = fk.plan_project(BATCH, N_FEATURES, N_COMPONENTS, "split2",
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    log(f"rp_fused_project plan at {BATCH}x{N_FEATURES}->{N_COMPONENTS} "
+        f"split2: {plan} ({plan.smem_bytes} bytes dynamic smem a CTA)")
     g = torch.Generator(device="cuda").manual_seed(1)
     for seed, k, d, off in ((0, 256, 4096, 0), (0, 256, 4100, 0),
                             (12345678901, 256, 4096, 3), (0, 512, 16384, 0)):
@@ -211,20 +238,37 @@ def phase_kernels(torch, fk, errs):
         errs["rp_lazy_matrix"] = max(errs["rp_lazy_matrix"], err)
         log(f"rp_lazy_matrix k={k} d={d} offset={off}: bit-exact={exact}")
         check(exact, "rp_lazy_matrix differs from its plain version")
-    for n, d, k in ((8192, 4096, 256), (2048, 16384, 512)):
+        got = fk.rp_mask_cache(seed, k, d, DENSITY, block_offset=off)
+        torch.cuda.synchronize()
+        want = fk.mask_cache_plain(seed, k, d, DENSITY, block_offset=off,
+                                   device="cuda")
+        exact = torch.equal(got, want)
+        errs["rp_mask_cache"] = max(errs["rp_mask_cache"],
+                                    (got.float() - want.float()).abs().max().item())
+        log(f"rp_mask_cache k={k} d={d} offset={off}: bit-exact={exact}")
+        check(exact, "rp_mask_cache differs from its plain version")
+    for n, d, k, off in FUSED_SHAPES:
         x = torch.randn((n, d), generator=g, device="cuda")
         for mode in ("split2", "f32", "bf16"):
             xin = x.to(torch.bfloat16) if mode == "bf16" else x
-            y = fk.rp_fused_project(xin, 0, k, DENSITY, mxu_mode=mode)
+            y = fk.rp_fused_project(xin, 0, k, DENSITY, block_offset=off,
+                                    mxu_mode=mode)
             torch.cuda.synchronize()
-            ref = fk.fused_project(xin, 0, k, DENSITY, mxu_mode=mode)
+            ref = fk.fused_project(xin, 0, k, DENSITY, block_offset=off,
+                                   mxu_mode=mode)
             err = (y - ref).abs().max().item()
             scale = ref.abs().max().item()
             errs["rp_fused_project"] = max(errs["rp_fused_project"], err)
-            log(f"rp_fused_project {n}x{d}->{k} {mode}: max|d|={err:.3e} "
-                f"max|Y|={scale:.3e} ratio={err / scale:.3e} (tol {TOL})")
+            log(f"rp_fused_project {n}x{d}->{k} offset={off} {mode}: "
+                f"max|d|={err:.3e} max|Y|={scale:.3e} ratio={err / scale:.3e} "
+                f"(tol {TOL})")
             check(bool(torch.isfinite(y).all()), "non-finite kernel output")
             check(err <= TOL * scale, f"rp_fused_project {mode} off tolerance")
+            # the same rows moved within their tiles give the same bits
+            part = fk.rp_fused_project(xin[5:].contiguous(), 0, k, DENSITY,
+                                       block_offset=off, mxu_mode=mode)
+            check(torch.equal(part, y[5:]),
+                  f"rp_fused_project {mode}: a row depends on its tile place")
 
 
 def phase_main_path(torch, rpt, fk, errs):
@@ -254,6 +298,9 @@ def phase_main_path(torch, rpt, fk, errs):
     log(f"main path launches (fit + transform): {json.dumps(launched)}")
     check(launched["rp_fused_project"] == len(bounds),
           f"fused kernel launched {launched['rp_fused_project']} times for "
+          f"{len(bounds)} batches")
+    check(launched["rp_mask_cache"] == len(bounds),
+          f"mask cache written {launched['rp_mask_cache']} times for "
           f"{len(bounds)} batches")
     Y = torch.cat(ys)
     check(Y.shape == (N_ROWS, N_COMPONENTS) and Y.dtype == torch.float32,
@@ -290,6 +337,8 @@ def phase_main_path(torch, rpt, fk, errs):
     check(launched["rp_lazy_matrix"] == 1,
           f"mask writer launched {launched['rp_lazy_matrix']} times for one "
           f"matrix")
+    check(fk.LAUNCHES["rp_mask_cache"] == 0 == fk.LAUNCHES["rp_fused_project"],
+          "components_as_numpy launched the projection")
 
     sample = X[:SAMPLE]
     eps = distortion(est, sample)
@@ -350,16 +399,53 @@ def phase_stream(est, streaming, scratch: Path):
 
 
 def phase_timing(torch, fk, est, X, counts, errs):
+    """K1 in its three modes, the mask cache and K3 at the main path's
+    shapes: the kernel's time beside its bound, its plain version's time
+    and one PyTorch call's time on the same inputs."""
     from randomprojection_tpu_torch.ops.precision import fp32_matmul
+    from randomprojection_tpu_torch.ops.split_matmul import split2_project
 
     x = X[:BATCH]
+    xb = x.to(torch.bfloat16)
     n, d, k = x.shape[0], N_FEATURES, N_COMPONENTS
     seed, density = est.spec_.seed, est.spec_.density
     m_scaled = fk.rp_lazy_matrix(seed, k, d, density)
+    m_bf16 = torch.sign(m_scaled).to(torch.bfloat16)  # the exact ±1/0 mask
+    scale = float(m_scaled.abs().max())
 
-    def library():
+    def matmul_f32():
         with fp32_matmul():
             return torch.matmul(x, m_scaled.t())
+
+    # (mode, input, bytes moved, tensor-core products, library call)
+    modes = (
+        ("split2", x, 4 * n * d + 4 * n * k, 2, matmul_f32),
+        ("f32", x, 4 * n * d + 4 * n * k, 3, matmul_f32),
+        ("bf16", xb, 2 * n * d + 4 * n * k, 1,
+         lambda: torch.matmul(xb, m_bf16.t())),
+    )
+    timed = {}
+    for mode, xin, bytes_, products, library in modes:
+        row = {
+            "ms": cuda_ms(lambda: fk.rp_fused_project(
+                xin, seed, k, density, mxu_mode=mode), reps=20, warmup=2),
+            "plain_ms": cuda_ms(lambda: fk.fused_project(
+                xin, seed, k, density, mxu_mode=mode), reps=3),
+            "library_ms": cuda_ms(library, reps=20, warmup=2),
+        }
+        # every product of a bf16 part with the ±1/0 mask is 2ndk operations
+        row.update(_bound(bytes_ / HBM_BYTES_PER_S,
+                          products * 2 * n * d * k / BF16_FLOP_PER_S))
+        timed[mode] = row
+        log(f"rp_fused_project {n}x{d}->{k} {mode}: {row['ms']:.3f} ms "
+            f"(mask cache included), bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']} ({row['bound_ms'] / row['ms']:.1%} of it), "
+            f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} "
+            f"ms ({'torch.matmul bf16' if mode == 'bf16' else 'torch.matmul fp32, TF32 off'})")
+    dense_ms = cuda_ms(lambda: split2_project(x, m_bf16, scale), reps=20,
+                       warmup=2)
+    log(f"dense split2 route (split2_project against a materialized bf16 "
+        f"mask, two torch bf16 products): {dense_ms:.3f} ms")
 
     fused = {
         "name": "rp_fused_project",
@@ -368,16 +454,30 @@ def phase_timing(torch, fk, est, X, counts, errs):
         "replaces": "randomprojection_tpu/ops/pallas_kernels.py:752",
         "launches": counts["rp_fused_project"],
         "max_abs_err": errs["rp_fused_project"],
-        "ms": cuda_ms(lambda: fk.rp_fused_project(x, seed, k, density,
-                                                  mxu_mode="split2"), reps=10),
-        "plain_ms": cuda_ms(lambda: fk.fused_project(x, seed, k, density,
-                                                     mxu_mode="split2"), reps=3),
-        "library_ms": cuda_ms(library, reps=10),
+        **timed["split2"],
+        "shape": f"{n}x{d}->{k} split2",
+        "modes": timed,
+        "dense_split2_ms": dense_ms,
     }
-    bytes_ = 4 * n * d + 4 * n * k
-    ops = 2 * (2 * n * d * k)  # split2: two bf16 products
-    fused.update(_bound(bytes_ / HBM_BYTES_PER_S, ops / BF16_FLOP_PER_S))
-    fused["shape"] = f"{n}x{d}->{k} split2"
+
+    dp = -(-d // fk.STEP_D) * fk.STEP_D
+    cache = {
+        "name": "rp_mask_cache",
+        "route": "cuda",
+        "source": "randomprojection_tpu_torch/csrc/fused_project.cu",
+        # the mask cache of the TPU kernel (_fetch_mask_block, 256), part of
+        # K1's pallas_call
+        "replaces": "randomprojection_tpu/ops/pallas_kernels.py:752",
+        "launches": counts["rp_mask_cache"],
+        "max_abs_err": errs["rp_mask_cache"],
+        "ms": cuda_ms(lambda: fk.rp_mask_cache(seed, k, d, density), reps=100),
+        "plain_ms": cuda_ms(lambda: fk.mask_cache_plain(
+            seed, k, d, density, device="cuda"), reps=10),
+        "library_ms": None,
+    }
+    cache.update(_bound(2 * k * dp / HBM_BYTES_PER_S,
+                        HASH_OPS_PER_ENTRY * k * d / FP32_FLOP_PER_S))
+    cache["shape"] = f"{k}x{dp} bf16"
 
     lazy = {
         "name": "rp_lazy_matrix",
@@ -394,9 +494,9 @@ def phase_timing(torch, fk, est, X, counts, errs):
     lazy.update(_bound(4 * k * d / HBM_BYTES_PER_S,
                        HASH_OPS_PER_ENTRY * k * d / FP32_FLOP_PER_S))
     lazy["shape"] = f"{k}x{d}"
-    for row in (fused, lazy):
+    for row in (fused, cache, lazy):
         row["card"] = CARD
-    return [fused, lazy]
+    return [fused, cache, lazy]
 
 
 def _hold(torch, tk, errs, got, want, what: str) -> None:
@@ -1035,7 +1135,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_build(build_mod)
         errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0,
-                "rp_fused_topk": 0, "rp_probe": 0}
+                "rp_mask_cache": 0.0, "rp_fused_topk": 0, "rp_probe": 0}
         phase_kernels(torch, fk, errs)
         est, X, counts = phase_main_path(torch, rpt, fk, errs)
         phase_other_routes(torch, rpt, X)

@@ -32,9 +32,11 @@ Kernels and their plain versions
 --------------------------------
 ``rp_fused_project`` / ``rp_lazy_matrix`` launch the CUDA kernels of
 ``csrc/fused_project.cu`` on the tensor's device and count their
-launches in ``LAUNCHES``.  ``fused_project`` / ``lazy_matrix_plain`` /
-``lazy_mask_block`` compute the same functions with torch integer and
-float32 ops.  The public wrappers ``fused_sparse_project`` and
+launches in ``LAUNCHES``; ``rp_fused_project`` first writes the launch's
+bf16 mask cache (``rp_mask_cache``, its own count), then runs the
+tensor-core product on the plan of ``plan_project``.  ``fused_project`` /
+``mask_cache_plain`` / ``lazy_matrix_plain`` / ``lazy_mask_block`` compute
+the same functions with torch integer and float32 ops.  The public wrappers ``fused_sparse_project`` and
 ``lazy_matrix`` dispatch on the device: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, and anything else raises.
 """
@@ -42,6 +44,7 @@ version, a CUDA tensor to the kernel, and anything else raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -56,15 +59,20 @@ __all__ = [
     "BLOCK_D",
     "LAUNCHES",
     "MXU_MODES",
+    "ProjectPlan",
     "fused_project",
     "fused_sparse_project",
     "lazy_mask_block",
     "lazy_matrix",
     "lazy_matrix_plain",
+    "mask_cache_plain",
     "mask_limits",
+    "plan_project",
+    "project_smem_bytes",
     "reset_launches",
     "rp_fused_project",
     "rp_lazy_matrix",
+    "rp_mask_cache",
 ]
 
 BLOCK_D = 512  # contraction-dim block; part of the matrix definition
@@ -72,7 +80,7 @@ MXU_MODES = ("f32", "split2", "bf16")
 
 #: kernel launches since the last ``reset_launches()``, by kernel name;
 #: only the CUDA launchers add to it
-LAUNCHES = {"rp_fused_project": 0, "rp_lazy_matrix": 0}
+LAUNCHES = {"rp_fused_project": 0, "rp_lazy_matrix": 0, "rp_mask_cache": 0}
 
 _SRC = "fused_project"
 _MASK32 = 0xFFFFFFFF
@@ -194,6 +202,23 @@ def lazy_matrix_plain(seed, n_components: int, n_features: int,
     return m[:, :n_features].contiguous() * scale
 
 
+def mask_cache_plain(seed, n_components: int, n_features: int,
+                     density: float, *, block_offset: int = 0, device="cpu"):
+    """Plain torch version of the mask-cache writer: the unscaled mask as
+    bf16 ``(k, dp)``, ``dp`` = ``n_features`` rounded up to ``STEP_D``,
+    the columns past ``n_features`` zero."""
+    import torch
+
+    density = _validate(n_components, n_features, density)
+    dp = _mask_columns(n_features)
+    out = torch.zeros((n_components, dp), dtype=torch.bfloat16, device=device)
+    for j in range(-(-n_features // BLOCK_D)):
+        lo, hi = j * BLOCK_D, min(n_features, (j + 1) * BLOCK_D)
+        out[:, lo:hi] = lazy_mask_block(seed, j + block_offset, n_components,
+                                        density, device=device)[:, : hi - lo]
+    return out
+
+
 def fused_project(x, seed, n_components: int, density: float, *,
                   block_offset: int = 0, mxu_mode: str = "f32"):
     """Plain torch version of the fused kernel, in its arithmetic: for
@@ -226,6 +251,81 @@ def fused_project(x, seed, n_components: int, density: float, *,
     return y * scale
 
 
+# -- the launch planner ----------------------------------------------------------
+
+# the constants of csrc/fused_project.cu
+TILE_M = 64            # rows of Y per tile, shared by both consumer warpgroups
+STEP_D = 64            # contraction columns per ring stage
+SLICE_N = 256          # widest column slice of a tile (wgmma's widest N x 2)
+MAX_STAGES = 6
+SMEM_LIMIT = 232_448   # dynamic shared memory a block can use on Hopper
+_SMEM_SLACK = 1024 + 128  # the swizzle's 1024-byte alignment + mbarriers
+
+
+def _itemsize(mxu_mode: str) -> int:
+    return 2 if mxu_mode == "bf16" else 4
+
+
+def _mask_columns(n_features: int) -> int:
+    """The mask cache's width: ``n_features`` rounded up to ``STEP_D``."""
+    return -(-n_features // STEP_D) * STEP_D
+
+
+def project_smem_bytes(cta_n: int, mxu_mode: str, stages: int) -> int:
+    """Shared memory of one fused launch: ``stages`` ring stages of an x
+    tile (64 rows x 64 columns) and a bf16 mask tile (``cta_n`` rows x 64
+    columns), plus the alignment slack and the barriers."""
+    x_bytes = TILE_M * STEP_D * _itemsize(mxu_mode)
+    return _SMEM_SLACK + stages * (x_bytes + cta_n * STEP_D * 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectPlan:
+    """How ``rp_fused_project`` launches: the tile's column width
+    ``cta_n`` (two consumer warpgroups of ``cta_n / 2``), the k slices, the
+    ring's stages and shared memory, the x route (``'tma'`` when a row is a
+    multiple of 16 bytes from a 16-byte-aligned base, else ``'cp.async'``),
+    the padding column bf16 rows of odd width get (the cp.async route
+    copies 4-byte pairs), the tiles (64 rows of one slice) and the
+    persistent grid."""
+
+    cta_n: int
+    slices: int
+    stages: int
+    smem_bytes: int
+    route: str
+    pad_columns: int
+    tiles: int
+    grid: int
+    mask_columns: int  # the mask cache's width: d rounded up to STEP_D
+
+
+def plan_project(n: int, d: int, k: int, mxu_mode: str, sm_count: int, *,
+                 base_aligned: bool = True) -> ProjectPlan:
+    """The launch plan of ``rp_fused_project`` for an ``(n, d)`` batch to
+    ``k`` columns on a card of ``sm_count`` SMs (plain Python, the
+    wrapper's and the tests' single source of the plan)."""
+    if mxu_mode not in MXU_MODES:
+        raise ValueError(f"unknown mxu_mode {mxu_mode!r}")
+    if k <= 0 or k % 8 or d <= 0 or n < 0 or sm_count <= 0:
+        raise ValueError(f"no plan for n={n} d={d} k={k} sm_count={sm_count}")
+    cta_n = 64 if k <= 64 else 128 if k <= 128 else SLICE_N
+    slices = -(-k // cta_n)
+    per_stage = project_smem_bytes(cta_n, mxu_mode, 1) - _SMEM_SLACK
+    stages = min(MAX_STAGES, (SMEM_LIMIT - _SMEM_SLACK) // per_stage)
+    item = _itemsize(mxu_mode)
+    pad = 1 if item == 2 and d % 2 else 0
+    tma = base_aligned and (d * item) % 16 == 0
+    tiles = -(-n // TILE_M) * slices
+    return ProjectPlan(
+        cta_n=cta_n, slices=slices, stages=stages,
+        smem_bytes=project_smem_bytes(cta_n, mxu_mode, stages),
+        route="tma" if tma else "cp.async", pad_columns=pad, tiles=tiles,
+        grid=max(1, min(tiles, sm_count)),
+        mask_columns=_mask_columns(d),
+    )
+
+
 # -- the CUDA kernels ----------------------------------------------------------
 
 _MODE_CODES = {"f32": 0, "split2": 1, "bf16": 2}
@@ -238,9 +338,14 @@ def _lib():
         p, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                             ctypes.c_uint32)
         lib.rp_fused_project.argtypes = [
-            p, p, i64, i64, i32, u32, u32, u32, u32, ctypes.c_float, i32, p,
+            p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, i32, i32, i32,
+            i32, p,
         ]
         lib.rp_fused_project.restype = i32
+        lib.rp_mask_cache.argtypes = [p, i32, i64, i64, u32, u32, u32, u32, p]
+        lib.rp_mask_cache.restype = i32
+        lib.rp_fused_smem_bytes.argtypes = [i32, i32, i32]
+        lib.rp_fused_smem_bytes.restype = i32
         lib.rp_lazy_matrix.argtypes = [
             p, i32, i64, u32, u32, u32, u32, ctypes.c_float, p,
         ]
@@ -271,9 +376,43 @@ def _stream_ptr(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _sm_count(device) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rp_mask_cache(seed, n_components: int, n_features: int, density: float,
+                  *, block_offset: int = 0, device="cuda"):
+    """Launch the mask-cache writer: the unscaled mask as bf16, ``(k,
+    dp)`` with ``dp`` = ``n_features`` rounded up to 64 and the columns
+    past ``n_features`` zero, on the card (what ``rp_fused_project`` loads
+    its mask tiles from)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"rp_mask_cache writes on a CUDA device, got {device}")
+    density = _validate(n_components, n_features, density)
+    dp = _mask_columns(n_features)
+    out = torch.empty((n_components, dp), dtype=torch.bfloat16, device=device)
+    lib = _lib()
+    lim_plus, lim_nonzero = mask_limits(density)
+    with torch.cuda.device(device):
+        rc = lib.rp_mask_cache(
+            out.data_ptr(), n_components, n_features, dp, _seed_u32(seed),
+            int(block_offset) & _MASK32, lim_plus, lim_nonzero,
+            _stream_ptr(device),
+        )
+    _check_launch(lib, rc, "rp_mask_cache")
+    LAUNCHES["rp_mask_cache"] += 1
+    return out
+
+
 def rp_fused_project(x, seed, n_components: int, density: float, *,
                      block_offset: int = 0, mxu_mode: str = "split2"):
-    """Launch the fused kernel on ``x``'s card.  ``x``: contiguous CUDA
+    """Launch the fused kernel on ``x``'s card: the mask cache, then the
+    tensor-core product on ``plan_project``'s plan.  ``x``: contiguous CUDA
     tensor, float32 (``'f32'``, ``'split2'``) or bfloat16 (``'bf16'``).
     Returns ``(n, k)`` float32."""
     import torch
@@ -292,13 +431,25 @@ def rp_fused_project(x, seed, n_components: int, density: float, *,
     y = torch.empty((n, n_components), dtype=torch.float32, device=x.device)
     if n == 0:
         return y
+    plan = plan_project(n, d, n_components, mxu_mode, _sm_count(x.device),
+                        base_aligned=x.data_ptr() % 16 == 0)
+    if plan.pad_columns or x.data_ptr() % 4:
+        # bf16 rows of odd width (or a 2-byte-aligned view): a copy with a
+        # zero column, n·2 bytes of padding, so the cp.async route copies
+        # aligned 4-byte pairs; the zero column meets a zero mask column
+        # (d odd is never a multiple of 64, so d + 1 keeps the mask width)
+        x = torch.nn.functional.pad(x, (0, plan.pad_columns))
+        plan = plan_project(n, x.shape[1], n_components, mxu_mode,
+                            _sm_count(x.device))
+    mask = rp_mask_cache(seed, n_components, d, density,
+                         block_offset=block_offset, device=x.device)
     lib = _lib()
-    lim_plus, lim_nonzero = mask_limits(density)
     with torch.cuda.device(x.device):
         rc = lib.rp_fused_project(
-            x.data_ptr(), y.data_ptr(), n, d, n_components, _seed_u32(seed),
-            int(block_offset) & _MASK32, lim_plus, lim_nonzero,
+            x.data_ptr(), mask.data_ptr(), y.data_ptr(), n, x.shape[1],
+            plan.mask_columns, n_components,
             1.0 / math.sqrt(density * n_components), _MODE_CODES[mxu_mode],
+            plan.cta_n, plan.stages, int(plan.route == "tma"), plan.grid,
             _stream_ptr(x.device),
         )
     _check_launch(lib, rc, "rp_fused_project")

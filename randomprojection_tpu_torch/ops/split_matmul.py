@@ -22,7 +22,8 @@ from __future__ import annotations
 
 from randomprojection_tpu_torch.ops.precision import mm_f32acc
 
-__all__ = ["split_f32_to_bf16_pair", "split2_project"]
+__all__ = ["split_f32_to_bf16_pair", "split_f32_to_bf16_triple",
+           "split2_project"]
 
 _HI_MASK = -65536  # 0xFFFF0000 as a signed int32
 
@@ -36,6 +37,25 @@ def split_f32_to_bf16_pair(x):
     x_hi = x_hi_f32.to(torch.bfloat16)  # exact: low mantissa bits are zero
     x_lo = (x - x_hi_f32).to(torch.bfloat16)
     return x_hi, x_lo
+
+
+def split_f32_to_bf16_triple(x):
+    """``x (f32) -> (hi, mid, lo)`` bf16 by two successive ``& 0xFFFF0000``
+    truncations: ``hi`` is x's top 16 bits, ``mid`` the top 16 bits of
+    ``r = x − hi`` (exact), ``lo = bf16(r − mid)``.  Each part holds 8
+    significant bits of x's 24, so ``hi + mid + lo == x`` exactly whenever
+    ``|x| ≥ 2⁻¹¹⁰`` (the bits of ``lo`` stay on bf16's grid) and within
+    2⁻¹³³ below that, where bf16 cannot hold float32's lowest bits.  The
+    fused kernel's ``'f32'`` mode contracts the three parts on the bf16
+    tensor cores: each product with a ±1/0 mask is exact."""
+    import torch
+
+    x = x.to(torch.float32)
+    hi = (x.view(torch.int32) & _HI_MASK).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & _HI_MASK).view(torch.float32)
+    return hi.to(torch.bfloat16), mid.to(torch.bfloat16), (r - mid).to(
+        torch.bfloat16)
 
 
 def split2_project(x, mask_bf16, scale: float):

@@ -59,11 +59,17 @@ def test_lazy_matrix_kernel_bit_exact(cuda, seed, k, d, density, offset):
         (1000, 1100, 64, 0),   # ragged rows, columns and k tile
         (257, 4096, 256, 2),
         (3, 520, 8, 0),
+        (1, 4097, 512, 0),     # one row, odd d (cp.async; bf16 padded), 2 slices
+        (3, 4097, 64, 2),
+        (130, 1100, 8, 2),     # bf16 rows of 2200 bytes: the cp.async route
+        (8517, 1024, 256, 0),  # 134 tiles: the persistent grid's second pass
+        (20_000, 520, 512, 1),  # 626 tiles of 2 slices
     ],
 )
 def test_fused_kernel_matches_plain(cuda, mode, n, d, k, offset):
-    """max|Δ| ≤ 1e-5·max|Y|: the kernel sums in another order than the
-    plain version's per-block float32 products."""
+    """max|Δ| ≤ 1e-5·max|Y|: the kernel sums each 512-column block on the
+    tensor cores and the blocks in float32, the plain version each block
+    as one float32 product."""
     x = _x(n, d, seed=n)
     if mode == "bf16":
         x = x.to(torch.bfloat16)
@@ -77,13 +83,48 @@ def test_fused_kernel_matches_plain(cuda, mode, n, d, k, offset):
     assert err <= 1e-5 * ref.abs().max().item(), err
 
 
+def test_fused_kernel_rows_do_not_depend_on_their_tile(cuda):
+    """A row's output is the same bits at any place in a tile and in any
+    batch: no split of d, no atomics, no n-dependent tiling."""
+    x = _x(300, 1100, seed=9)
+    for mode in ("split2", "f32", "bf16"):
+        xin = x.to(torch.bfloat16) if mode == "bf16" else x
+        whole = fk.rp_fused_project(xin, 4, 64, 1 / 3, mxu_mode=mode)
+        for lo, hi in ((5, 300), (63, 64), (100, 101), (37, 250)):
+            part = fk.rp_fused_project(xin[lo:hi].contiguous(), 4, 64, 1 / 3,
+                                       mxu_mode=mode)
+            assert torch.equal(part, whole[lo:hi]), (mode, lo, hi)
+
+
+def test_mask_cache_is_the_plain_mask(cuda):
+    for seed, k, d, off in ((0, 256, 4096, 0), (7, 8, 700, 3),
+                            (2**32 - 5, 264, 1100, 1)):
+        got = fk.rp_mask_cache(seed, k, d, 1 / 3, block_offset=off,
+                               device=cuda)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape[1] % 64 == 0
+        want = fk.mask_cache_plain(seed, k, d, 1 / 3, block_offset=off,
+                                   device=cuda)
+        assert torch.equal(got, want)
+
+
+def test_fused_kernel_smem_formula_matches_the_source(cuda):
+    lib = fk._lib()
+    for cta_n in (64, 128, 256):
+        for mode, code in fk._MODE_CODES.items():
+            for stages in range(2, fk.MAX_STAGES + 1):
+                assert lib.rp_fused_smem_bytes(cta_n, code, stages) == \
+                    fk.project_smem_bytes(cta_n, mode, stages)
+
+
 def test_wrappers_dispatch_to_kernels_and_count(cuda):
     fk.reset_launches()
     x = _x(64, 600)
     y = fk.fused_sparse_project(x, 3, 16, 0.5, mxu_mode="split2")
     m = fk.lazy_matrix(3, 16, 600, 0.5, device=cuda)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"rp_fused_project": 1, "rp_lazy_matrix": 1}
+    assert fk.LAUNCHES == {"rp_fused_project": 1, "rp_lazy_matrix": 1,
+                           "rp_mask_cache": 1}
     ref = x.double() @ m.double().t()
     assert (y.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
@@ -152,6 +193,7 @@ def test_card_lazy_transform_counts_one_launch_per_batch(cuda):
     ys = [est.transform(X[lo:lo + 256]) for lo in range(0, 1000, 256)]
     torch.cuda.synchronize()
     assert fk.LAUNCHES["rp_fused_project"] == 4
+    assert fk.LAUNCHES["rp_mask_cache"] == 4  # the mask cache of each batch
     # row tiles are independent: batching does not change a bit
     assert torch.equal(torch.cat(ys), est.transform(X))
 

@@ -129,7 +129,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         got, fk.fused_project(x, 1, 8, 0.5, mxu_mode="split2"), rtol=0, atol=0
     )
     fk.lazy_matrix(1, 8, 512, 0.5, device="cpu")
-    assert fk.LAUNCHES == {"rp_fused_project": 0, "rp_lazy_matrix": 0}
+    assert fk.LAUNCHES == {"rp_fused_project": 0, "rp_lazy_matrix": 0,
+                           "rp_mask_cache": 0}
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
@@ -167,3 +168,151 @@ def test_lazy_matrix_needs_the_card_unless_the_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="none is available.*device='cpu'"):
         fk.lazy_matrix(1, 8, 512, 0.5)
     assert fk.lazy_matrix(1, 8, 512, 0.5, device="cpu").shape == (8, 512)
+
+
+# -- the fused kernel's launch planner ---------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["f32", "split2", "bf16"])
+@pytest.mark.parametrize("k", [8, 16, 64, 72, 128, 136, 256, 264, 512, 1000])
+@pytest.mark.parametrize("n", [1, 3, 64, 65_536, 70_001])
+def test_plan_covers_k_and_fits_shared_memory(mode, k, n):
+    plan = fk.plan_project(n, 4096, k, mode, sm_count=132)
+    # the slices cover k exactly once: every column in one slice, the last
+    # slice holding at least one column
+    assert plan.cta_n in (64, 128, 256)
+    assert (plan.slices - 1) * plan.cta_n < k <= plan.slices * plan.cta_n
+    assert plan.slices == 1 or plan.cta_n == fk.SLICE_N
+    assert 2 <= plan.stages <= fk.MAX_STAGES
+    assert plan.smem_bytes == fk.project_smem_bytes(plan.cta_n, mode,
+                                                    plan.stages)
+    assert plan.smem_bytes <= 232_448
+    # one more stage would not fit, or the ring is at its cap
+    assert (plan.stages == fk.MAX_STAGES or fk.project_smem_bytes(
+        plan.cta_n, mode, plan.stages + 1) > 232_448)
+    assert plan.tiles == -(-n // fk.TILE_M) * plan.slices
+    assert plan.grid == max(1, min(plan.tiles, 132))
+    assert plan.mask_columns % fk.STEP_D == 0 and plan.mask_columns >= 4096
+
+
+@pytest.mark.parametrize(
+    "d,mode,route,pad",
+    [
+        (4096, "split2", "tma", 0),
+        (4096, "bf16", "tma", 0),
+        (1100, "bf16", "cp.async", 0),   # 2200-byte rows: not 16-byte
+        (1101, "bf16", "cp.async", 1),   # odd bf16 rows get a zero column
+        (4097, "f32", "cp.async", 0),
+        (4097, "split2", "cp.async", 0),
+        (1100, "f32", "tma", 0),         # 4400-byte rows are 16-byte
+        (520, "bf16", "tma", 0),
+    ],
+)
+def test_plan_route_by_row_alignment(d, mode, route, pad):
+    plan = fk.plan_project(1000, d, 64, mode, sm_count=132)
+    assert (plan.route, plan.pad_columns) == (route, pad)
+    misaligned = fk.plan_project(1000, d, 64, mode, sm_count=132,
+                                 base_aligned=False)
+    assert misaligned.route == "cp.async"
+
+
+def test_plan_of_the_main_path():
+    """Config 2's batch: one 256-wide slice (x read once), the ring as deep
+    as the 227 KB allow, one persistent CTA per SM."""
+    plan = fk.plan_project(65_536, 4096, 256, "split2", sm_count=132)
+    assert (plan.cta_n, plan.slices, plan.stages, plan.route) == (
+        256, 1, 4, "tma")
+    assert (plan.tiles, plan.grid, plan.mask_columns) == (1024, 132, 4096)
+    assert plan.smem_bytes == 1152 + 4 * (16_384 + 32_768)
+
+
+@pytest.mark.parametrize("kwargs", [dict(k=12), dict(k=0), dict(mode="tf32"),
+                                    dict(sm_count=0)])
+def test_plan_refuses_what_the_kernel_cannot_run(kwargs):
+    args = dict(n=10, d=512, k=16, mode="f32", sm_count=132) | kwargs
+    with pytest.raises(ValueError):
+        fk.plan_project(args["n"], args["d"], args["k"], args["mode"],
+                        sm_count=args["sm_count"])
+
+
+# -- the three-way split of the f32 mode -------------------------------------------
+
+
+def _f32_values(kind, rng):
+    if kind == "random":
+        return rng.normal(size=20_000).astype(np.float32)
+    if kind == "huge":
+        v = rng.uniform(1e30, 3.4e38, size=5_000) * rng.choice([-1, 1], 5_000)
+        return np.concatenate([v, [3.4028235e38, -3.4028235e38]]).astype(
+            np.float32)
+    if kind == "tiny":
+        e = rng.uniform(-110, -60, size=5_000)
+        return (rng.choice([-1, 1], 5_000) * 2.0 ** e).astype(np.float32)
+    # every float32 bit pattern of exponent 0 (subnormal) and the
+    # smallest normals
+    bits = rng.integers(1, 1 << 24, size=5_000, dtype=np.int64)
+    return (bits | (rng.integers(0, 2, 5_000) << 31)).astype(np.uint32).view(
+        np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "huge", "tiny", "subnormal"])
+def test_three_way_split_sums_to_x(kind):
+    from randomprojection_tpu_torch.ops.split_matmul import (
+        split_f32_to_bf16_pair,
+        split_f32_to_bf16_triple,
+    )
+
+    x = torch.from_numpy(_f32_values(kind, np.random.default_rng(4)))
+    hi, mid, lo = split_f32_to_bf16_triple(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    # hi is the pair split's hi, bit for bit
+    assert torch.equal(hi, split_f32_to_bf16_pair(x)[0])
+    total = (hi.float() + mid.float()) + lo.float()  # float32 sums
+    exact = x.abs() >= 2.0 ** -110
+    assert torch.equal(total[exact].view(torch.int32),
+                       x[exact].view(torch.int32))
+    # below 2^-110 bf16's grid (2^-133) cannot hold float32's lowest bits
+    assert (total - x).abs().max().item() <= 2.0 ** -133
+    if kind != "subnormal":
+        assert exact.all()
+
+
+@pytest.mark.parametrize("n,d,k", [(70, 700, 16), (33, 1030, 24)])
+def test_product_through_the_three_way_split_matches_f32(n, d, k):
+    """The f32 mode's tensor-core arithmetic in plain torch: the three bf16
+    parts' products with the ±1/0 mask (each exact), summed per 512-column
+    block in float32, against the f32 plain version, within the stated
+    1e-5·max|Y|."""
+    from randomprojection_tpu_torch.ops.precision import fp32_matmul
+    from randomprojection_tpu_torch.ops.split_matmul import (
+        split_f32_to_bf16_triple,
+    )
+
+    x = torch.from_numpy(_x(n, d, seed=d))
+    want = fk.fused_project(x, 5, k, 1 / 3, mxu_mode="f32")
+    mask = fk.lazy_matrix(5, k, d, 1 / 3, device="cpu")
+    scale = mask.abs().max()
+    y = torch.zeros((n, k))
+    with fp32_matmul():
+        for lo in range(0, d, fk.BLOCK_D):
+            m_t = (mask[:, lo:lo + fk.BLOCK_D] / scale).t()
+            for part in split_f32_to_bf16_triple(x[:, lo:lo + fk.BLOCK_D]):
+                y += part.float() @ m_t
+    got = y * scale
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("seed,k,d,off", [(0, 16, 1024, 0), (7, 8, 700, 3),
+                                          (2**32 - 5, 24, 1100, 1)])
+def test_mask_cache_plain_is_the_interpreter_mask(seed, k, d, off):
+    """The bf16 mask cache holds the interpreter's ±1/0 mask (unscaled),
+    zero past d up to the 64-column pad."""
+    full = np.asarray(pk.pallas_sparse_matrix(seed, k, off * fk.BLOCK_D + d,
+                                              1 / 3, interpret=True))
+    got = fk.mask_cache_plain(seed, k, d, 1 / 3, block_offset=off)
+    assert got.dtype == torch.bfloat16
+    assert got.shape == (k, -(-d // fk.STEP_D) * fk.STEP_D)
+    np.testing.assert_array_equal(got[:, :d].float().numpy(),
+                                  np.sign(full[:, off * fk.BLOCK_D:]))
+    assert not got[:, d:].any()
