@@ -11,7 +11,7 @@ Phases (any failure exits non-zero and prints no result):
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build the CUDA kernels from ``randomprojection_tpu_torch/csrc`` and print
    ``ptxas``'s registers, shared memory and spill stores per kernel (the
-   tensor-core projection kernels must spill nothing);
+   tensor-core projection and top-k kernels must spill nothing);
 3. the main path's launch plan, then each kernel against its plain PyTorch
    version on the card:
    ``rp_lazy_matrix`` and ``rp_mask_cache`` bit for bit,
@@ -44,22 +44,28 @@ Phases (any failure exits non-zero and prints no result):
    fitted to 768 features encodes 2^24 rows drawn on the card into 32-byte
    codes (sign mismatch against a float64 product ≤ 1e-4); a
    ``SimHashIndex`` of them answers ``query_topk`` of 2,048 queries at
-   m = 16 through ``rp_fused_topk`` (launches read around each run, 64
-   queries held bit for bit against ``topk_plain``), then again after a
+   m = 16 through ``rp_fused_topk`` (its tensor-core scan and its merge, one
+   launch each a (tile, chunk), read around each run; 64 queries held bit
+   for bit against ``topk_plain``), then again after a
    seeded 1% ``delete`` (masked), an ``add`` of 2^20 codes and a
    ``compact`` (equal through the mapping); a ``TopKServer`` serves 16
    client threads × 4 requests × 128 rows, each bit-identical to a direct
-   ``query_topk``; the kernel against its plain version at its trouble
-   shapes (3-byte codes, 2^16-byte rows, m above the live rows, ties, the
-   plan's largest m, a ragged query tile); and its time at 2048 × 2^24 ×
-   32 B;
+   ``query_topk``; the kernel's two scan routes (the tensor-core one the
+   planner picks wherever its lists fit, and the CUDA-core one forced by an
+   explicit plan) against the plain version at the trouble shapes (3-, 4-
+   and 36-byte codes, 2^16-byte rows, bases off 16 bytes, m = 1 and above
+   the live rows, ties, all rows equal, a corpus in descending distance,
+   99% of the rows deleted, ``n_real = 0``, 1, 65 and 2049 queries, an LSH
+   tile of 64 × 2^19 with a dead mask, the plan's largest m); and its time
+   at 2048 × 2^24 × 32 B, at a 4,096-row server batch and at the LSH tile;
 9. the multi-probe LSH tier at the reference's own bench shape
    (``benchmark.py`` ``LSH_BENCH_SHAPES["full"]``): 2^20 planted-neighbour
    codes of 32 bytes (clusters of 16, 6 noise bits) in an
    ``LSHSimHashIndex(bands=8, band_bits=16, fallback_density=1.0)`` on the
    card; for 1, 2, 4, 8 and 16 probes ``query_topk`` of 256 queries (m = 10,
-   tile 64) on the device rung (``rp_probe`` then ``rp_fused_topk``, launches
-   read around each call) equals the host rung bit for bit with zero
+   tile 64) on the device rung (``rp_probe`` then ``rp_fused_topk``'s scan
+   and merge, launches read around each call) equals the host rung bit for
+   bit with zero
    fallbacks, with recall@10 against the exact answer (``probes=0`` through
    the same index), the candidate fraction, q/s over 3 other query sets and
    the host-prep/dispatch split; some probe count reaches recall ≥ 0.95 at a
@@ -215,7 +221,8 @@ def phase_build(build_mod):
             log(f"  ptxas {r['kernel']}: {r.get('registers')} registers, "
                 f"{r.get('smem_bytes', 0)} bytes smem, "
                 f"{r.get('spill_store_bytes', 0)} bytes spill stores")
-            if "fused_project_kernel" in r["kernel"]:
+            if ("fused_project_kernel" in r["kernel"]
+                    or "topk_mma_kernel" in r["kernel"]):
                 check(r.get("spill_store_bytes", 0) == 0,
                       f"{r['kernel']} spills registers")
 
@@ -509,6 +516,13 @@ def _hold(torch, tk, errs, got, want, what: str) -> None:
     log(f"{what}: bit-exact against topk_plain")
 
 
+def _topk_launches(tk):
+    """``rp_fused_topk``'s launches since the last reset: (tensor-core scans,
+    CUDA-core scans, merges)."""
+    return (tk.LAUNCHES["rp_fused_topk_wgmma"], tk.LAUNCHES["rp_fused_topk_popc"],
+            tk.LAUNCHES["rp_topk_merge"])
+
+
 def _encode(torch, est, g, n_rows):
     """``n_rows`` standard-normal rows drawn on the card in batches, encoded
     to packed codes on the card; returns the codes and the encode's
@@ -565,14 +579,15 @@ def phase_serving(torch, rpt, tk, errs):
         t0 = time.perf_counter()
         out = idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
         wall = time.perf_counter() - t0
-        n = tk.LAUNCHES["rp_fused_topk"]
-        launches += n
+        n = _topk_launches(tk)
+        launches += sum(n)
         tiles = -(-N_QUERIES // QUERY_TILE)
         log(f"serving: query_topk {label}: {N_QUERIES} queries x {idx.n_codes} "
             f"codes m={TOPK_M} in {wall * 1e3:.3f} ms, "
-            f"{N_QUERIES / wall:.1f} queries/s; rp_fused_topk launches {n} "
-            f"({tiles} tile x {chunks} chunk x 2 passes)")
-        check(n == 2 * tiles * chunks, f"{n} launches for {label}")
+            f"{N_QUERIES / wall:.1f} queries/s; rp_fused_topk launches "
+            f"(wgmma scan, popc scan, merge) {n} ({tiles} tile x {chunks} chunk)")
+        check(n == (tiles * chunks, 0, tiles * chunks),
+              f"{n} launches for {label}")
         return out
 
     idx.query_topk(queries[:QUERY_TILE], TOPK_M)  # first-call set-up
@@ -629,88 +644,165 @@ def phase_serving(torch, rpt, tk, errs):
         wall = time.perf_counter() - t0
         check(not any(t.is_alive() for t in threads), "a client hung")
         st = srv.stats()
-    n = tk.LAUNCHES["rp_fused_topk"]
-    launches += n
+    n = _topk_launches(tk)
+    launches += sum(n)
     for c in range(CLIENTS):
         for lo, (d, i) in results[c]:
             check(np.array_equal(d, want_d[lo:lo + REQUEST_ROWS])
                   and np.array_equal(i, want_i[lo:lo + REQUEST_ROWS]),
                   f"server result of client {c} differs from query_topk")
-    check(n == 2 * st["batches"], f"{n} launches for {st['batches']} batches")
+    check(n == (st["batches"], 0, st["batches"]),
+          f"{n} launches for {st['batches']} batches")
     lat = st["latency"]
     log(f"serving: TopKServer {CLIENTS} clients x {REQUESTS} x {REQUEST_ROWS} "
         f"rows: {n_rows / wall:.1f} queries/s, {st['batches']} batches, "
         f"rows_per_batch_mean {st['rows_per_batch_mean']}, latency p50 "
         f"{lat['p50'] * 1e3:.3f} ms p99 {lat['p99'] * 1e3:.3f} ms; "
-        f"rp_fused_topk launches {n}; every result equals query_topk")
+        f"rp_fused_topk launches (wgmma scan, popc scan, merge) {n}; every "
+        f"result equals query_topk")
     return codes, queries, launches
 
 
+def _off(torch, t, by: int):
+    """The same contiguous tensor at a base ``by`` bytes past an allocation's."""
+    flat = torch.empty(t.numel() + 16, dtype=torch.uint8, device=t.device)
+    out = flat[by: by + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_topk_shapes(torch, tk, errs):
-    """The kernel against its plain version at its trouble shapes."""
+    """Each scan route against the plain version at the trouble shapes: the
+    route the planner picks, and the CUDA-core route forced by its plan."""
     g = np.random.default_rng(21)
-    for nq, rows, nb, m, n_dead, corpus, what in (
-        (300, 5000, 3, 16, 0, "random", "3-byte codes"),
-        (5, 128, 1 << 16, 16, 0, "random", "128 rows x 2^16 bytes"),
-        (20, 100, 32, 150, 10, "random", "m above the live rows"),
-        (37, 1000, 32, 40, 100, "dup", "duplicated rows"),
-        (3, 4000, 32, tk.MAX_M, 0, "random", f"m = {tk.MAX_M}"),
-        (2049, 70_000, 32, 16, 700, "random", "2049 queries, ragged tile"),
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for nq, rows, nb, m, n_dead, corpus, n_real, what in (
+        (300, 5000, 3, 16, 0, "random", 4999, "3-byte codes"),
+        (33, 2000, 4, 10, 5, "random", 1990, "4-byte codes"),
+        (33, 2000, 36, 256, 5, "random", 1990, "36-byte codes, m = 256"),
+        (5, 128, 1 << 16, 16, 0, "random", 127, "128 rows x 2^16 bytes"),
+        (20, 100, 32, 150, 10, "random", 99, "m above the live rows"),
+        (37, 1000, 32, 40, 100, "dup", 999, "duplicated rows"),
+        (1, 3000, 32, 1, 0, "equal", 3000, "all rows equal, 1 query, m = 1"),
+        (5, 3000, 32, 10, 0, "equal", 3000, "all rows equal, m = 10"),
+        (65, 3000, 32, 10, 0, "descending", 3000,
+         "descending distances, 65 queries"),
+        (70, 20_000, 32, 16, 19_800, "random", 20_000, "99% deleted"),
+        (9, 500, 32, 7, 0, "random", 0, "n_real = 0"),
+        (40, 3000, 32, 16, 30, "off4", 2990, "bases 4 bytes off"),
+        (40, 3000, 32, 16, 30, "off1", 2990, "bases 1 byte off"),
+        (64, 1 << 19, 32, LSH_M, 1 << 18, "random", (1 << 19) - 5,
+         "an LSH tile with a dead mask"),
+        (2049, 70_000, 32, 16, 700, "random", 69_999, "2049 queries, ragged tile"),
+        (3, 4000, 32, tk.MAX_M, 0, "random", 3999, f"m = {tk.MAX_M}"),
     ):
-        B = g.integers(0, 256, size=(rows, nb), dtype=np.uint8)
-        A = g.integers(0, 256, size=(nq, nb), dtype=np.uint8)
+        if corpus == "descending":
+            # row r has its first n_bits - r n_bits / rows bits set and the
+            # queries are zero: every row is nearer than all before it
+            ones = nb * 8 - (np.arange(rows) * nb * 8) // rows
+            B = np.packbits((np.arange(nb * 8)[None, :] < ones[:, None])
+                            .astype(np.uint8), axis=1, bitorder="little")
+            A = np.zeros((nq, nb), np.uint8)
+        else:
+            B = g.integers(0, 256, size=(rows, nb), dtype=np.uint8)
+            A = g.integers(0, 256, size=(nq, nb), dtype=np.uint8)
         if corpus == "dup":
             B[rows // 2: rows // 2 + 40] = B[1]
             A[:3] = B[1]
+        if corpus == "equal":
+            B[:] = B[0]
         if nb == 3:
             B[:, -1] &= 0x0F
             A[:, -1] &= 0x0F
         q = torch.from_numpy(A).cuda()
         c = torch.from_numpy(B).cuda()
+        if corpus.startswith("off"):
+            q, c = _off(torch, q, int(corpus[3:])), _off(torch, c, int(corpus[3:]))
         dead = None
         if n_dead:
             dead = torch.zeros(rows, dtype=torch.uint8, device="cuda")
             dead[torch.from_numpy(g.choice(rows, n_dead, replace=False)).cuda()] = 1
-        got = tk.rp_fused_topk(q, c, rows - 1, m, dead=dead)
-        torch.cuda.synchronize()
-        _hold(torch, tk, errs, got, tk.topk_plain(q, c, rows - 1, m, dead=dead),
-              f"rp_fused_topk {what} ({nq}x{rows}x{nb}B m={m})")
+        want = tk.topk_plain(q, c, n_real, m, dead=dead)
+        planned = tk.plan_fused(nq, rows, nb, m, sm_count=sms)
+        fits = tk.smem_bytes("wgmma", 64, m, 2, nb) <= 232_448
+        check(planned.route == ("wgmma" if fits else "popc"),
+              f"{what}: planned route {planned.route}")
+        for plan in {planned, tk._plan_popc(nq, rows, m, sms)}:
+            tk.reset_launches()
+            got = tk.rp_fused_topk(q, c, n_real, m, dead=dead, plan=plan)
+            torch.cuda.synchronize()
+            n = _topk_launches(tk)
+            check(n == ((1, 0, 1) if plan.route == "wgmma" else (0, 1, 1)),
+                  f"{what}: launches {n} on the {plan.route} route")
+            _hold(torch, tk, errs, got, want,
+                  f"rp_fused_topk[{plan.route}] {what} ({nq}x{rows}x{nb}B m={m})")
     # past the plan's largest m the launcher refuses, and launches nothing
-    n0 = tk.LAUNCHES["rp_fused_topk"]
+    tk.reset_launches()
     try:
         tk.rp_fused_topk(q[:3], c, rows, tk.MAX_M + 1)
     except ValueError as e:
         check("MAX_M" in str(e), f"unexpected refusal: {e}")
     else:
         raise AssertionError(f"rp_fused_topk took m = {tk.MAX_M + 1}")
-    check(tk.LAUNCHES["rp_fused_topk"] == n0, "a refused call launched")
+    check(_topk_launches(tk) == (0, 0, 0), "a refused call launched")
     log(f"rp_fused_topk refuses m = {tk.MAX_M + 1} (past MAX_M)")
 
 
 def timing_topk(torch, tk, codes, queries, launches, errs):
+    """K4 at the serving shape on the route the main path takes, beside its
+    bound and the plain version; the CUDA-core route at the same shape, and
+    the tensor-core route at a 4,096-row server batch and at an LSH tile."""
     nq, rows, nb = queries.shape[0], codes.shape[0], codes.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     hold = queries[:HOLD_QUERIES]
+    plan = tk.plan_fused(nq, rows, nb, TOPK_M, sm_count=sms)
+    check(plan.route == "wgmma", f"the serving shape's route is {plan.route}")
     row = {
         "name": "rp_fused_topk",
         "route": "cuda",
+        "scan_route": plan.route,
         "source": "randomprojection_tpu_torch/csrc/topk.cu",
         "replaces": "randomprojection_tpu/ops/topk_kernels.py:449",
         "launches": launches,
         "max_abs_err": errs["rp_fused_topk"],
         "ms": cuda_ms(lambda: tk.rp_fused_topk(queries, codes, rows, TOPK_M),
-                      reps=3),
+                      reps=10),
         "plain_ms": cuda_ms(lambda: tk.topk_plain(hold, codes, rows, TOPK_M),
                             reps=1, warmup=0),
         "library_ms": None,
     }
-    # each code and query read once, dist and idx written once; a +-1
-    # product per bit of every (query, code) pair, exact in int8
+    # each code and query read once, dist and idx written once.  The
+    # product: a 1-bit tensor-core step covers 256 bits of a pair in the
+    # time an int8 step covers 32 values (torch_experiments/k4_product.py),
+    # so a pair needs at least n_bits / 8 multiply-adds at the int8 rate;
+    # the int8 form itself (a +-1 product per bit) needs eight times that
     bytes_ = rows * nb + nq * nb + 2 * nq * TOPK_M * 4
     row.update(_bound(bytes_ / HBM_BYTES_PER_S,
-                      2 * nq * rows * nb * 8 / INT8_OPS_PER_S))
+                      2 * nq * rows * nb / INT8_OPS_PER_S))
+    row["bound_int8_form_ms"] = 2 * nq * rows * nb * 8 / INT8_OPS_PER_S * 1e3
     row["shape"] = (f"{nq}x{rows}x{nb}B m={TOPK_M}; plain_ms on "
                     f"{HOLD_QUERIES} queries")
+    popc = tk._plan_popc(nq, rows, TOPK_M, sms)
+    batch = torch.cat([queries, queries.flip(0)])  # a coalesced server batch
+    tile = queries[:LSH_TILE].contiguous()
+    cand = codes[: 1 << 19]
+    dead = (torch.arange(1 << 19, device="cuda") % 3 == 0).to(torch.uint8)
+    row["other_ms"] = {
+        f"popc route, {nq}x{rows}x{nb}B m={TOPK_M}": cuda_ms(
+            lambda: tk.rp_fused_topk(queries, codes, rows, TOPK_M, plan=popc),
+            reps=1, warmup=0),
+        f"wgmma route, {batch.shape[0]}x{rows}x{nb}B m={TOPK_M}": cuda_ms(
+            lambda: tk.rp_fused_topk(batch, codes, rows, TOPK_M), reps=5),
+        f"wgmma route, {LSH_TILE}x{1 << 19}x{nb}B m={LSH_M}, dead mask": cuda_ms(
+            lambda: tk.rp_fused_topk(tile, cand, 1 << 19, LSH_M, dead=dead),
+            reps=50, warmup=2),
+    }
     row["card"] = CARD
+    log(f"rp_fused_topk {row['shape']}: {row['ms']:.3f} ms on the "
+        f"{plan.route} route (plan {plan}), bound {row['bound_ms']:.3f} ms by "
+        f"{row['bound_by']} ({row['bound_ms'] / row['ms']:.1%} of it; the int8 "
+        f"form's bound {row['bound_int8_form_ms']:.3f} ms), plain "
+        f"{row['plain_ms']:.3f} ms; {json.dumps(row['other_ms'])}")
     return row
 
 
@@ -818,11 +910,12 @@ def phase_lsh(torch, pk, tk, errs):
             pk.reset_launches()
             tk.reset_launches()
             out = index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
-            n_probe, n_topk = pk.LAUNCHES["rp_probe"], tk.LAUNCHES["rp_fused_topk"]
+            n_probe, n_topk = pk.LAUNCHES["rp_probe"], _topk_launches(tk)
             launches += n_probe
-            check(n_probe == 3 * tiles and n_topk == 2 * tiles,
+            check(n_probe == 3 * tiles and n_topk == (tiles, 0, tiles),
                   f"probes={p}: rp_probe {n_probe}, rp_fused_topk {n_topk} "
-                  f"launches for {tiles} tiles (want 3 and 2 a tile)")
+                  f"launches for {tiles} tiles (want 3, and a wgmma scan and "
+                  f"a merge, a tile)")
             return out, n_probe, n_topk
 
         c0 = _lsh_counters(reg)
@@ -893,10 +986,11 @@ def phase_lsh_wide(pk, tk, codes, queries):
         t0 = time.perf_counter()
         got_d, got_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p)
         wall = time.perf_counter() - t0
-        n_probe, n_topk = pk.LAUNCHES["rp_probe"], tk.LAUNCHES["rp_fused_topk"]
-        check(n_probe == 3 * tiles and n_topk == 2 * tiles,
+        n_probe, n_topk = pk.LAUNCHES["rp_probe"], _topk_launches(tk)
+        check(n_probe == 3 * tiles and n_topk == (tiles, 0, tiles),
               f"wide bands, probes={p}: rp_probe {n_probe}, rp_fused_topk "
-              f"{n_topk} launches for {tiles} tiles (want 3 and 2 a tile)")
+              f"{n_topk} launches for {tiles} tiles (want 3, and a wgmma scan "
+              f"and a merge, a tile)")
         check(reg.counter("index.lsh.fallbacks") == f0,
               f"wide bands, probes={p}: a fallback")
         host_d, host_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p,

@@ -226,17 +226,34 @@ def test_card_stream_resume_bit_identical(cuda, tmp_path):
 
 # -- the top-k kernel --------------------------------------------------------------
 
-# (queries, rows, bytes a row, m, tombstones, corpus): ragged query tiles
-# and row tiles throughout
+# (queries, rows, bytes a row, m, tombstones, corpus, real rows): ragged
+# query tiles and row tiles throughout
 TOPK_SHAPES = [
-    (37, 1000, 32, 40, 100, "dup"),        # ties from duplicated rows
-    (300, 5000, 3, 16, 0, "random"),       # 3-byte (20-bit) codes, unaligned
-    (5, 128, 1 << 16, 16, 0, "random"),    # very wide rows, 2048 word chunks
-    (20, 100, 8, 150, 10, "random"),       # m above the live rows
-    (3, 2000, 32, 1024, 0, "random"),      # the plan's largest m
-    (130, 70_000, 32, 16, 700, "ties"),    # many splits, 3 distinct codes
-    (4, 60, 32, 5, 60, "random"),          # every row deleted
+    (37, 1000, 32, 40, 100, "dup", 997),         # ties from duplicated rows
+    (300, 5000, 3, 16, 0, "random", 4997),       # 3-byte (20-bit) codes: byte loads
+    (5, 128, 1 << 16, 16, 0, "random", 125),     # very wide rows, 2048 k-steps
+    (20, 100, 8, 150, 10, "random", 97),         # m above the rows: lists never fill
+    (3, 2000, 32, 1024, 0, "random", 1997),      # MAX_M (the popc route's alone)
+    (130, 70_000, 32, 16, 700, "ties", 69_997),  # many splits, 3 distinct codes
+    (4, 60, 32, 5, 60, "random", 57),            # every row deleted
+    (65, 3000, 32, 10, 0, "descending", 3000),   # every row beats the list; nq = 65
+    (1, 3000, 32, 1, 0, "equal", 3000),          # all rows equal; nq = 1, m = 1
+    (5, 3000, 32, 10, 0, "equal", 3000),         # ... and ties inside one tile
+    (70, 20_000, 32, 16, 19_800, "random", 20_000),  # 99% of the rows deleted
+    (9, 500, 32, 7, 0, "random", 0),             # n_real = 0: every slot empty
+    (33, 2000, 4, 10, 5, "random", 1990),        # 4-byte rows: word loads
+    (33, 2000, 36, 256, 5, "random", 1990),      # 36-byte rows, m = 256
+    (40, 3000, 32, 16, 30, "off4", 2990),        # bases 4 bytes off 16: word loads
+    (40, 3000, 32, 16, 30, "off1", 2990),        # bases 1 byte off: byte loads
 ]
+
+
+def _off(t, by):
+    """The same contiguous tensor at a base ``by`` bytes past an allocation's."""
+    flat = torch.empty(t.numel() + 16, dtype=torch.uint8, device=t.device)
+    out = flat[by: by + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _topk_inputs(nq, rows, nb, n_dead, corpus, device):
@@ -244,12 +261,21 @@ def _topk_inputs(nq, rows, nb, n_dead, corpus, device):
     if corpus == "ties":
         basis = rng.integers(0, 256, size=(3, nb), dtype=np.uint8)
         B, A = basis[rng.integers(0, 3, rows)], basis[rng.integers(0, 3, nq)]
+    elif corpus == "descending":
+        # row r has its first n_bits - r·n_bits/rows bits set and the
+        # queries are all zeros: every row is nearer than all before it
+        ones = nb * 8 - (np.arange(rows) * nb * 8) // rows
+        bits = (np.arange(nb * 8)[None, :] < ones[:, None]).astype(np.uint8)
+        B = np.packbits(bits, axis=1, bitorder="little")
+        A = np.zeros((nq, nb), np.uint8)
     else:
         B = rng.integers(0, 256, size=(rows, nb), dtype=np.uint8)
         A = rng.integers(0, 256, size=(nq, nb), dtype=np.uint8)
         if corpus == "dup":
             B[rows // 2: rows // 2 + 20] = B[0]
             A[0] = B[0]
+        if corpus == "equal":
+            B[:] = B[0]
     if nb == 3:
         B[:, -1] &= 0x0F  # 20 bits: pad bits zero on both sides
         A[:, -1] &= 0x0F
@@ -258,23 +284,39 @@ def _topk_inputs(nq, rows, nb, n_dead, corpus, device):
         dead = np.zeros(rows, np.uint8)
         dead[rng.choice(rows, n_dead, replace=False)] = 1
         dead = torch.from_numpy(dead).to(device)
-    return (torch.from_numpy(A).to(device), torch.from_numpy(B).to(device),
-            dead)
+    q, codes = torch.from_numpy(A).to(device), torch.from_numpy(B).to(device)
+    if corpus.startswith("off"):
+        q, codes = _off(q, int(corpus[3:])), _off(codes, int(corpus[3:]))
+    return q, codes, dead
 
 
-@pytest.mark.parametrize("nq,rows,nb,m,n_dead,corpus", TOPK_SHAPES)
-def test_topk_kernel_matches_plain(cuda, nq, rows, nb, m, n_dead, corpus):
+@pytest.mark.parametrize("route", ["planned", "popc"])
+@pytest.mark.parametrize("nq,rows,nb,m,n_dead,corpus,n_real", TOPK_SHAPES)
+def test_topk_kernel_matches_plain(cuda, nq, rows, nb, m, n_dead, corpus,
+                                   n_real, route):
     from randomprojection_tpu_torch.ops import topk_kernels as tk
 
     q, codes, dead = _topk_inputs(nq, rows, nb, n_dead, corpus, cuda)
-    n_real = rows - 3
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(nq, rows, nb, m, sm_count=sms)
+    # the tensor-core route takes every shape whose lists fit its block
+    fits = tk.smem_bytes("wgmma", 64, m, 2, nb) <= 232_448
+    assert plan.route == ("wgmma" if fits else "popc") and fits == (m < 1024)
+    if route == "popc":
+        plan = tk._plan_popc(nq, rows, m, sms)
     tk.reset_launches()
-    d, i = tk.fused_topk(q, codes, n_real, m, dead=dead)
+    d, i = tk.rp_fused_topk(q, codes, n_real, m, dead=dead, plan=plan)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES == {"rp_fused_topk": 2}  # the scan and the merge
+    want = {"rp_fused_topk_wgmma": 0, "rp_fused_topk_popc": 0,
+            "rp_topk_merge": 1}
+    want[f"rp_fused_topk_{plan.route}"] = 1  # one scan and the merge
+    assert tk.LAUNCHES == want
     wd, wi = tk.topk_plain(q, codes, n_real, m, dead=dead)
     assert d.shape == (nq, m) and d.dtype == i.dtype == torch.int32
     assert torch.equal(d, wd) and torch.equal(i, wi)
+    if route == "planned":  # the public wrapper takes the same route
+        fd, fi = tk.fused_topk(q, codes, n_real, m, dead=dead)
+        assert torch.equal(fd, wd) and torch.equal(fi, wi)
 
 
 def test_topk_kernel_smem_formula_matches_the_source(cuda):
@@ -283,7 +325,14 @@ def test_topk_kernel_smem_formula_matches_the_source(cuda):
     lib = tk._lib()
     for tq in (16, 32, 64):
         for m in (1, 16, 1024):
-            assert lib.rp_topk_smem_bytes(tq, m) == tk.smem_bytes(tq, m)
+            assert lib.rp_topk_smem_bytes(0, tq, m, 0, 32) == \
+                tk.smem_bytes("popc", tq, m)
+    for tq in (64, 128):
+        for m in (1, 16, 370):
+            for stages in (2, 5, 8):
+                for nb in (3, 32, 36):
+                    assert lib.rp_topk_smem_bytes(1, tq, m, stages, nb) == \
+                        tk.smem_bytes("wgmma", tq, m, stages, nb)
 
 
 def test_topk_kernel_refuses_m_past_its_plan(cuda):
@@ -296,7 +345,7 @@ def test_topk_kernel_refuses_m_past_its_plan(cuda):
         tk.fused_topk(q, codes, 2000, tk.MAX_M + 1)
     with pytest.raises(ValueError, match=f"MAX_M={tk.MAX_M}"):
         sk.SimHashIndex(codes).query_topk(q, tk.MAX_M + 1)
-    assert tk.LAUNCHES == {"rp_fused_topk": 0}
+    assert not any(tk.LAUNCHES.values())
 
 
 # -- the serving path on the card ------------------------------------------------
@@ -317,8 +366,9 @@ def test_query_topk_launches_the_kernel_per_tile_chunk_and_pass(cuda):
         idx.delete([0, 9, 5001])
     assert card.device.type == "cuda"
     tk.reset_launches()
-    got = card.query_topk(A, 16, tile=128)  # 3 tiles x 2 chunks x 2 passes
-    assert tk.LAUNCHES == {"rp_fused_topk": 12}
+    got = card.query_topk(A, 16, tile=128)  # 3 tiles x 2 chunks, scan + merge
+    assert tk.LAUNCHES == {"rp_fused_topk_wgmma": 6, "rp_fused_topk_popc": 0,
+                           "rp_topk_merge": 6}
     want = cpu.query_topk(A, 16, tile=128)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
@@ -424,7 +474,8 @@ def test_lsh_device_rung_equals_host_rung_on_the_card(cuda):
     tk.reset_launches()
     dev = card.query_topk(A, 7, tile=32)
     assert pk.LAUNCHES["rp_probe"] == 3 * 4  # 4 tiles, 3 passes each
-    assert tk.LAUNCHES["rp_fused_topk"] == 2 * 4
+    assert tk.LAUNCHES["rp_fused_topk_wgmma"] == 4  # a scan and a merge a tile
+    assert tk.LAUNCHES["rp_topk_merge"] == 4
     host = card.query_topk(A, 7, tile=32, probe_path="host")
     np.testing.assert_array_equal(dev[0], host[0])
     np.testing.assert_array_equal(dev[1], host[1])

@@ -176,7 +176,7 @@ def test_index_checks_and_later_slices():
 def test_cpu_index_counts_no_kernel_launch():
     tk.reset_launches()
     sk.SimHashIndex(_codes(64, 8, 1), device="cpu").query_topk(_codes(4, 8, 2), 3)
-    assert tk.LAUNCHES == {"rp_fused_topk": 0}
+    assert not any(tk.LAUNCHES.values())
 
 
 def test_no_card_and_no_device_raises(monkeypatch):
