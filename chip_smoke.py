@@ -63,20 +63,24 @@ Phases (any failure exits non-zero and prints no result):
    codes of 32 bytes (clusters of 16, 6 noise bits) in an
    ``LSHSimHashIndex(bands=8, band_bits=16, fallback_density=1.0)`` on the
    card; for 1, 2, 4, 8 and 16 probes ``query_topk`` of 256 queries (m = 10,
-   tile 64) on the device rung (``rp_probe`` then ``rp_fused_topk``'s scan
-   and merge, launches read around each call) equals the host rung bit for
-   bit with zero
+   tile 64) on the device rung (each tile one CUDA-graph replay of the
+   composite: ``rp_probe``'s two launches, then ``rp_fused_topk``'s scan and
+   merge; launches, replays and captures read around each call, exact)
+   equals the host rung bit for bit with zero
    fallbacks, with recall@10 against the exact answer (``probes=0`` through
    the same index), the candidate fraction, q/s over 3 other query sets and
    the host-prep/dispatch split; some probe count reaches recall ≥ 0.95 at a
    candidate fraction ≤ 0.10 (the reference's tripwire); the probe kernel
-   against its plain version at the bench shape and its trouble shapes;
+   against its plain version at the bench shape and its trouble shapes, and
+   the same bits over repeated launches at 2^21 runs;
    full probe coverage and adaptive probing at their ceiling on a two-chunk
    index with tombstones across the seam equal a brute force; a
    ``TopKServer`` with a two-label ``probe_policy`` answers each request as a
    direct ``query_topk`` with that label's probes does; and
-   ``torch.profiler`` splits one device-rung call at 16 probes into device
-   time by kernel beside its host wall.
+   ``torch.profiler`` splits one graphed device-rung call at 16 probes into
+   device time by kernel beside its host wall (the card's busy share).  The
+   probe kernel's and the mask writer's rows give device time (CUDA events
+   around a CUDA graph of 20 calls) beside the wrapper's time.
 
 The kernels' timings are printed as one JSON line.
 
@@ -141,6 +145,7 @@ LSH_PROBES, LSH_CALLS, LSH_TILE = (1, 2, 4, 8, 16), 3, 64
 LSH_RECALL_GATE, LSH_FRACTION_GATE = 0.95, 0.10
 # full coverage: 4 bands x 8 bits over 2^16 codes in two chunks
 FULL_N, FULL_BANDS, FULL_BAND_BITS, FULL_NQ = 1 << 16, 4, 8, 64
+REPEATS = 50  # the probe kernel's repeats at its largest trouble shape
 
 CARD = ""
 
@@ -173,6 +178,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, per_graph: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per call of ``fn``: ``per_graph`` calls captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events, so
+    the host makes one launch a replay and the card's time is measured
+    (gaps between the graph's kernels included)."""
+    fn()  # builds, plans and lazy loads stay out of the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
 
 
 def pdist2(a):
@@ -493,7 +520,10 @@ def phase_timing(torch, fk, est, X, counts, errs):
         "replaces": "randomprojection_tpu/ops/pallas_kernels.py:963",
         "launches": counts["rp_lazy_matrix"],
         "max_abs_err": errs["rp_lazy_matrix"],
-        "ms": cuda_ms(lambda: fk.rp_lazy_matrix(seed, k, d, density), reps=100),
+        # device time, apart from the wrapper's host time
+        "ms": graph_ms(torch, lambda: fk.rp_lazy_matrix(seed, k, d, density)),
+        "wrapper_ms": cuda_ms(lambda: fk.rp_lazy_matrix(seed, k, d, density),
+                              reps=100),
         "plain_ms": cuda_ms(lambda: fk.lazy_matrix_plain(
             seed, k, d, density, device="cuda"), reps=10),
         "library_ms": None,
@@ -501,6 +531,10 @@ def phase_timing(torch, fk, est, X, counts, errs):
     lazy.update(_bound(4 * k * d / HBM_BYTES_PER_S,
                        HASH_OPS_PER_ENTRY * k * d / FP32_FLOP_PER_S))
     lazy["shape"] = f"{k}x{d}"
+    log(f"rp_lazy_matrix {k}x{d}: device {lazy['ms']:.5f} ms (CUDA graph of "
+        f"20 calls), wrapper {lazy['wrapper_ms']:.5f} ms back to back, bound "
+        f"{lazy['bound_ms']:.5f} ms by {lazy['bound_by']} "
+        f"({lazy['bound_ms'] / lazy['ms']:.1%} of it)")
     for row in (fused, cache, lazy):
         row["card"] = CARD
     return [fused, cache, lazy]
@@ -905,21 +939,22 @@ def phase_lsh(torch, pk, tk, errs):
     launches = 0
     curve = []
     for p in LSH_PROBES:
-        def device_call(qs):
+        def device_call(qs, first=False):
             nonlocal launches
             pk.reset_launches()
             tk.reset_launches()
             out = index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
             n_probe, n_topk = pk.LAUNCHES["rp_probe"], _topk_launches(tk)
             launches += n_probe
-            check(n_probe == 3 * tiles and n_topk == (tiles, 0, tiles),
-                  f"probes={p}: rp_probe {n_probe}, rp_fused_topk {n_topk} "
-                  f"launches for {tiles} tiles (want 3, and a wgmma scan and "
-                  f"a merge, a tile)")
+            reps, caps = pk.GRAPH_REPLAYS, pk.GRAPH_CAPTURES
+            _check_graphed(p, tiles, reps, caps, n_probe, n_topk,
+                           captures=1 if first else 0)
             return out, n_probe, n_topk
 
         c0 = _lsh_counters(reg)
-        (got_d, got_i), n_probe, n_topk = device_call(q0)
+        # the probe count's first call captures its tile (one key: every
+        # tile is 64 queries at the plan's cap)
+        (got_d, got_i), n_probe, n_topk = device_call(q0, first=True)
         check(_lsh_counters(reg)[2] == c0[2], f"probes={p}: a fallback")
         host_d, host_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p,
                                           probe_path="host")
@@ -963,6 +998,20 @@ def phase_lsh(torch, pk, tk, errs):
     return index, codes, queries, launches
 
 
+def _check_graphed(what, tiles, reps, caps, n_probe, n_topk, captures=None):
+    """A device-rung call's exact counts: one graph replay a tile, each
+    replay two ``rp_probe`` launches and a wgmma scan and a merge of
+    ``rp_fused_topk``; a capture's eager warm-up launches as much once
+    more and the capture itself nothing."""
+    runs = tiles + caps
+    check(reps == tiles and (captures is None or caps == captures)
+          and n_probe == 2 * runs and n_topk == (runs, 0, runs),
+          f"probes={what}: {reps} graph replays and {caps} captures for "
+          f"{tiles} tiles, rp_probe {n_probe}, rp_fused_topk {n_topk} "
+          f"launches (want a replay a tile, 2 rp_probe, a wgmma scan and a "
+          f"merge a replay or warm-up)")
+
+
 def phase_lsh_wide(pk, tk, codes, queries):
     """The bench corpus under 8 bands of 2^20 buckets, a shape the
     reference's planner refuses (its TPU budget): the device rung sizes
@@ -987,10 +1036,9 @@ def phase_lsh_wide(pk, tk, codes, queries):
         got_d, got_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p)
         wall = time.perf_counter() - t0
         n_probe, n_topk = pk.LAUNCHES["rp_probe"], _topk_launches(tk)
-        check(n_probe == 3 * tiles and n_topk == (tiles, 0, tiles),
-              f"wide bands, probes={p}: rp_probe {n_probe}, rp_fused_topk "
-              f"{n_topk} launches for {tiles} tiles (want 3, and a wgmma scan "
-              f"and a merge, a tile)")
+        # each tile's cap is its runs' pow2 ceiling: tiles may key apart
+        _check_graphed(f"{p} (wide bands)", tiles, pk.GRAPH_REPLAYS,
+                       pk.GRAPH_CAPTURES, n_probe, n_topk)
         check(reg.counter("index.lsh.fallbacks") == f0,
               f"wide bands, probes={p}: a fallback")
         host_d, host_i = index.query_topk(q0, LSH_M, tile=LSH_TILE, probes=p,
@@ -999,13 +1047,14 @@ def phase_lsh_wide(pk, tk, codes, queries):
               f"wide bands, probes={p}: device rung differs from the host rung")
         log(f"lsh wide bands (8 x 20 bits, no reference plan; index built in "
             f"{build_s:.3f} s) probes={p}: {LSH_NQ} queries in {wall * 1e3:.3f} "
-            f"ms, launches rp_probe {n_probe}, rp_fused_topk {n_topk}, no "
+            f"ms, launches rp_probe {n_probe}, rp_fused_topk {n_topk}, graph "
+            f"replays {pk.GRAPH_REPLAYS}, captures {pk.GRAPH_CAPTURES}, no "
             f"fallback; device rung == host rung")
     del index
 
 
-def profile_lsh(torch, index, queries):
-    """Device time by kernel of one device-rung call at 16 probes
+def profile_lsh(torch, pk, index, queries):
+    """Device time by kernel of one graphed device-rung call at 16 probes
     (``torch.profiler`` through CUPTI), beside the call's host wall: the
     device's busy share of the call."""
     from torch.autograd import DeviceType
@@ -1015,11 +1064,15 @@ def profile_lsh(torch, index, queries):
     p = LSH_PROBES[-1]
     index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
     torch.cuda.synchronize()
+    pk.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         index.query_topk(qs, LSH_M, tile=LSH_TILE, probes=p)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    check(pk.GRAPH_REPLAYS == -(-LSH_NQ // LSH_TILE) and pk.GRAPH_CAPTURES == 0,
+          f"profiled call: {pk.GRAPH_REPLAYS} replays, {pk.GRAPH_CAPTURES} "
+          f"captures")
     rows = sorted(
         ((e.key, getattr(e, "self_device_time_total", 0.0), e.count)
          for e in prof.key_averages()
@@ -1031,7 +1084,8 @@ def profile_lsh(torch, index, queries):
             f"measured); call wall {wall * 1e3:.3f} ms")
         return
     log(f"lsh profile, probes={p}, {LSH_NQ} queries in "
-        f"{-(-LSH_NQ // LSH_TILE)} tiles: call wall {wall * 1e3:.3f} ms "
+        f"{-(-LSH_NQ // LSH_TILE)} tiles, {pk.GRAPH_REPLAYS} graph replays: "
+        f"call wall {wall * 1e3:.3f} ms "
         f"(under the profiler), device busy {busy_us / 1e3:.3f} ms "
         f"({busy_us / 1e3 / (wall * 1e3):.1%} of the wall) in "
         f"{sum(r[2] for r in rows)} device events")
@@ -1072,7 +1126,15 @@ def phase_probe_shapes(torch, pk, index, queries, errs):
             np.stack([ip.astype(np.int32) for ip in bk._indptr]),
             np.stack(bk._ids))]
         cap = 1 << 25
-        _hold_probe(torch, pk, errs, planes, cap, f"rp_probe_gather {what}")
+        st = _hold_probe(torch, pk, errs, planes, cap, f"rp_probe_gather {what}")
+    # the last shape again: no race between the two launches' blocks
+    first = pk.rp_probe_gather(*planes, cap=cap)
+    for _ in range(REPEATS):
+        got = pk.rp_probe_gather(*planes, cap=cap)
+        check(all(torch.equal(g, f) for g, f in zip(got, first)),
+              "rp_probe_gather differs between repeats")
+    log(f"rp_probe_gather 2^21 runs: {REPEATS} repeats bit-identical "
+        f"(written {st[0]})")
 
 
 def _masked_brute(A, B, m, dead_ids):
@@ -1113,11 +1175,16 @@ def phase_lsh_full(pk):
         wall = time.perf_counter() - t0
         check(np.array_equal(d, want[0]) and np.array_equal(i, want[1]),
               f"full coverage (adaptive={adaptive}) differs from brute force")
-        check(pk.LAUNCHES["rp_probe"] > 0, "full coverage launched no rp_probe")
+        check(pk.GRAPH_REPLAYS > 0 and pk.LAUNCHES["rp_probe"] == 2 * (
+            pk.GRAPH_REPLAYS + pk.GRAPH_CAPTURES),
+              f"full coverage: {pk.GRAPH_REPLAYS} replays, "
+              f"{pk.GRAPH_CAPTURES} captures, rp_probe launches "
+              f"{pk.LAUNCHES['rp_probe']}")
         log(f"lsh full coverage ({FULL_BANDS} bands x {FULL_BAND_BITS} bits, "
             f"{FULL_N} codes in 2 chunks, {dead.size} tombstones across the "
             f"seam, adaptive={adaptive}): {FULL_NQ} queries equal a brute force "
-            f"in {wall * 1e3:.3f} ms; rp_probe launches {pk.LAUNCHES['rp_probe']}")
+            f"in {wall * 1e3:.3f} ms; rp_probe launches {pk.LAUNCHES['rp_probe']}"
+            f", graph replays {pk.GRAPH_REPLAYS}, captures {pk.GRAPH_CAPTURES}")
 
 
 def phase_lsh_server(index, queries):
@@ -1154,12 +1221,25 @@ def phase_lsh_server(index, queries):
 
 
 def timing_probe(torch, pk, index, queries, launches, errs):
-    """K5 at the bench shape (one tile of 64 queries at 16 probes)."""
+    """K5 at the bench shape (one tile of 64 queries at 16 probes): device
+    time, the wrapper's time back to back, and one captured tile's memory."""
     p = LSH_PROBES[-1]
     planes = _tile_planes(torch, pk, index, queries[:LSH_TILE], p)
     cap = pk.plan_probe(LSH_TILE, LSH_N, LSH_BANDS, LSH_BAND_BITS, p, LSH_M).cap
     _, _, stats = pk.rp_probe_gather(*planes, cap=cap)
     written = int(stats[0])
+    # the device memory a captured bench tile holds: its pool, reserved
+    # for the graph, beside its buffers and the warm-up's outputs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    entry = pk.capture_tile(torch.as_tensor(queries[:LSH_TILE]).cuda(),
+                            planes[1], planes[2], planes[3], planes[4],
+                            index._lsh_device_dead(), index._lsh_chunk_planes(),
+                            LSH_M, cap=cap, band_bits=LSH_BAND_BITS)
+    torch.cuda.synchronize()
+    graph_mb = (torch.cuda.memory_reserved() - before) / 2**20
+    del entry
     row = {
         "name": "rp_probe",
         "route": "cuda",
@@ -1167,8 +1247,9 @@ def timing_probe(torch, pk, index, queries, launches, errs):
         "replaces": "randomprojection_tpu/ops/probe_kernels.py:262",
         "launches": launches,
         "max_abs_err": errs["rp_probe"],
-        "ms": cuda_ms(lambda: pk.rp_probe_gather(*planes, cap=cap), reps=200,
-                      warmup=5),
+        "ms": graph_ms(torch, lambda: pk.rp_probe_gather(*planes, cap=cap)),
+        "wrapper_ms": cuda_ms(lambda: pk.rp_probe_gather(*planes, cap=cap),
+                              reps=200, warmup=5),
         "plain_ms": cuda_ms(lambda: pk.probe_plain(*planes, cap=cap), reps=20,
                             warmup=2),
         "library_ms": None,
@@ -1183,7 +1264,14 @@ def timing_probe(torch, pk, index, queries, launches, errs):
                       (12 * runs + 2 * written) / FP32_FLOP_PER_S))
     row["shape"] = (f"{LSH_TILE} queries x {LSH_BANDS} bands x {p} probes over "
                     f"{LSH_N} ids, {written} gathered, cap {cap}")
+    row["graph_tile_mb"] = graph_mb
     row["card"] = CARD
+    log(f"rp_probe_gather {row['shape']}: device {row['ms']:.5f} ms (CUDA "
+        f"graph of 20 calls), wrapper {row['wrapper_ms']:.5f} ms back to back, "
+        f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
+        f"({row['bound_ms'] / row['ms']:.1%} of it), plain "
+        f"{row['plain_ms']:.3f} ms; a captured bench tile holds "
+        f"{graph_mb:.1f} MiB")
     return row
 
 
@@ -1246,7 +1334,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         index, lsh_codes, lsh_queries, probe_launches = phase_lsh(
             torch, pk, tk, errs)
-        profile_lsh(torch, index, lsh_queries)
+        profile_lsh(torch, pk, index, lsh_queries)
         phase_lsh_wide(pk, tk, lsh_codes, lsh_queries)
         del lsh_codes
         phase_probe_shapes(torch, pk, index, lsh_queries, errs)

@@ -21,7 +21,9 @@ re-ranks only the candidates.
   rungs produce the same candidate union and re-rank it with the top-k
   kernel K4.  The **device rung** runs the whole tile on the index's
   device (``ops/probe_kernels.device_probe_topk``: band keys, the CSR
-  probe kernel K5, sort-dedup, tombstone mask, chunk gather, K4); the
+  probe kernel K5, sort-dedup, tombstone mask, chunk gather, K4), on a
+  card as one CUDA-graph replay a tile (``probe_kernels.TileGraphs``: a
+  graph per tile key, all dropped on every mutation); the
   **host rung** probes the CSR with numpy and re-ranks the gathered rows.
   ``probe_path='auto'`` is the device rung for an index on a card and the
   host rung on the CPU; ``'device'`` on a CPU index runs K5's plain
@@ -420,12 +422,17 @@ class LSHSimHashIndex(SimHashIndex):
         self._lsh_dev_csr = None        # (rev, indptr, ids)
         self._lsh_dev_masks: dict = {}  # probes -> (1, P) int32
         self._lsh_dev_dead = None       # (key, dead)
+        self._lsh_dev_active: dict = {}  # tile rows -> (1, tq) int32 ones
+        # the card's captured tiles; they bake the CSR, tombstones and
+        # chunks in, so every mutation drops them
+        self._lsh_graphs = probe_kernels.TileGraphs()
         codes = self._check_codes(codes, None)
         n_bits = kw.get("n_bits")
         n_bits = codes.shape[1] * 8 if n_bits is None else int(n_bits)
         self.band_plan = BandPlan(n_bits, bands=bands, band_bits=band_bits)
         self._buckets = BandedBuckets(self.band_plan)
         super().__init__(codes, **kw)
+        self._lsh_graphs.device = self.device
 
     # -- bucket maintenance (hooks off the base mutation paths) ---------------
 
@@ -434,9 +441,18 @@ class LSHSimHashIndex(SimHashIndex):
             self._lsh_fold(_host_rows(codes))
 
     def _lsh_buckets_changed(self) -> None:
-        """Invalidate the device CSR mirror: the next device dispatch
-        re-uploads it from the host buckets."""
+        """Invalidate the device CSR mirror and the captured tiles: the
+        next device dispatch re-uploads the CSR from the host buckets."""
         self._lsh_dev_rev += 1
+        self._lsh_graphs.clear()
+
+    def delete(self, ids) -> int:
+        """The base ``delete``; new tombstones also drop the captured tiles
+        (they bake the tombstone plane in)."""
+        newly = super().delete(ids)
+        if newly:
+            self._lsh_graphs.clear()
+        return newly
 
     def _lsh_fold(self, codes: np.ndarray) -> None:
         rows = self._buckets.add(codes)
@@ -731,8 +747,63 @@ class LSHSimHashIndex(SimHashIndex):
             self._lsh_dev_masks[masks.size] = dev
         return dev
 
+    def _lsh_device_ones(self, nq: int):
+        """A ``(1, nq)`` int32 all-active plane on the device, cached per
+        tile height."""
+        import torch
+
+        dev = self._lsh_dev_active.get(nq)
+        if dev is None:
+            dev = torch.ones((1, nq), dtype=torch.int32, device=self.device)
+            self._lsh_dev_active[nq] = dev
+        return dev
+
     def _lsh_chunk_planes(self) -> list:
         return [(c.b, c.row0, c.n) for c in self._chunks]
+
+    def _lsh_graph_key(self, nq: int, n_probes: int, cap: int,
+                       m_eff: int) -> tuple:
+        """The key of a captured tile: every shape the composite depends on
+        (tile rows, width, probes, ``cap``, ``m``, band plan, corpus size,
+        chunk layout) and the index state baked into it (CSR and tombstone
+        revisions, chunk tensors)."""
+        return (int(nq), self.n_bytes, int(n_probes), int(cap), int(m_eff),
+                self.band_plan.bands, self.band_plan.band_bits,
+                int(self.n_codes), self._lsh_dev_rev, self._dead_rev,
+                tuple((c.row0, c.n, c.b.data_ptr()) for c in self._chunks))
+
+    def _lsh_device_composite(self, q, masks_dev, act_dev, m_eff: int,
+                              cap: int, fetch):
+        """One tile through ``device_probe_topk`` on the index's device;
+        returns ``fetch(dist, gid, stats, counts)``.  On a card the tile is
+        one replay of its key's CUDA graph (captured at the key's first
+        tile) and ``fetch`` runs under the cache's lock; there is no eager
+        route on a card.  ``q`` is the host tile (or a tensor)."""
+        indptr_dev, ids_dev = self._lsh_device_csr()
+        dead_dev = self._lsh_device_dead()
+        chunks = self._lsh_chunk_planes()
+        bb = self.band_plan.band_bits
+        if self.device.type == "cuda":
+            key = self._lsh_graph_key(q.shape[0], masks_dev.shape[1], cap,
+                                      m_eff)
+            return self._lsh_graphs.run(
+                key, self._staged(q), masks_dev, act_dev, indptr_dev, ids_dev,
+                dead_dev, chunks, m_eff, cap=cap, band_bits=bb, fetch=fetch,
+            )
+        return fetch(*probe_kernels.device_probe_topk(
+            self._to_device(q), masks_dev, act_dev, indptr_dev, ids_dev,
+            dead_dev, chunks, m_eff, cap=cap, band_bits=bb,
+        ))
+
+    @staticmethod
+    def _staged(a):
+        """A host tile as a pinned tensor, copied to the card by the
+        replay's input copy (one non-blocking copy); a tensor as it is."""
+        import torch
+
+        if isinstance(a, torch.Tensor):
+            return a
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
 
     def _lsh_device_cap(self, a, masks: np.ndarray, m_eff: int, *,
                         planned: bool = True) -> Optional[int]:
@@ -777,23 +848,20 @@ class LSHSimHashIndex(SimHashIndex):
                 threshold=self.fallback_density,
             )
             return "exact", self._topk_dispatch_tile(a, m_eff)
-        import torch
-
-        indptr_dev, ids_dev = self._lsh_device_csr()
-        dead_dev = self._lsh_device_dead()
         masks_dev = self._lsh_device_masks(masks)
-        q_dev = self._to_device(a)
-        act_dev = torch.ones((1, nq), dtype=torch.int32, device=self.device)
+        act_dev = self._lsh_device_ones(nq)
         # the device rung's host wall: sizing and upload prep only
         reg.observe("index.lsh.probe.host_s", time.perf_counter() - t0)
         t1 = time.perf_counter()
-        d, gid, stat, _cnt = probe_kernels.device_probe_topk(
-            q_dev, masks_dev, act_dev, indptr_dev, ids_dev, dead_dev,
-            self._lsh_chunk_planes(), m_eff, cap=cap,
-            band_bits=self.band_plan.band_bits,
+        # the copies to the host are queued right behind the tile's work on
+        # the same stream: the next replay of the same graph (the next tile
+        # of the pipeline) overwrites its outputs only after they landed
+        fetches = self._lsh_device_composite(
+            a, masks_dev, act_dev, m_eff, cap,
+            fetch=lambda d, gid, stat, _cnt: (_HostFetch(d), _HostFetch(gid),
+                                              _HostFetch(stat)),
         )
-        payload = (_HostFetch(d), _HostFetch(gid), _HostFetch(stat), nq, p,
-                   tile, a)
+        payload = (*fetches, nq, p, tile, a)
         reg.observe("index.lsh.probe.dispatch_s", time.perf_counter() - t1)
         return "lsh_dev", payload
 
@@ -904,23 +972,30 @@ class LSHSimHashIndex(SimHashIndex):
         yielded = np.zeros(nq, np.int64)
         early_exits = budget_stops = rounds = 0
         live_cands = probe_buckets = 0
-        indptr_dev, ids_dev = self._lsh_device_csr()
-        dead_dev = self._lsh_device_dead()
+        import torch
+
         q_dev = self._to_device(a)
         reg.observe("index.lsh.probe.host_s", time.perf_counter() - t0)
+
+        def fetch(d, gid, stat, cnt):
+            # the round's outputs in one copy to the host
+            return torch.cat([stat, d.reshape(-1), gid.reshape(-1), cnt]).cpu()
+
         for f, (lo, hi) in enumerate(levels):
             if not active.any():
                 break
             t1 = time.perf_counter()
-            d, gid, stat, cnt = probe_kernels.device_probe_topk(
-                q_dev, self._to_device(masks[lo:hi].astype(np.int32)[None, :]),
-                self._to_device(active.astype(np.int32)[None, :]),
-                indptr_dev, ids_dev, dead_dev, self._lsh_chunk_planes(),
-                m_eff, cap=caps[f], band_bits=self.band_plan.band_bits,
-            )
             # the round's overflow verdict, merge and exit bound decide the
             # next launch: this wait is the orchestration point
-            stat = stat.cpu().numpy()
+            out = self._lsh_device_composite(
+                q_dev, self._to_device(masks[lo:hi].astype(np.int32)[None, :]),
+                self._to_device(active.astype(np.int32)[None, :]), m_eff,
+                caps[f], fetch,
+            ).numpy()
+            stat = out[:8]
+            nd = out[8: 8 + nq * m_eff].reshape(nq, m_eff)
+            ng = out[8 + nq * m_eff: 8 + 2 * nq * m_eff].reshape(nq, m_eff)
+            cnt = out[8 + 2 * nq * m_eff:]
             reg.observe("index.lsh.probe.dispatch_s", time.perf_counter() - t1)
             rounds += 1
             reg.counter_inc("index.lsh.device.dispatches")
@@ -932,8 +1007,6 @@ class LSHSimHashIndex(SimHashIndex):
                     adaptive=True,
                 )
                 return None
-            nd, ng = d.cpu().numpy(), gid.cpu().numpy()
-            cnt = cnt.cpu().numpy()
             # merge ACTIVE rows only: retired rows stay frozen, which is
             # what makes the budget's superset argument hold
             best_d[active], best_g[active] = _merge_topm_rows(

@@ -18,20 +18,39 @@ and with no host sync:
 3. **Dedup, mask, gather, re-rank** (``device_probe_topk``): the slots
    sort ascending (the sentinel sorts last), duplicates, sentinels and
    tombstones go dead, the candidate code rows gather from the resident
-   chunks, and the top-k kernel K4 (``topk_kernels.fused_topk``) re-ranks
-   the tile against the ``cap`` candidate rows with the dead mask; local
-   positions map back to global ids on the device.  Ascending slot order
-   is ascending global id, so K4's lower-local-id tie rule is the
-   documented lower-global-id rule.
+   chunks (``gather_rows``: whole rows as 8-, 4- or 2-byte words where the
+   width allows, one elementwise ``take`` a chunk), and the top-k kernel K4
+   (``topk_kernels.fused_topk``) re-ranks the tile against the ``cap``
+   candidate rows with the dead mask; local positions map back to global
+   ids on the device.  Ascending slot order is ascending global id, so
+   K4's lower-local-id tie rule is the documented lower-global-id rule.
 
 Kernel and plain version
 ------------------------
-``rp_probe_gather`` launches the three passes of ``csrc/probe.cu`` (count,
-scan, copy; each counted in ``LAUNCHES``).  ``probe_plain`` computes the
-same function with torch ops: the run lengths, ``cumsum`` for the offsets
-and ``repeat_interleave`` to expand the runs.  The public wrapper
-``probe_gather`` dispatches on the device: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel, anything else raises.
+``rp_probe_gather`` launches the two kernels of ``csrc/probe.cu`` (the
+runs' offsets, then the scan of the block totals and the copy balanced
+over the output slots; one launch when the tile has no run), each counted
+in ``LAUNCHES``.  ``probe_plain`` computes the same function with torch
+ops: the run lengths, ``cumsum`` for the offsets and ``repeat_interleave``
+to expand the runs.  The public wrapper ``probe_gather`` dispatches on the
+device: a CPU tensor goes to the plain version, a CUDA tensor to the
+kernel, anything else raises.
+
+The tile as one CUDA graph
+--------------------------
+On a card the whole composite of ``device_probe_topk`` (band keys, K5,
+sort, dedup, gather, K4's two launches, the id map) is captured once per
+tile key and replayed per tile (``TileGraphs``): the counterpart of the
+reference's one jitted dispatch a tile.  The queries, masks and active
+flags are buffers of the graph, copied in before each replay; the index's
+CSR, tombstones and chunks are baked into it, so the index drops its
+graphs on every ``add``, ``delete`` and ``compact``.  A new key runs the
+composite once eagerly (the warm-up: builds, plans and lazy loads stay out
+of the capture, and its launches count because they ran), is captured
+(which counts nothing) and replayed; each replay adds the launches the
+graph holds to ``LAUNCHES`` and ``topk_kernels.LAUNCHES``, one to
+``GRAPH_REPLAYS``.  The eager composite serves the CPU, the warm-up, and
+the tests that hold a replay to it.
 
 Overflow: a deliberate divergence
 ---------------------------------
@@ -50,17 +69,25 @@ puts it: slots, counts and stats are bit-identical to the reference's.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 from randomprojection_tpu_torch.ops import _build, topk_kernels
 
 __all__ = [
+    "GRAPH_CACHE_SIZE",
+    "GRAPH_CAPTURES",
+    "GRAPH_REPLAYS",
     "LAUNCHES",
     "MAX_CAP",
     "ProbePlan",
+    "TileGraphs",
+    "capture_tile",
     "device_band_keys",
     "device_probe_topk",
+    "gather_rows",
     "plan_probe",
     "probe_gather",
     "probe_plain",
@@ -69,10 +96,18 @@ __all__ = [
     "runs_cap",
 ]
 
-#: kernel launches since the last ``reset_launches()`` (three per
-#: ``rp_probe_gather`` call: count, scan, copy); only the CUDA launcher
-#: adds to it
+#: kernel launches since the last ``reset_launches()`` (two per
+#: ``rp_probe_gather`` call: the runs, then the copy; one for a tile with no
+#: run); only the CUDA launcher and a graph replay add to it
 LAUNCHES = {"rp_probe": 0}
+#: device-rung tiles replayed from a CUDA graph, and graphs captured, since
+#: the last ``reset_launches()``
+GRAPH_REPLAYS = 0
+GRAPH_CAPTURES = 0
+#: captured tiles an index keeps (least recently used dropped first); a
+#: graph holds its composite's intermediates, about 25 MB at the bench tile
+#: (64 queries, cap 2^19, 32-byte rows), so at most ~200 MB an index there
+GRAPH_CACHE_SIZE = 8
 
 #: the largest slot budget of one dispatch: K4 returns candidate-local
 #: positions as int32, and the next power of two would not fit them
@@ -89,7 +124,6 @@ _CAP_CEILING = 1 << 22
 
 _INT32_MAX = (1 << 31) - 1
 _SENTINEL_ID = _INT32_MAX  # empty slot: sorts past every real id
-_RUNS_PER_BLOCK = 1024  # kRunsPerBlock in csrc/probe.cu
 _SRC = "probe"
 
 
@@ -103,8 +137,10 @@ class ProbePlan(NamedTuple):
 
 
 def reset_launches() -> None:
+    global GRAPH_REPLAYS, GRAPH_CAPTURES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    GRAPH_REPLAYS = GRAPH_CAPTURES = 0
 
 
 def _ceil_pow2(x: int) -> int:
@@ -252,13 +288,12 @@ def _lib():
     lib, _ = _build.load(_SRC)
     if _SRC not in _DECLARED:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        args = [p, p, p, p, p, i32, i32, i32, i32, i64, i64]
-        lib.rp_probe_count.argtypes = args + [p, p, p]
-        lib.rp_probe_count.restype = i32
-        lib.rp_probe_scan.argtypes = [p, i64, i64, p, p, p]
-        lib.rp_probe_scan.restype = i32
-        lib.rp_probe_copy.argtypes = args + [p, p, p, p]
-        lib.rp_probe_copy.restype = i32
+        lib.rp_probe_scratch_words.argtypes = [i32, i32, i32, i32]
+        lib.rp_probe_scratch_words.restype = i64
+        lib.rp_probe_gather.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i64,
+                                        i64, p, p, p, p, p,
+                                        ctypes.POINTER(i32)]
+        lib.rp_probe_gather.restype = i32
         lib.rp_probe_error_string.argtypes = [i32]
         lib.rp_probe_error_string.restype = ctypes.c_char_p
         _DECLARED.add(_SRC)
@@ -274,11 +309,12 @@ def _check_launch(lib, rc: int, what: str) -> None:
 
 
 def rp_probe_gather(qkeys, masks, active, indptr, ids, *, cap: int):
-    """Launch K5's three passes on the tensors' card: the run lengths
-    (into ``counts`` and per-block sums), the scan of the block sums (the
-    total decides overflow and ``stats``), and the run copy with the
-    sentinel fill.  Every plane is a contiguous CUDA int32 tensor on one
-    device.  Returns ``(slots (cap,), counts (tq,), stats (8,))``."""
+    """Launch K5 on the tensors' card: the runs' offsets and id starts, then
+    the scan of the block totals (the total decides overflow, ``stats`` and
+    ``counts``) and the copy of every slot, balanced over the slots.  Every
+    plane is a contiguous CUDA int32 tensor on one device; the kernels
+    write every word of the outputs.  Returns ``(slots (cap,), counts
+    (tq,), stats (8,))``."""
     import torch
 
     _validate(qkeys, masks, active, indptr, ids, cap)
@@ -289,35 +325,27 @@ def rp_probe_gather(qkeys, masks, active, indptr, ids, *, cap: int):
     dev = qkeys.device
     bands, tq = qkeys.shape
     n_probes = masks.shape[1]
-    n_runs = tq * bands * n_probes
-    slots = torch.empty(int(cap), dtype=torch.int32, device=dev)
-    counts = torch.zeros(tq, dtype=torch.int32, device=dev)
-    stats = torch.zeros(8, dtype=torch.int32, device=dev)
-    if n_runs == 0:
-        slots.fill_(_SENTINEL_ID)
-        return slots, counts, stats
-    n_blocks = -(-n_runs // _RUNS_PER_BLOCK)
-    bsum = torch.empty(n_blocks, dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
     nb = indptr.shape[1] - 1
-    common = (qkeys.data_ptr(), masks.data_ptr(), active.data_ptr(),
-              indptr.data_ptr(), ids.data_ptr(), tq, bands, n_probes, nb,
-              ids.shape[1], int(cap))
     lib = _lib()
+    words = lib.rp_probe_scratch_words(tq, bands, n_probes, nb)
+    if words < 0:
+        raise ValueError(f"rp_probe_gather: no launch for tq={tq}, "
+                         f"bands={bands}, P={n_probes}, 2^b={nb}")
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    slots = torch.empty(int(cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(tq, dtype=torch.int32, device=dev)
+    stats = torch.empty(8, dtype=torch.int32, device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rp_probe_count(*common, counts.data_ptr(), bsum.data_ptr(),
-                                stream)
-        _check_launch(lib, rc, "rp_probe_gather (count)")
-        LAUNCHES["rp_probe"] += 1
-        rc = lib.rp_probe_scan(bsum.data_ptr(), n_blocks, int(cap),
-                               total.data_ptr(), stats.data_ptr(), stream)
-        _check_launch(lib, rc, "rp_probe_gather (scan)")
-        LAUNCHES["rp_probe"] += 1
-        rc = lib.rp_probe_copy(*common, bsum.data_ptr(), total.data_ptr(),
-                               slots.data_ptr(), stream)
-        _check_launch(lib, rc, "rp_probe_gather (copy)")
-        LAUNCHES["rp_probe"] += 1
+        rc = lib.rp_probe_gather(
+            qkeys.data_ptr(), masks.data_ptr(), active.data_ptr(),
+            indptr.data_ptr(), ids.data_ptr(), tq, bands, n_probes, nb,
+            ids.shape[1], int(cap), scratch.data_ptr(), slots.data_ptr(),
+            counts.data_ptr(), stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launched),
+        )
+    LAUNCHES["rp_probe"] += launched.value
+    _check_launch(lib, rc, "rp_probe_gather")
     return slots, counts, stats
 
 
@@ -342,10 +370,48 @@ def probe_gather(qkeys, masks, active, indptr, ids, *, cap: int):
     raise ValueError(f"no probe kernel for device {qkeys.device}")
 
 
+def _row_words(codes):
+    """A chunk's rows as the widest words (8, 4, 2 or 1 bytes) that divide
+    its width and its base address: ``(rows, n_bytes / w)``."""
+    import torch
+
+    n_bytes = codes.shape[1]
+    for dtype, w in ((torch.int64, 8), (torch.int32, 4), (torch.int16, 2)):
+        if n_bytes % w == 0 and codes.data_ptr() % w == 0:
+            return codes.view(dtype)
+    return codes
+
+
+def gather_rows(chunks, sc):
+    """The code rows of global ids ``sc`` (int64, clamped to the index)
+    from the resident chunks ``[(codes, row0, rows), ...]``: ``(len(sc),
+    n_bytes)`` uint8.  Each chunk's rows are taken as whole words with one
+    elementwise ``torch.take`` of their word indices: a row gather
+    (``index_select``, or indexing rows) runs a block a row on the card,
+    which for 2^19 rows of 32 bytes took 317 µs of an LSH tile.  A position
+    outside every chunk keeps chunk 0's row (the caller masks it dead)."""
+    import torch
+
+    g = None
+    for codes, row0, rows in chunks:
+        words = _row_words(codes)
+        nw = words.shape[1]
+        local = (sc - row0).clamp(0, rows - 1)
+        at = local[:, None] * nw + torch.arange(nw, device=sc.device)
+        rows_c = torch.take(words, at)
+        if g is None:
+            g = rows_c
+        else:
+            g = torch.where(((sc >= row0) & (sc < row0 + rows))[:, None],
+                            rows_c.view(g.dtype), g)
+    return g.view(torch.uint8)
+
+
 def device_probe_topk(q, masks, active, indptr, ids, dead_full, chunks, m: int,
                       *, cap: int, band_bits: int):
     """The probe → dedup → gather → re-rank composite for one query tile,
-    on the tile's device with no host sync.
+    on the tile's device with no host sync (on a card, ``TileGraphs``
+    captures and replays it).
 
     ``q`` (tq, n_bytes) uint8 queries, ``masks``/``active``/``indptr``/
     ``ids`` as ``probe_gather``, ``dead_full`` (n_total,) uint8 tombstones
@@ -368,15 +434,153 @@ def device_probe_topk(q, masks, active, indptr, ids, dead_full, chunks, m: int,
     dead_c = (s >= n_total) | dup | (dead_full[sc] != 0)
     n_live = (~dead_c).sum(dtype=torch.int32)
     # each live id lies in exactly one chunk's rows; dead slots keep any row
-    g = None
-    for codes, row0, rows in chunks:
-        rows_c = codes[(sc - row0).clamp(0, rows - 1)]
-        if g is None:
-            g = rows_c
-        else:
-            inc = (sc >= row0) & (sc < row0 + rows)
-            g = torch.where(inc[:, None], rows_c, g)
+    g = gather_rows(chunks, sc)
     d, idx = topk_kernels.fused_topk(q, g, cap, m, dead=dead_c.to(torch.uint8))
     gid = torch.where(idx >= cap, _INT32_MAX, s[idx.long().clamp(0, cap - 1)])
     stat = torch.cat([stat[:2], n_live.reshape(1), stat[3:]])
     return d, gid, stat, cnt
+
+
+# -- the tile as one CUDA graph ------------------------------------------------------
+
+
+def launch_counters() -> tuple:
+    """Every launch counter the composite moves: K5's and K4's."""
+    return (LAUNCHES, topk_kernels.LAUNCHES)
+
+
+def counted_launches(counters, run):
+    """Call ``run()`` and return ``(its result, the launches it added to
+    each of ``counters``)``, leaving every counter as it was before: what a
+    capture records is launched by its replays, not by the capture."""
+    before = [dict(c) for c in counters]
+    try:
+        out = run()
+        added = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+    finally:
+        for c, b in zip(counters, before):
+            c.update(b)
+    return out, added
+
+
+def credit_launches(counters, added) -> None:
+    """Add a replay's launches (``counted_launches``'s record) to
+    ``counters``."""
+    for c, a in zip(counters, added):
+        for k, v in a.items():
+            c[k] += v
+
+
+class _GraphedTile:
+    """One captured composite: the graph, its input buffers ``(q, masks,
+    active)``, its outputs, the launches it holds, the warm-up's eager
+    outputs and the index tensors baked into it (kept alive with it)."""
+
+    __slots__ = ("graph", "inputs", "outputs", "launches", "warmup", "baked")
+
+    def __init__(self, graph, inputs, outputs, launches, warmup, baked):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+        self.warmup = warmup
+        self.baked = baked
+
+    def replay(self, q, masks, active):
+        """Copy the tile's inputs into the graph's buffers and replay it,
+        both on the current stream; returns the graph's output tensors,
+        which the next replay overwrites (stream order keeps a copy queued
+        behind this replay from seeing the next one)."""
+        global GRAPH_REPLAYS
+        for buf, src in zip(self.inputs, (q, masks, active)):
+            buf.copy_(src, non_blocking=True)
+        self.graph.replay()
+        credit_launches(launch_counters(), self.launches)
+        GRAPH_REPLAYS += 1
+        return self.outputs
+
+
+def capture_tile(q, masks, active, indptr, ids, dead_full, chunks, m: int, *,
+                 cap: int, band_bits: int) -> _GraphedTile:
+    """Capture ``device_probe_topk`` for one tile key on the card of
+    ``indptr``: input buffers shaped as ``q``, ``masks`` and ``active``
+    (host or card tensors, copied in), one eager warm-up on them (it counts
+    its launches; its outputs stay on the entry as ``warmup``), then the
+    capture in a memory pool of the graph's own, which counts none."""
+    import torch
+
+    global GRAPH_CAPTURES
+    dev = indptr.device
+    rest = (indptr, ids, dead_full, chunks)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            return device_probe_topk(*inputs, *rest, m, cap=cap,
+                                     band_bits=band_bits)
+
+    with torch.cuda.device(dev):
+        inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                       for t in (q, masks, active))
+        for buf, src in zip(inputs, (q, masks, active)):
+            buf.copy_(src, non_blocking=True)
+        warmup = device_probe_topk(*inputs, *rest, m, cap=cap,
+                                   band_bits=band_bits)
+        outputs, launches = counted_launches(launch_counters(), capture)
+    GRAPH_CAPTURES += 1
+    return _GraphedTile(graph, inputs, outputs, launches, warmup, rest)
+
+
+class TileGraphs:
+    """The captured device-rung tiles of one index: at most
+    ``GRAPH_CACHE_SIZE`` graphs (``capture_tile``), least recently used
+    dropped first, keyed by
+    the caller (the tier keys by tile shape, probe count, ``cap``, ``m``,
+    band plan, chunk layout and the index's CSR and tombstone revisions).
+
+    ``run`` replays a key's graph with a tile's inputs and hands the
+    outputs to ``fetch`` under the cache's lock, so another thread's replay
+    of the same graph is queued only after this tile's copies.  ``clear``
+    (on every ``add``, ``delete`` and ``compact`` of the index) waits for
+    the card, then drops every graph and the tensors baked into it.  The
+    cache itself is plain Python: ``capture`` may be replaced (the CPU
+    tests do)."""
+
+    def __init__(self, device=None, capture=capture_tile):
+        self.device = device
+        self._capture = capture
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def keys(self) -> list:
+        """Keys, least recently used first."""
+        return list(self._graphs)
+
+    def clear(self) -> None:
+        with self._lock:
+            if self._graphs and getattr(self.device, "type", None) == "cuda":
+                import torch
+
+                # a replay still in flight reads the baked tensors
+                torch.cuda.synchronize(self.device)
+            self._graphs.clear()
+
+    def run(self, key, q, masks, active, indptr, ids, dead_full, chunks,
+            m: int, *, cap: int, band_bits: int, fetch):
+        """Replay ``key``'s graph (captured from these planes first when the
+        key is new) with ``q``, ``masks`` and ``active``; returns
+        ``fetch(dist, gid, stats, counts)``."""
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(q, masks, active, indptr, ids, dead_full,
+                                      chunks, m, cap=cap, band_bits=band_bits)
+                self._graphs[key] = entry
+                while len(self._graphs) > GRAPH_CACHE_SIZE:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+            return fetch(*entry.replay(q, masks, active))

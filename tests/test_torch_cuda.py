@@ -447,11 +447,104 @@ def test_probe_kernel_matches_plain(cuda, rows, nb, bands, b, tq, masks, cap,
     pk.reset_launches()
     got = pk.probe_gather(*planes, cap=cap)
     torch.cuda.synchronize()
-    assert pk.LAUNCHES == {"rp_probe": 3}  # count, scan, copy
+    assert pk.LAUNCHES == {"rp_probe": 2}  # the runs, then the copy
     want = pk.probe_plain(*planes, cap=cap)
     # the same algorithm: bit for bit, overflow included
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_probe_kernel_is_stable_over_repeats(cuda):
+    """2^21 runs (2048 blocks of 1,024 runs, four a thread) and 2^24 slots:
+    200 launches give the same bits as the first."""
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    rows, nb, bands, b, tq, masks, cap, dup, inactive = PROBE_SHAPES[-1]
+    planes = _probe_inputs(rows, nb, bands, b, tq, masks, rows + tq)
+    first = pk.rp_probe_gather(*planes, cap=cap)
+    for _ in range(200):
+        got = pk.rp_probe_gather(*planes, cap=cap)
+        assert all(torch.equal(g, f) for g, f in zip(got, first))
+    assert all(torch.equal(f, w) for f, w in
+               zip(first, pk.probe_plain(*planes, cap=cap)))
+
+
+def _graph_index(seed=8):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+
+    rng = np.random.default_rng(seed)
+    parts = [rng.integers(0, 256, size=(n, 8), dtype=np.uint8)
+             for n in (3000, 1200)]
+    A = np.concatenate([parts[0][:40], rng.integers(0, 256, size=(60, 8),
+                                                    dtype=np.uint8)])
+    idx = LSHSimHashIndex(parts[0], bands=4, band_bits=8, probes=4,
+                          fallback_density=1.0)
+    idx.add(parts[1])
+    idx.delete([0, 1, 2999, 3000, 3001])
+    return idx, A, parts
+
+
+@pytest.mark.parametrize("rows,cap", [(32, None), (32, 1 << 16), (13, None)],
+                         ids=["planned cap", "unplanned cap", "ragged tile"])
+def test_graph_replay_equals_the_eager_composite(cuda, rows, cap):
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    idx, A, _ = _graph_index()
+    masks = idx._probe_masks(4)
+    if cap is None:
+        cap = idx._lsh_device_cap(A[:rows], masks, 7)
+    indptr, ids = idx._lsh_device_csr()
+    rest = (indptr, ids, idx._lsh_device_dead(), idx._lsh_chunk_planes())
+    mdev = idx._lsh_device_masks(masks)
+    act = torch.ones((1, rows), dtype=torch.int32, device=cuda)
+    act[0, 1] = 0
+    tiles = [torch.from_numpy(A[lo: lo + rows]).to(cuda) for lo in (0, 50)]
+    pk.reset_launches()
+    entry = pk.capture_tile(tiles[0], mdev, act, *rest, 7, cap=cap,
+                            band_bits=8)
+    assert pk.GRAPH_CAPTURES == 1 and pk.LAUNCHES == {"rp_probe": 2}
+    # two tiles of one key in flight: each replay's copies are queued
+    # behind it, before the next replay overwrites the outputs
+    fetched = []
+    for t in tiles:
+        fetched.append([o.to("cpu", non_blocking=True)
+                        for o in entry.replay(t, mdev, act)])
+    torch.cuda.synchronize()
+    assert pk.GRAPH_REPLAYS == 2 and pk.LAUNCHES == {"rp_probe": 6}
+    for k, t in enumerate(tiles):
+        eager = pk.device_probe_topk(t, mdev, act, *rest, 7, cap=cap,
+                                     band_bits=8)
+        if k == 0:
+            eager = entry.warmup
+        for g, w in zip(fetched[k], eager):
+            assert torch.equal(g, w.cpu())
+
+
+def test_graph_replay_equals_the_host_rung_across_mutations(cuda):
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    idx, A, parts = _graph_index(12)
+
+    def check():
+        pk.reset_launches()
+        dev = idx.query_topk(A, 7, tile=32)
+        # 4 tiles (the last one ragged): one replay each
+        assert pk.GRAPH_REPLAYS == 4
+        assert pk.LAUNCHES["rp_probe"] == 2 * (4 + pk.GRAPH_CAPTURES)
+        host = idx.query_topk(A, 7, tile=32, probe_path="host")
+        np.testing.assert_array_equal(dev[0], host[0])
+        np.testing.assert_array_equal(dev[1], host[1])
+        return pk.GRAPH_CAPTURES
+
+    assert check() == 2  # a full-tile key and a ragged one
+    assert check() == 0
+    idx.add(parts[0][:500])
+    assert check() == 2
+    idx.delete(np.arange(100, 4000, 7))
+    assert check() == 2
+    idx.compact()
+    assert check() == 2
+    assert len(idx._lsh_graphs) == 2
 
 
 def test_lsh_device_rung_equals_host_rung_on_the_card(cuda):
@@ -470,12 +563,16 @@ def test_lsh_device_rung_equals_host_rung_on_the_card(cuda):
     assert card.device.type == "cuda"
     card.add(parts[1])
     card.delete([0, 1, 2999, 3000, 3001])
-    pk.reset_launches()
-    tk.reset_launches()
-    dev = card.query_topk(A, 7, tile=32)
-    assert pk.LAUNCHES["rp_probe"] == 3 * 4  # 4 tiles, 3 passes each
-    assert tk.LAUNCHES["rp_fused_topk_wgmma"] == 4  # a scan and a merge a tile
-    assert tk.LAUNCHES["rp_topk_merge"] == 4
+    for captures in (2, 0):  # the first call captures a full and a ragged tile
+        pk.reset_launches()
+        tk.reset_launches()
+        dev = card.query_topk(A, 7, tile=32)
+        # 4 tiles, each one replay of 2 K5 launches, a scan and a merge; a
+        # capture's eager warm-up launches as much once more
+        assert pk.GRAPH_REPLAYS == 4 and pk.GRAPH_CAPTURES == captures
+        assert pk.LAUNCHES["rp_probe"] == 2 * (4 + captures)
+        assert tk.LAUNCHES["rp_fused_topk_wgmma"] == 4 + captures
+        assert tk.LAUNCHES["rp_topk_merge"] == 4 + captures
     host = card.query_topk(A, 7, tile=32, probe_path="host")
     np.testing.assert_array_equal(dev[0], host[0])
     np.testing.assert_array_equal(dev[1], host[1])
@@ -507,7 +604,10 @@ def test_lsh_unplanned_wide_bands_launch_the_probe_kernel(cuda):
         f0 = reg.counter("index.lsh.fallbacks")
         pk.reset_launches()
         dev = card.query_topk(A, 7, tile=32, probes=16, adaptive=adaptive)
-        assert pk.LAUNCHES["rp_probe"] >= 3 * 3  # 3 tiles, 3 passes each
+        # every tile (every round, adaptive) is one replay
+        assert pk.GRAPH_REPLAYS >= 3
+        assert pk.LAUNCHES["rp_probe"] == 2 * (pk.GRAPH_REPLAYS
+                                               + pk.GRAPH_CAPTURES)
         assert reg.counter("index.lsh.fallbacks") == f0
     host = card.query_topk(A, 7, tile=32, probes=16, probe_path="host")
     dev = card.query_topk(A, 7, tile=32, probes=16)
