@@ -12,9 +12,14 @@ Phases (any failure exits non-zero and prints no result):
 2. build the CUDA kernels from ``randomprojection_tpu_torch/csrc`` and print
    ``ptxas``'s registers, shared memory and spill stores per kernel (the
    tensor-core projection and top-k kernels must spill nothing);
-3. the main path's launch plan, then each kernel against its plain PyTorch
-   version on the card:
-   ``rp_lazy_matrix`` and ``rp_mask_cache`` bit for bit,
+3. the main path's launch plans, then each kernel against its plain
+   PyTorch version on the card:
+   ``rp_lazy_matrix`` and ``rp_mask_cache`` (the two instantiations of the
+   mask writer) bit for bit at the main path's shapes and their trouble
+   shapes (d = 1, 3, 4097, 4099, 4100 × k = 8, 512 × three seeds × block
+   offsets 0 and 3, and 600,000 rows: more than the writer's grid), and
+   the old writer (``torch_experiments/mask_writer_per_entry.cu``, built
+   beside the port's sources as the yardstick of phase 7) bit for bit too,
    ``rp_fused_project`` within ``max|Δ| ≤ 1e-5·max|Y|`` in the split2, f32
    and bf16 modes at its trouble shapes (1 and 3 rows, k = 8, 64, 512,
    d = 4097 and bf16 rows of 1100, a block offset, a persistent grid of
@@ -29,6 +34,13 @@ Phases (any failure exits non-zero and prints no result):
    (``components_as_numpy``, the mask writer's path, its launches read
    around it) bit for bit; and the pairwise-distance distortion of a
    2,000-row sample against a float64 product with that matrix (≤ 1e-3);
+   then the host's share: the 16-batch loop in a fresh memory pool (torch's
+   caching allocator cold: a ``cudaMalloc`` an output) and again in it
+   (warm), and cold under ``torch.profiler`` (the host's CUDA API calls,
+   counted and timed); and the chain, one ``transform`` of all 1M rows by
+   a model with ``dispatch_steps=16``, equal to the 16-batch loop bit for
+   bit with its launches read around it (one ``rp_mask_cache``, one
+   ``rp_fused_project``), cold and warm;
 5. the same fit on the dense route and with ``precision='split2'``
    (distortion only), and a Gaussian model;
 6. ``transform_stream`` over a host source for 8 batches with a
@@ -39,7 +51,11 @@ Phases (any failure exits non-zero and prints no result):
    three modes (f32 and split2 against ``torch.matmul`` in float32, bf16
    against ``torch.matmul`` of bf16 x and the bf16 mask) and, beside
    split2, the port's dense split2 route (``split2_project`` against a
-   materialized bf16 mask);
+   materialized bf16 mask); split2 with the old and the new mask writer in
+   turns; the mask writer's device time in both instantiations beside the
+   old writer's and a torch fill of the same output; and
+   the chain over 1M rows in three designs (one launch; a launch a block
+   sharing one mask cache; that as one CUDA-graph replay);
 8. the config-4 serving path at full width: ``SignRandomProjection(256)``
    fitted to 768 features encodes 2^24 rows drawn on the card into 32-byte
    codes (sign mismatch against a float64 product ≤ 1e-4); a
@@ -117,6 +133,13 @@ FUSED_SHAPES = ((8192, 4096, 256, 0), (2048, 16384, 512, 0),
                 (130, 1100, 8, 2), (8517, 1024, 256, 0),
                 (20_000, 520, 512, 1))
 DISTORTION_BUDGET = 1e-3
+# the mask writer's trouble shapes: one column, a ragged run, float32 rows
+# of odd width (single stores), even width (pairs) and d % 4 == 0 (16
+# bytes); k of one block row and of 512; seeds past 2^32; block offsets
+WRITER_DS, WRITER_KS = (1, 3, 4097, 4099, 4100), (8, 512)
+WRITER_SEEDS, WRITER_OFFSETS = (0, 2**32 - 5, 12345678901), (0, 3)
+WRITER_TALL = (600_000, 3)  # more rows than the writer's grid: its row loop
+CHAIN_STEPS = 16  # TorchBackend(dispatch_steps=16): the 16-batch split
 # published H100 SXM peaks (NVIDIA H100 datasheet), at 700 W
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -232,16 +255,70 @@ def check(cond: bool, what: str) -> None:
 # -- phases ----------------------------------------------------------------------
 
 
+class OldWriter:
+    """The mask writers as they stood before their redesign
+    (``torch_experiments/mask_writer_per_entry.cu``), built beside the port's
+    sources: the yardstick of the redesigned writer, timed in the same
+    run.  Its launches count nowhere."""
+
+    SRC = ROOT / "torch_experiments" / "mask_writer_per_entry.cu"
+
+    def __init__(self, build_mod):
+        import ctypes
+
+        out = build_mod.BUILD_DIR / "libmask_writer_per_entry.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        subprocess.run([build_mod._nvcc(), *build_mod.NVCC_FLAGS, "-o",
+                        str(out), str(self.SRC)],
+                       check=True, capture_output=True, text=True, timeout=600)
+        self.seconds = time.perf_counter() - t0
+        self.lib = ctypes.CDLL(str(out))
+        p, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_uint32)
+        self.lib.rp_mask_cache_per_entry.argtypes = [
+            p, i32, i64, i64, u32, u32, u32, u32, p]
+        self.lib.rp_lazy_matrix_per_entry.argtypes = [
+            p, i32, i64, u32, u32, u32, u32, ctypes.c_float, p]
+        self.lib.rp_mask_cache_per_entry.restype = i32
+        self.lib.rp_lazy_matrix_per_entry.restype = i32
+
+    def mask_cache(self, torch, fk, seed, k, d, density, *, block_offset=0,
+                   device="cuda"):
+        dp = -(-d // fk.STEP_D) * fk.STEP_D
+        out = torch.empty((k, dp), dtype=torch.bfloat16, device=device)
+        lim_plus, lim_nonzero = fk.mask_limits(density)
+        rc = self.lib.rp_mask_cache_per_entry(
+            out.data_ptr(), k, d, dp, int(seed) & 0xFFFFFFFF, block_offset,
+            lim_plus, lim_nonzero, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"old mask cache launch failed: CUDA error {rc}")
+        return out
+
+    def lazy_matrix(self, torch, fk, seed, k, d, density, *, block_offset=0):
+        out = torch.empty((k, d), dtype=torch.float32, device="cuda")
+        lim_plus, lim_nonzero = fk.mask_limits(density)
+        rc = self.lib.rp_lazy_matrix_per_entry(
+            out.data_ptr(), k, d, int(seed) & 0xFFFFFFFF, block_offset,
+            lim_plus, lim_nonzero, 1.0 / float(np.sqrt(density * k)),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"old mask writer launch failed: CUDA error {rc}")
+        return out
+
+
 def phase_build(build_mod):
-    """Compile every csrc/*.cu at once, one nvcc each, then load them."""
+    """Compile every csrc/*.cu at once, one nvcc each, with the old mask
+    writer beside them, then load them.  Returns the old writer."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = sorted(p.stem for p in build_mod.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        old = pool.submit(OldWriter, build_mod)
         builds = list(pool.map(build_mod.build, names))
-    log(f"build: {len(names)} sources in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc -O3 sm_90a, in parallel)")
+        old = old.result()
+    log(f"build: {len(names)} sources and the old mask writer in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc -O3 sm_90a, in parallel; "
+        f"the old writer {old.seconds:.2f} s)")
     for b in builds:
         log(f"  {b.path.name}: {b.seconds:.2f} s")
         for r in build_mod.kernel_resources(b.ptxas_log):
@@ -252,35 +329,68 @@ def phase_build(build_mod):
                     or "topk_mma_kernel" in r["kernel"]):
                 check(r.get("spill_store_bytes", 0) == 0,
                       f"{r['kernel']} spills registers")
+    return old
 
 
-def phase_kernels(torch, fk, errs):
+def _hold_writer(torch, fk, errs, seed, k, d, off, what=""):
+    """Both mask-writer instantiations against their plain versions, bit
+    for bit."""
+    for name, kernel, plain in (
+        ("rp_lazy_matrix", fk.rp_lazy_matrix, fk.lazy_matrix_plain),
+        ("rp_mask_cache", fk.rp_mask_cache, fk.mask_cache_plain),
+    ):
+        got = kernel(seed, k, d, DENSITY, block_offset=off)
+        torch.cuda.synchronize()
+        want = plain(seed, k, d, DENSITY, block_offset=off, device="cuda")
+        errs[name] = max(errs[name],
+                         (got.float() - want.float()).abs().max().item())
+        check(torch.equal(got, want),
+              f"{name} differs from its plain version: seed={seed} k={k} "
+              f"d={d} offset={off}")
+    if what:
+        log(f"mask writer {what} (seed={seed} k={k} d={d} offset={off}): "
+            f"rp_lazy_matrix and rp_mask_cache bit-exact")
+
+
+def phase_kernels(torch, fk, errs, old):
     plan = fk.plan_project(BATCH, N_FEATURES, N_COMPONENTS, "split2",
                            torch.cuda.get_device_properties(0)
                            .multi_processor_count)
     log(f"rp_fused_project plan at {BATCH}x{N_FEATURES}->{N_COMPONENTS} "
         f"split2: {plan} ({plan.smem_bytes} bytes dynamic smem a CTA)")
+    for item in (4, 2):
+        log(f"mask writer plan at {N_COMPONENTS}x{N_FEATURES}, {item}-byte "
+            f"entries: {fk.plan_mask_writer(N_COMPONENTS, N_FEATURES, item)}")
+    n_shapes = 0
+    for d in WRITER_DS:
+        for k in WRITER_KS:
+            for seed in WRITER_SEEDS:
+                for off in WRITER_OFFSETS:
+                    _hold_writer(torch, fk, errs, seed, k, d, off)
+                    n_shapes += 1
+    log(f"mask writer trouble shapes: d in {WRITER_DS} x k in {WRITER_KS} x "
+        f"seeds {WRITER_SEEDS} x offsets {WRITER_OFFSETS}: {n_shapes} shapes, "
+        f"rp_lazy_matrix and rp_mask_cache bit-exact at each")
+    k, d = WRITER_TALL
+    _hold_writer(torch, fk, errs, 5, k, d, 0,
+                 f"past the grid's rows (grid_y "
+                 f"{fk.plan_mask_writer(k, d, 4).grid_y})")
+    # the yardstick: the old writer gives the same bits
+    for seed, k, d, off in ((0, 256, 4096, 0), (12345678901, 512, 4099, 3)):
+        check(torch.equal(
+            old.lazy_matrix(torch, fk, seed, k, d, DENSITY, block_offset=off),
+            fk.lazy_matrix_plain(seed, k, d, DENSITY, block_offset=off,
+                                 device="cuda")), "the old writer's matrix")
+        check(torch.equal(
+            old.mask_cache(torch, fk, seed, k, d, DENSITY, block_offset=off),
+            fk.mask_cache_plain(seed, k, d, DENSITY, block_offset=off,
+                                device="cuda")), "the old writer's mask cache")
+    log("old mask writer (the yardstick): bit-exact at 256x4096 and "
+        "512x4099 offset 3")
     g = torch.Generator(device="cuda").manual_seed(1)
     for seed, k, d, off in ((0, 256, 4096, 0), (0, 256, 4100, 0),
                             (12345678901, 256, 4096, 3), (0, 512, 16384, 0)):
-        got = fk.rp_lazy_matrix(seed, k, d, DENSITY, block_offset=off)
-        torch.cuda.synchronize()
-        want = fk.lazy_matrix_plain(seed, k, d, DENSITY, block_offset=off,
-                                    device="cuda")
-        exact = torch.equal(got, want)
-        err = (got - want).abs().max().item()
-        errs["rp_lazy_matrix"] = max(errs["rp_lazy_matrix"], err)
-        log(f"rp_lazy_matrix k={k} d={d} offset={off}: bit-exact={exact}")
-        check(exact, "rp_lazy_matrix differs from its plain version")
-        got = fk.rp_mask_cache(seed, k, d, DENSITY, block_offset=off)
-        torch.cuda.synchronize()
-        want = fk.mask_cache_plain(seed, k, d, DENSITY, block_offset=off,
-                                   device="cuda")
-        exact = torch.equal(got, want)
-        errs["rp_mask_cache"] = max(errs["rp_mask_cache"],
-                                    (got.float() - want.float()).abs().max().item())
-        log(f"rp_mask_cache k={k} d={d} offset={off}: bit-exact={exact}")
-        check(exact, "rp_mask_cache differs from its plain version")
+        _hold_writer(torch, fk, errs, seed, k, d, off, "main-path shape")
     for n, d, k, off in FUSED_SHAPES:
         x = torch.randn((n, d), generator=g, device="cuda")
         for mode in ("split2", "f32", "bf16"):
@@ -322,12 +432,7 @@ def phase_main_path(torch, rpt, fk, errs):
         backend_options={"materialization": "lazy"},
     ).fit(X)
     check(est._backend.device.type == "cuda", "model is not on the card")
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    ys = [est.transform(X[lo:hi]) for lo, hi in bounds]
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end)
+    ys, ms, issue_ms, segs = _batch_loop(torch, est, X, bounds)
     launched = dict(fk.LAUNCHES)
     log(f"main path launches (fit + transform): {json.dumps(launched)}")
     check(launched["rp_fused_project"] == len(bounds),
@@ -342,7 +447,8 @@ def phase_main_path(torch, rpt, fk, errs):
     check(bool(torch.isfinite(Y).all()), "non-finite output")
     log(f"main path: lazy split2 {N_ROWS}x{N_FEATURES}->{N_COMPONENTS} in "
         f"{len(bounds)} batches of {BATCH}: {ms:.3f} ms, "
-        f"{N_ROWS / (ms / 1e3):.1f} rows/s")
+        f"{N_ROWS / (ms / 1e3):.1f} rows/s (the loop's host issue "
+        f"{issue_ms:.3f} ms; {segs} new allocator segments)")
 
     # the kernel at the main path's own shapes: a full batch and the short
     # last one, against the plain version with the model's seed
@@ -383,6 +489,114 @@ def phase_main_path(torch, rpt, fk, errs):
         f"(budget {DISTORTION_BUDGET})")
     check(eps <= DISTORTION_BUDGET, "main path distortion over budget")
     return est, X, launched
+
+
+def _segments(torch) -> int:
+    """Device memory segments torch's caching allocator has taken from the
+    driver so far (one ``cudaMalloc`` each)."""
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+
+def _timed(torch, run):
+    """``run()`` on the card: returns its result, its milliseconds by CUDA
+    events (first issue to the last kernel's end), the host's milliseconds
+    to issue it (the wall before it waits for the card) and the segments
+    torch's caching allocator took from the driver meanwhile (a
+    ``cudaMalloc`` each)."""
+    torch.cuda.synchronize()
+    seg0 = _segments(torch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = run()
+    end.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    return out, start.elapsed_time(end), issue_ms, _segments(torch) - seg0
+
+
+def _batch_loop(torch, est, X, bounds):
+    """The main path's loop, ``transform`` of each batch of the card's
+    rows, under ``_timed``."""
+    return _timed(torch, lambda: [est.transform(X[lo:hi]) for lo, hi in bounds])
+
+
+def _host_api(prof):
+    """The CUDA runtime and driver calls a ``torch.profiler`` window saw on
+    the host: ``{name: (count, host ms)}``."""
+    from torch.autograd import DeviceType
+
+    return {e.key: (e.count, e.cpu_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.key.startswith("cu")
+            and getattr(e, "device_type", None) != DeviceType.CUDA}
+
+
+def phase_host_split(torch, rpt, fk, est, X, bounds):
+    """Where the main path's time beyond its kernels goes.  The 16-batch
+    loop in a fresh memory pool (``torch.cuda.MemPool``: the allocator
+    cold, so each output is a new segment, a ``cudaMalloc``), then again in
+    that pool (warm); the cold loop again under ``torch.profiler`` for the
+    host's CUDA API calls; then the same rows as one ``transform`` of a
+    model with ``dispatch_steps=16``, the chain, cold and warm in a fresh
+    pool, against the loop's output bit for bit, its launches read around
+    each call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def report(what, ms, issue, segs):
+        log(f"host split: {what}: {ms:.3f} ms ({issue:.3f} ms host issue, "
+            f"{segs} new allocator segments)")
+
+    def empty():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    pool = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool):
+        ys, *cold = _batch_loop(torch, est, X, bounds)
+        report("the 16-batch loop in a fresh memory pool (allocator cold)",
+               *cold)
+        del ys
+        ys, *warm = _batch_loop(torch, est, X, bounds)
+        report("the loop again in that pool (allocator warm)", *warm)
+        Y = torch.cat(ys)
+        del ys
+    del pool
+    empty()
+    pool = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ys, *profiled = _batch_loop(torch, est, X, bounds)
+    del ys, pool
+    empty()
+    report("the loop in a fresh pool under the profiler", *profiled)
+    api = sorted(_host_api(prof).items(), key=lambda kv: -kv[1][1])
+    log("host split: the profiled loop's host CUDA API calls (count, host "
+        "ms): " + ", ".join(f"{k} x{c} {t:.3f}" for k, (c, t) in api[:12]))
+    chain = rpt.SparseRandomProjection(
+        N_COMPONENTS, density=DENSITY, random_state=0,
+        backend_options={"materialization": "lazy",
+                         "dispatch_steps": CHAIN_STEPS},
+    ).fit(X)
+    pool = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool):
+        for label in ("in a fresh pool (allocator cold)", "again (warm)"):
+            fk.reset_launches()
+            Yc, *run = _timed(torch, lambda: chain.transform(X))
+            launched = dict(fk.LAUNCHES)
+            check(launched == {"rp_fused_project": 1, "rp_mask_cache": 1,
+                               "rp_lazy_matrix": 0},
+                  f"the chain launched {launched}, want one mask cache and one "
+                  f"persistent launch")
+            check(torch.equal(Yc, Y), "the chain differs from the 16-batch loop")
+            del Yc
+            report(f"the chain, one transform of {N_ROWS} rows at "
+                   f"dispatch_steps={CHAIN_STEPS} ("
+                   f"{fk.multistep_chain_length(N_ROWS, CHAIN_STEPS)} row "
+                   f"blocks), {label}; launches {json.dumps(launched)}, equal "
+                   f"to the 16-batch loop bit for bit", *run)
+    del Y, pool
+    empty()
 
 
 def phase_other_routes(torch, rpt, X):
@@ -432,7 +646,51 @@ def phase_stream(est, streaming, scratch: Path):
         f"({n / full_s:.1f} rows/s host source included)")
 
 
-def phase_timing(torch, fk, est, X, counts, errs):
+def _chain_designs(torch, fk, X, seed, density):
+    """The chain at config-2 width (all of ``X`` at ``CHAIN_STEPS``), three
+    ways: (a) one mask cache and one persistent launch over every row (the
+    shipped ``fused_project_multistep``), (b) one mask cache shared by a
+    launch a row block, each writing its rows of one output, (c) (b)
+    captured once as a CUDA graph and replayed (x and the output baked in).
+    Each equals the others bit for bit; returns their milliseconds."""
+    n, k = X.shape[0], N_COMPONENTS
+    per = -(-n // CHAIN_STEPS)
+    blocks = [(lo, min(lo + per, n)) for lo in range(0, n, per)]
+
+    def design_a():
+        return fk.fused_project_multistep(X, seed, k, density,
+                                          steps=CHAIN_STEPS, mxu_mode="split2")
+
+    def design_b():
+        mask = fk.rp_mask_cache(seed, k, X.shape[1], density)
+        y = torch.empty((n, k), dtype=torch.float32, device="cuda")
+        for lo, hi in blocks:
+            fk.rp_fused_project(X[lo:hi], seed, k, density, mxu_mode="split2",
+                                mask=mask, out=y[lo:hi])
+        return y
+
+    ya, yb = design_a(), design_b()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        yc = design_b()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(ya, yb) and torch.equal(ya, yc),
+          "the chain's three designs differ")
+    del ya, yb
+    # in turns, a b c c b a: the card's clocks drift over a run
+    designs = (("a_one_launch_ms", design_a), ("b_launch_a_block_ms", design_b),
+               ("c_graph_of_b_ms", graph.replay))
+    times = {name: [] for name, _ in designs}
+    for name, fn in designs + designs[::-1]:
+        times[name].append(cuda_ms(fn, reps=5))
+    del graph, yc
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_timing(torch, fk, est, X, counts, errs, old):
     """K1 in its three modes, the mask cache and K3 at the main path's
     shapes: the kernel's time beside its bound, its plain version's time
     and one PyTorch call's time on the same inputs."""
@@ -480,6 +738,31 @@ def phase_timing(torch, fk, est, X, counts, errs):
                        warmup=2)
     log(f"dense split2 route (split2_project against a materialized bf16 "
         f"mask, two torch bf16 products): {dense_ms:.3f} ms")
+    # K1 split2 with the old mask-cache writer, in turns with the shipped one
+    shipped = fk.rp_mask_cache
+
+    def old_cache(seed_, k_, d_, density_, *, block_offset=0, device="cuda"):
+        return old.mask_cache(torch, fk, seed_, k_, d_, density_,
+                              block_offset=block_offset, device=device)
+
+    def split2_call():
+        return fk.rp_fused_project(x, seed, k, density, mxu_mode="split2")
+
+    turns = []
+    for writer in ("old", "new", "new", "old"):
+        fk.rp_mask_cache = old_cache if writer == "old" else shipped
+        try:
+            turns.append((writer, cuda_ms(split2_call, reps=20, warmup=2)))
+        finally:
+            fk.rp_mask_cache = shipped
+    log(f"rp_fused_project {n}x{d}->{k} split2 (mask cache included), old and "
+        f"new mask writer in turns: "
+        + ", ".join(f"{w} {t:.4f} ms" for w, t in turns))
+    chain = _chain_designs(torch, fk, X, seed, density)
+    log(f"the chain over {X.shape[0]} rows at {CHAIN_STEPS} steps, split2, "
+        f"in turns a b c c b a: "
+        + ", ".join(f"{key} {v[0]:.3f} {v[1]:.3f}" for key, v in chain.items())
+        + f" (16 single batches of the kernel: {16 * timed['split2']['ms']:.3f})")
 
     fused = {
         "name": "rp_fused_project",
@@ -492,6 +775,8 @@ def phase_timing(torch, fk, est, X, counts, errs):
         "shape": f"{n}x{d}->{k} split2",
         "modes": timed,
         "dense_split2_ms": dense_ms,
+        "split2_ms_by_mask_writer": turns,
+        "chain_1M_rows_16_steps": chain,
     }
 
     dp = -(-d // fk.STEP_D) * fk.STEP_D
@@ -504,7 +789,14 @@ def phase_timing(torch, fk, est, X, counts, errs):
         "replaces": "randomprojection_tpu/ops/pallas_kernels.py:752",
         "launches": counts["rp_mask_cache"],
         "max_abs_err": errs["rp_mask_cache"],
-        "ms": cuda_ms(lambda: fk.rp_mask_cache(seed, k, d, density), reps=100),
+        # device time, apart from the wrapper's host time
+        "ms": graph_ms(torch, lambda: fk.rp_mask_cache(seed, k, d, density)),
+        "old_ms": graph_ms(torch, lambda: old.mask_cache(torch, fk, seed, k, d,
+                                                         density)),
+        "fill_ms": graph_ms(torch, lambda: torch.empty(
+            (k, dp), dtype=torch.bfloat16, device="cuda").fill_(1.0)),
+        "wrapper_ms": cuda_ms(lambda: fk.rp_mask_cache(seed, k, d, density),
+                              reps=100),
         "plain_ms": cuda_ms(lambda: fk.mask_cache_plain(
             seed, k, d, density, device="cuda"), reps=10),
         "library_ms": None,
@@ -512,6 +804,12 @@ def phase_timing(torch, fk, est, X, counts, errs):
     cache.update(_bound(2 * k * dp / HBM_BYTES_PER_S,
                         HASH_OPS_PER_ENTRY * k * d / FP32_FLOP_PER_S))
     cache["shape"] = f"{k}x{dp} bf16"
+    log(f"rp_mask_cache {k}x{dp}: device {cache['ms']:.5f} ms (old writer "
+        f"{cache['old_ms']:.5f}, a torch fill of the output "
+        f"{cache['fill_ms']:.5f}; CUDA graph of 20 calls), wrapper "
+        f"{cache['wrapper_ms']:.5f} ms back to back, bound "
+        f"{cache['bound_ms']:.6f} ms by {cache['bound_by']} "
+        f"({cache['bound_ms'] / cache['ms']:.1%} of it)")
 
     lazy = {
         "name": "rp_lazy_matrix",
@@ -520,8 +818,14 @@ def phase_timing(torch, fk, est, X, counts, errs):
         "replaces": "randomprojection_tpu/ops/pallas_kernels.py:963",
         "launches": counts["rp_lazy_matrix"],
         "max_abs_err": errs["rp_lazy_matrix"],
-        # device time, apart from the wrapper's host time
+        # device time, apart from the wrapper's host time, beside the old
+        # writer's and a torch fill of the same 4 MiB (launch and stores
+        # only: the floor of any writer of this output)
         "ms": graph_ms(torch, lambda: fk.rp_lazy_matrix(seed, k, d, density)),
+        "old_ms": graph_ms(torch, lambda: old.lazy_matrix(torch, fk, seed, k,
+                                                          d, density)),
+        "fill_ms": graph_ms(torch, lambda: torch.empty(
+            (k, d), device="cuda").fill_(1.0)),
         "wrapper_ms": cuda_ms(lambda: fk.rp_lazy_matrix(seed, k, d, density),
                               reps=100),
         "plain_ms": cuda_ms(lambda: fk.lazy_matrix_plain(
@@ -531,10 +835,13 @@ def phase_timing(torch, fk, est, X, counts, errs):
     lazy.update(_bound(4 * k * d / HBM_BYTES_PER_S,
                        HASH_OPS_PER_ENTRY * k * d / FP32_FLOP_PER_S))
     lazy["shape"] = f"{k}x{d}"
-    log(f"rp_lazy_matrix {k}x{d}: device {lazy['ms']:.5f} ms (CUDA graph of "
-        f"20 calls), wrapper {lazy['wrapper_ms']:.5f} ms back to back, bound "
+    log(f"rp_lazy_matrix {k}x{d}: device {lazy['ms']:.5f} ms (old writer "
+        f"{lazy['old_ms']:.5f}, a torch fill of the output "
+        f"{lazy['fill_ms']:.5f}; CUDA graph of 20 calls), wrapper "
+        f"{lazy['wrapper_ms']:.5f} ms back to back, bound "
         f"{lazy['bound_ms']:.5f} ms by {lazy['bound_by']} "
-        f"({lazy['bound_ms'] / lazy['ms']:.1%} of it)")
+        f"({lazy['bound_ms'] / lazy['ms']:.1%} of it; old "
+        f"{lazy['bound_ms'] / lazy['old_ms']:.1%})")
     for row in (fused, cache, lazy):
         row["card"] = CARD
     return [fused, cache, lazy]
@@ -1315,15 +1622,18 @@ def main() -> int:
         log(f"card: {CARD}; torch.cuda: {torch.cuda.get_device_name(0)}; "
             f"torch {torch.__version__} CUDA {torch.version.cuda}")
         t0 = time.perf_counter()
-        phase_build(build_mod)
+        old = phase_build(build_mod)
         errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0,
                 "rp_mask_cache": 0.0, "rp_fused_topk": 0, "rp_probe": 0}
-        phase_kernels(torch, fk, errs)
+        phase_kernels(torch, fk, errs, old)
         est, X, counts = phase_main_path(torch, rpt, fk, errs)
+        phase_host_split(torch, rpt, fk, est, X,
+                         [(lo, min(lo + BATCH, N_ROWS))
+                          for lo in range(0, N_ROWS, BATCH)])
         phase_other_routes(torch, rpt, X)
         scratch.mkdir(parents=True, exist_ok=True)
         phase_stream(est, streaming, scratch)
-        kernels = phase_timing(torch, fk, est, X, counts, errs)
+        kernels = phase_timing(torch, fk, est, X, counts, errs, old)
         del X, est
         torch.cuda.empty_cache()
         codes, queries, topk_launches = phase_serving(torch, rpt, tk, errs)

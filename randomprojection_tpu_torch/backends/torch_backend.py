@@ -11,7 +11,9 @@ keeps that backend's three states:
 - **lazy** (``materialization='lazy'``, ``_LazyMask``): no array, just
   ``(seed, density)``; every transform regenerates the mask inside the
   fused CUDA kernel (``ops/fused_kernels.py``), so ``R`` never exists in
-  device memory.
+  device memory.  With ``dispatch_steps=K`` a transform's rows run as the
+  multistep chain (``fused_project_multistep``), bit-identical to K calls
+  on K contiguous row blocks.
 
 Matrix families.  The dense and split2 matrices are drawn on the host
 once at fit from the port's numpy-backend stream (``host_matrix``, the
@@ -33,6 +35,7 @@ so does their output.
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Optional
 
@@ -43,11 +46,15 @@ from randomprojection_tpu_torch.backends.base import (
     ProjectionBackend,
     ProjectionSpec,
 )
+from randomprojection_tpu_torch.utils import telemetry
 from randomprojection_tpu_torch.utils.validation import bfloat16_dtype
 
 __all__ = ["TorchBackend", "resolve_device"]
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
+
+#: the port's logger (the JAX package logs to "randomprojection_tpu")
+logger = logging.getLogger("randomprojection_tpu_torch")
 
 
 class _LazyMask:
@@ -152,18 +159,31 @@ class TorchBackend(ProjectionBackend):
 
         # options of the JAX backend that later slices port; refuse them
         # rather than silently run something else
-        for name, value, default, item in (
-            ("mesh", mesh, None, "A10 (scale-out)"),
-            ("feature_axis", feature_axis, None, "A10 (scale-out)"),
-            ("dispatch_steps", dispatch_steps, 1, "B4 (multistep dispatch)"),
-            ("transform_dma", transform_dma, None,
-             "B1 (x pipelining of the fused kernel)"),
-        ):
-            if value != default:
+        for name, value in (("mesh", mesh), ("feature_axis", feature_axis)):
+            if value is not None:
                 raise ValueError(
-                    f"{name}={value!r} is not ported yet (ROADMAP {item}); "
-                    f"the torch backend takes {name}={default!r} only"
+                    f"{name}={value!r} is not ported yet (ROADMAP A10 "
+                    f"(scale-out)); the torch backend takes {name}=None only"
                 )
+        # execution knobs, not spec fields (the spec defines the matrix):
+        # they change how a lazy transform runs, never what it computes
+        if int(dispatch_steps) < 1:
+            raise ValueError(
+                f"dispatch_steps must be >= 1, got {dispatch_steps}"
+            )
+        #: chain each lazy transform's rows as this many row blocks through
+        #: one dispatch (``fused_project_multistep``); 1 = one plain call
+        self.dispatch_steps = int(dispatch_steps)
+        if transform_dma not in (None, True, False):
+            raise ValueError(
+                "transform_dma must be None (kernel default), True or "
+                f"False, got {transform_dma!r}"
+            )
+        #: accepted for the JAX backend's signature and ignored: the fused
+        #: kernel's x route (TMA or cp.async) is chosen by ``plan_project``
+        #: from the shape alone, so the TPU kernel's DMA switch has no
+        #: counterpart here
+        self.transform_dma = transform_dma
         self.device = resolve_device(device)
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(
@@ -184,6 +204,22 @@ class TorchBackend(ProjectionBackend):
                 f"materialization must be 'dense' or 'lazy', got {materialization!r}"
             )
         self.materialization = materialization
+        # warn (don't raise: callers may set the knobs unconditionally) when
+        # this configuration routes around them, as the JAX backend does
+        if materialization != "lazy" and (
+            self.dispatch_steps > 1 or transform_dma is not None
+        ):
+            logger.warning(
+                "dispatch_steps/transform_dma affect only the fused lazy "
+                "transform kernel; materialization=%r ignores them",
+                materialization,
+            )
+        elif transform_dma is not None:
+            logger.warning(
+                "transform_dma=%r has no counterpart on the card: the fused "
+                "kernel's x route is chosen by plan_project from the shape "
+                "alone, so the option is ignored", transform_dma,
+            )
 
     def _einsum_precision(self) -> str:
         """Precision for plain products ('split2' applies only to the mask
@@ -319,9 +355,7 @@ class TorchBackend(ProjectionBackend):
     def _project(self, x, state, spec: ProjectionSpec):
         import torch
 
-        from randomprojection_tpu_torch.ops.fused_kernels import (
-            fused_sparse_project,
-        )
+        from randomprojection_tpu_torch.ops import fused_kernels as fk
         from randomprojection_tpu_torch.ops.precision import matmul_nt
         from randomprojection_tpu_torch.ops.split_matmul import split2_project
 
@@ -332,9 +366,28 @@ class TorchBackend(ProjectionBackend):
             # stays bf16 through the kernel: one product against the exact
             # mask IS the data's own precision, at half the x bytes
             mode = "bf16" if x.dtype == torch.bfloat16 else self._lazy_mxu_mode()
-            y = fused_sparse_project(
-                x, state.seed, spec.n_components, state.density, mxu_mode=mode
-            )
+            if self.dispatch_steps > 1 and x.shape[0] > 1:
+                y = fk.fused_project_multistep(
+                    x, state.seed, spec.n_components, state.density,
+                    steps=self.dispatch_steps, mxu_mode=mode,
+                )
+                if telemetry.enabled():
+                    telemetry.emit(
+                        telemetry.EVENTS.BACKEND_DISPATCH_FUSED,
+                        rows=int(x.shape[0]),
+                        # blocks actually chained, not the knob
+                        steps=fk.multistep_chain_length(
+                            x.shape[0], self.dispatch_steps
+                        ),
+                        n_components=spec.n_components,
+                        # the JAX backend's field: the card donates no buffer
+                        donated=False,
+                    )
+            else:
+                y = fk.fused_sparse_project(
+                    x, state.seed, spec.n_components, state.density,
+                    mxu_mode=mode,
+                )
         else:
             y = matmul_nt(x, state, self._einsum_precision())
         return y.to(x.dtype)
@@ -343,6 +396,14 @@ class TorchBackend(ProjectionBackend):
         x, device_resident = self._prepare_rows(
             X, allow_bf16=spec.dtype == "bfloat16"
         )
+        telemetry.registry().counter_inc("backend.dispatches")
+        if telemetry.enabled():
+            telemetry.emit(
+                telemetry.EVENTS.BACKEND_DISPATCH, kind=spec.kind,
+                rows=int(x.shape[0]), n_features=spec.n_features,
+                n_components=spec.n_components,
+                device_resident=bool(device_resident),
+            )
         return self._project(x, state, spec), device_resident
 
     def transform(self, X, state, spec: ProjectionSpec, *, dense_output: bool = True):

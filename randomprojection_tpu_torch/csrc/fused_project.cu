@@ -56,7 +56,8 @@
 //  * The mask: the TPU kernel's answer (generate once, reuse).  rp_mask_cache
 //    writes the launch's unscaled mask as bf16 (k x d padded to 64 columns,
 //    2 MiB at config 2, L2-resident), hashed once per entry instead of once
-//    per row tile; the fused kernel loads its tiles by TMA.
+//    per row tile; the fused kernel loads its tiles by TMA.  The mask cache
+//    and rp_lazy_matrix are one templated writer (mask_writer_kernel).
 //  * Accuracy: the tensor cores may round their float32 sums toward zero,
 //    a bias that over 256 k16 steps (x2 or x3 parts) would come near the
 //    1e-5 * max|Y| tolerance.  The accumulator is restarted at every 512-
@@ -94,15 +95,28 @@ struct MaskParams {
   uint32_t lim_nonzero;   // lim_plus <= (h >> 8) < lim_nonzero -> -1, else 0
 };
 
-__device__ __forceinline__ float mask_entry(uint32_t ri, uint32_t ci,
-                                            uint32_t blk,
-                                            const MaskParams& p) {
-  uint32_t h = (ri * 0x9E3779B1u) ^ (ci * 0x85EBCA77u) ^ p.seed_mix ^
-               (blk * 0x27D4EB2Fu);
+constexpr uint32_t kColMul = 0x85EBCA77u;  // the hash's column constant
+
+// The hash's row and block terms, the part of an entry's hash that a run of
+// columns of one row in one block shares.
+__device__ __forceinline__ uint32_t mask_row_block(uint32_t ri, uint32_t blk,
+                                                   const MaskParams& p) {
+  return (ri * 0x9E3779B1u) ^ p.seed_mix ^ (blk * 0x27D4EB2Fu);
+}
+
+// The entry of hash h = mask_row_block(ri, blk) ^ ci * kColMul.
+__device__ __forceinline__ float mask_finish(uint32_t h, const MaskParams& p) {
   h = (h ^ (h >> 15)) * 0x2C1B3C6Du;
   h ^= h >> 13;
   const uint32_t m = h >> 8;
   return m < p.lim_plus ? 1.0f : (m < p.lim_nonzero ? -1.0f : 0.0f);
+}
+
+// Entry (ri, ci) of block blk: the one definition of the mask's bits.
+__device__ __forceinline__ float mask_entry(uint32_t ri, uint32_t ci,
+                                            uint32_t blk,
+                                            const MaskParams& p) {
+  return mask_finish(mask_row_block(ri, blk, p) ^ (ci * kColMul), p);
 }
 
 // bytes of one stage's x tile: 64 rows x 64 columns
@@ -556,37 +570,103 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The launch's unscaled mask as bf16, k x dp (dp = d rounded up to 64,
-// columns past d zero), entry (r, c) in block c / 512 at position c % 512.
-__global__ void mask_cache_kernel(__nv_bfloat16* __restrict__ out, int k,
-                                  int64_t d, int64_t dp, MaskParams p) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(k) * dp) return;
-  const int64_t r = idx / dp;
-  const int64_t c = idx % dp;
-  out[idx] = __float2bfloat16(
-      c < d ? mask_entry(static_cast<uint32_t>(r),
-                         static_cast<uint32_t>(c % kBlockD),
-                         static_cast<uint32_t>(c / kBlockD) + p.block_offset, p)
-            : 0.0f);
-}
-
-// One thread per entry of the (k x d) output M * scale.  Column c lies in
+// -- the mask writer -----------------------------------------------------------
+//
+// One kernel, two instantiations: float32 M * scale, k x d (rp_lazy_matrix,
+// the counterpart of _matrix_kernel), and the launch's unscaled bf16 mask,
+// k x cols with the columns past d zero (rp_mask_cache).  Column c lies in
 // block c / 512 at position c % 512, so a ragged last block is the leading
 // slice of the full 512-wide block, as pallas_sparse_matrix slices it.
-__global__ void lazy_matrix_kernel(float* __restrict__ out, int k, int64_t d,
-                                   MaskParams p, float scale) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<int64_t>(k) * d) return;
-  const int64_t r = idx / d;
-  const int64_t c = idx % d;
-  out[idx] = mask_entry(static_cast<uint32_t>(r),
-                        static_cast<uint32_t>(c % kBlockD),
-                        static_cast<uint32_t>(c / kBlockD) + p.block_offset,
-                        p) *
-             scale;
+//
+// What bounds it: the store stream (4kd bytes, 1.25 us at 256 x 4096 and
+// 3.35 TB/s); the hash is ~13 integer operations an entry.  The design:
+//  * a 2-D grid, so no thread divides: x runs over the columns, VEC a
+//    thread (16 bytes of output), y over the rows, and a thread steps on by
+//    the grid's rows where k exceeds the y limit.  VEC divides 512, so a
+//    thread's run lies in one block, and its block and position are shifts;
+//  * the hash's row and block terms are computed once a row, the column
+//    term once a thread, stepped by adding the constant along the run;
+//  * one 16-byte store a run where rows are 16-byte aligned (float32 with
+//    d % 4 == 0, and every bf16 row: cols is a multiple of 64); float32
+//    rows of other widths store float2 pairs or single values, and a row's
+//    ragged tail only the entries inside it.
+// The launch geometry is the wrapper's plan (plan_mask_writer).
+
+constexpr int kWriterThreads = 256;
+
+template <int STORE>
+__device__ __forceinline__ void store_run(float* dst, const float (&v)[4],
+                                          int n) {
+  if (STORE == 4 && n >= 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if (STORE == 2 && n >= 4) {
+    reinterpret_cast<float2*>(dst)[0] = make_float2(v[0], v[1]);
+    reinterpret_cast<float2*>(dst)[1] = make_float2(v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < n) dst[i] = v[i];
+    }
+  }
+}
+
+// bf16 rows are whole runs of 8 (cols % 64 == 0): one 16-byte store
+template <int STORE>
+__device__ __forceinline__ void store_run(__nv_bfloat16* dst,
+                                          const float (&v)[8], int) {
+  uint4 w;
+  w.x = bf16x2_rn(v[0], v[1]);
+  w.y = bf16x2_rn(v[2], v[3]);
+  w.z = bf16x2_rn(v[4], v[5]);
+  w.w = bf16x2_rn(v[6], v[7]);
+  *reinterpret_cast<uint4*>(dst) = w;
+}
+
+template <typename T, int VEC, int STORE>
+__global__ void __launch_bounds__(kWriterThreads)
+    mask_writer_kernel(T* __restrict__ out, int k, int d, int cols,
+                       MaskParams p, float scale) {
+  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (c0 >= cols) return;
+  const uint32_t blk = static_cast<uint32_t>(c0 >> 9) + p.block_offset;
+  uint32_t col[VEC];  // ci * kColMul along the run
+  col[0] = static_cast<uint32_t>(c0 & (kBlockD - 1)) * kColMul;
+#pragma unroll
+  for (int i = 1; i < VEC; ++i) col[i] = col[i - 1] + kColMul;
+  const int live = d - c0;  // the run's entries inside d (none when <= 0)
+  for (int r = blockIdx.y * blockDim.y + threadIdx.y; r < k;
+       r += gridDim.y * blockDim.y) {
+    const uint32_t rb = mask_row_block(static_cast<uint32_t>(r), blk, p);
+    float v[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float e = i < live ? mask_finish(rb ^ col[i], p) : 0.0f;
+      if constexpr (sizeof(T) == 4) {
+        v[i] = e * scale;
+      } else {
+        v[i] = e;
+      }
+    }
+    store_run<STORE>(out + static_cast<int64_t>(r) * cols + c0, v, cols - c0);
+  }
+}
+
+// The plan's geometry: threads to run, every column covered, the y limit.
+bool writer_geometry_ok(int cols, int vec, int block_x, int block_y,
+                        int grid_x, int grid_y) {
+  return block_x > 0 && block_y > 0 && block_x * block_y <= kWriterThreads &&
+         grid_x > 0 && grid_y > 0 && grid_y <= 65535 &&
+         static_cast<int64_t>(grid_x) * block_x * vec >= cols;
+}
+
+template <typename T, int VEC, int STORE>
+cudaError_t launch_writer(T* out, int k, int d, int cols, const MaskParams& p,
+                          float scale, int block_x, int block_y, int grid_x,
+                          int grid_y, cudaStream_t s) {
+  mask_writer_kernel<T, VEC, STORE>
+      <<<dim3(grid_x, grid_y), dim3(block_x, block_y), 0, s>>>(
+          out, k, d, cols, p, scale);
+  return cudaGetLastError();
 }
 
 MaskParams make_params(uint32_t seed, uint32_t block_offset,
@@ -689,18 +769,23 @@ int rp_fused_smem_bytes(int cta_n, int mode, int stages) {
   return smem_bytes(cta_n, mode, stages);
 }
 
-// out (k x dp, bf16) = the unscaled mask of the launch, columns past d zero.
-// Returns cudaGetLastError().
-int rp_mask_cache(void* out, int k, int64_t d, int64_t dp, uint32_t seed,
+// out (k x dp, bf16) = the unscaled mask of the launch, columns past d zero,
+// written by the mask writer on the wrapper's geometry (8 columns a thread).
+// Returns cudaGetLastError(); a geometry or shape the writer cannot run is
+// refused with cudaErrorInvalidValue.
+int rp_mask_cache(void* out, int k, int d, int dp, uint32_t seed,
                   uint32_t block_offset, uint32_t lim_plus,
-                  uint32_t lim_nonzero, void* stream) {
+                  uint32_t lim_nonzero, int block_x, int block_y, int grid_x,
+                  int grid_y, void* stream) {
+  if (k <= 0 || d <= 0 || dp < d || dp % kStepD ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      !writer_geometry_ok(dp, 8, block_x, block_y, grid_x, grid_y)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const MaskParams p = make_params(seed, block_offset, lim_plus, lim_nonzero);
-  const int64_t total = static_cast<int64_t>(k) * dp;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  mask_cache_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<__nv_bfloat16*>(out), k, d, dp, p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_writer<__nv_bfloat16, 8, 8>(
+      static_cast<__nv_bfloat16*>(out), k, d, dp, p, 1.0f, block_x, block_y,
+      grid_x, grid_y, static_cast<cudaStream_t>(stream)));
 }
 
 // Y (n x k, float32) = scale * X (n x d) . M^T, M read from the mask cache
@@ -759,17 +844,41 @@ int rp_fused_project(const void* x, const void* mask, void* y, int64_t n,
   return static_cast<int>(e);
 }
 
-// out (k x d, float32) = M * scale.  Returns cudaGetLastError().
-int rp_lazy_matrix(void* out, int k, int64_t d, uint32_t seed,
+// out (k x d, float32) = M * scale, written by the mask writer on the
+// wrapper's geometry (4 columns a thread) with stores of `store` values:
+// 4 (d % 4 == 0, out 16-byte aligned), 2 (d even, out 8-byte aligned) or 1.
+// Returns cudaGetLastError(); a geometry, store width or shape the writer
+// cannot run is refused with cudaErrorInvalidValue.
+int rp_lazy_matrix(void* out, int k, int d, uint32_t seed,
                    uint32_t block_offset, uint32_t lim_plus,
-                   uint32_t lim_nonzero, float scale, void* stream) {
+                   uint32_t lim_nonzero, float scale, int store, int block_x,
+                   int block_y, int grid_x, int grid_y, void* stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(out);
+  if (k <= 0 || d <= 0 ||
+      !writer_geometry_ok(d, 4, block_x, block_y, grid_x, grid_y) ||
+      (store == 4 && (d % 4 || at % 16)) || (store == 2 && (d % 2 || at % 8)) ||
+      (store != 1 && store != 2 && store != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const MaskParams p = make_params(seed, block_offset, lim_plus, lim_nonzero);
-  const int64_t total = static_cast<int64_t>(k) * d;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  lazy_matrix_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), k, d, p, scale);
-  return static_cast<int>(cudaGetLastError());
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (store) {
+    case 4:
+      e = launch_writer<float, 4, 4>(o, k, d, d, p, scale, block_x, block_y,
+                                     grid_x, grid_y, s);
+      break;
+    case 2:
+      e = launch_writer<float, 4, 2>(o, k, d, d, p, scale, block_x, block_y,
+                                     grid_x, grid_y, s);
+      break;
+    default:
+      e = launch_writer<float, 4, 1>(o, k, d, d, p, scale, block_x, block_y,
+                                     grid_x, grid_y, s);
+      break;
+  }
+  return static_cast<int>(e);
 }
 
 const char* rp_error_string(int code) {

@@ -34,11 +34,14 @@ Kernels and their plain versions
 ``csrc/fused_project.cu`` on the tensor's device and count their
 launches in ``LAUNCHES``; ``rp_fused_project`` first writes the launch's
 bf16 mask cache (``rp_mask_cache``, its own count), then runs the
-tensor-core product on the plan of ``plan_project``.  ``fused_project`` /
-``mask_cache_plain`` / ``lazy_matrix_plain`` / ``lazy_mask_block`` compute
-the same functions with torch integer and float32 ops.  The public wrappers ``fused_sparse_project`` and
-``lazy_matrix`` dispatch on the device: a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel, and anything else raises.
+tensor-core product on the plan of ``plan_project``.  ``rp_lazy_matrix``
+and ``rp_mask_cache`` are one templated mask writer on the geometry of
+``plan_mask_writer``.  ``fused_project`` / ``mask_cache_plain`` /
+``lazy_matrix_plain`` / ``lazy_mask_block`` compute the same functions
+with torch integer and float32 ops.  The public wrappers
+``fused_sparse_project``, ``fused_project_multistep`` and ``lazy_matrix``
+dispatch on the device: a CPU tensor goes to the plain version, a CUDA
+tensor to the kernel, and anything else raises.
 """
 
 from __future__ import annotations
@@ -59,14 +62,19 @@ __all__ = [
     "BLOCK_D",
     "LAUNCHES",
     "MXU_MODES",
+    "MaskWriterPlan",
     "ProjectPlan",
     "fused_project",
+    "fused_project_multistep",
+    "fused_project_multistep_plain",
     "fused_sparse_project",
     "lazy_mask_block",
     "lazy_matrix",
     "lazy_matrix_plain",
     "mask_cache_plain",
     "mask_limits",
+    "multistep_chain_length",
+    "plan_mask_writer",
     "plan_project",
     "project_smem_bytes",
     "reset_launches",
@@ -251,7 +259,38 @@ def fused_project(x, seed, n_components: int, density: float, *,
     return y * scale
 
 
-# -- the launch planner ----------------------------------------------------------
+def multistep_chain_length(n: int, steps: int) -> int:
+    """The number of row blocks ``fused_project_multistep`` chains for ``n``
+    rows at a requested ``steps``: the clamp plus the ceil-split can round
+    the block count below the request (n=10, steps=7 → per=2 → 5 blocks).
+    Telemetry (``kernel.dma.dispatch`` and the backend's
+    ``backend.dispatch_fused``) records THIS value, not the knob."""
+    n = max(int(n), 1)
+    steps = max(1, min(int(steps), n))
+    per = -(-n // steps)
+    return -(-n // per)
+
+
+def fused_project_multistep_plain(x, seed, n_components: int, density: float,
+                                  *, steps: int, mxu_mode: str = "f32"):
+    """Plain torch version of the chain: ``x`` split into contiguous blocks
+    of ``ceil(n/steps)`` rows, ``fused_project`` on each, the results
+    concatenated (``steps`` already clamped to ``[1, n]``)."""
+    import torch
+
+    n = x.shape[0]
+    if n == 0:
+        return fused_project(x, seed, n_components, density, mxu_mode=mxu_mode)
+    per = -(-n // steps)
+    outs = [
+        fused_project(x[lo:lo + per], seed, n_components, density,
+                      mxu_mode=mxu_mode)
+        for lo in range(0, n, per)
+    ]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+# -- the launch planners ---------------------------------------------------------
 
 # the constants of csrc/fused_project.cu
 TILE_M = 64            # rows of Y per tile, shared by both consumer warpgroups
@@ -326,6 +365,52 @@ def plan_project(n: int, d: int, k: int, mxu_mode: str, sm_count: int, *,
     )
 
 
+WRITER_THREADS = 256   # threads of a mask-writer block (csrc kWriterThreads)
+MAX_GRID_Y = 65_535    # CUDA's limit on a grid's y extent
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskWriterPlan:
+    """How the mask writer launches: each thread writes ``vec`` consecutive
+    columns (16 bytes of output) of every row it visits, with stores of
+    ``store`` values; blocks of ``block_x`` × ``block_y`` threads (x over
+    the columns, y over the rows); a grid of ``grid_x`` × ``grid_y``
+    blocks, a thread stepping on by ``grid_y · block_y`` rows where ``k``
+    exceeds them.  ``cols`` is the output's row length."""
+
+    vec: int
+    store: int
+    cols: int
+    block_x: int
+    block_y: int
+    grid_x: int
+    grid_y: int
+
+
+def plan_mask_writer(k: int, d: int, item: int) -> MaskWriterPlan:
+    """The launch geometry of the mask writer for a ``(k, d)`` mask with
+    ``item``-byte entries: 4 is ``rp_lazy_matrix`` (float32, ``(k, d)``), 2
+    is ``rp_mask_cache`` (bf16, ``(k, d rounded up to 64)``).  Plain Python,
+    the wrappers' and the tests' single source of the geometry."""
+    if item not in (2, 4):
+        raise ValueError(f"the mask writer writes 2- or 4-byte entries, got {item}")
+    if k <= 0 or d <= 0 or d >= 2**31 - 64:
+        raise ValueError(f"no mask-writer plan for k={k} d={d}")
+    cols = d if item == 4 else _mask_columns(d)
+    vec = 16 // item
+    # 16-byte stores need 16-byte rows: every bf16 row (cols % 64 == 0) and
+    # float32 rows of d % 4 == 0; other float32 rows take pairs or singles
+    store = vec if cols * item % 16 == 0 else 2 if cols % 2 == 0 else 1
+    per_row = -(-cols // vec)
+    block_x = min(WRITER_THREADS, -(-per_row // 32) * 32)
+    block_y = WRITER_THREADS // block_x
+    return MaskWriterPlan(
+        vec=vec, store=store, cols=cols, block_x=block_x, block_y=block_y,
+        grid_x=-(-per_row // block_x),
+        grid_y=min(-(-k // block_y), MAX_GRID_Y),
+    )
+
+
 # -- the CUDA kernels ----------------------------------------------------------
 
 _MODE_CODES = {"f32": 0, "split2": 1, "bf16": 2}
@@ -342,12 +427,15 @@ def _lib():
             i32, p,
         ]
         lib.rp_fused_project.restype = i32
-        lib.rp_mask_cache.argtypes = [p, i32, i64, i64, u32, u32, u32, u32, p]
+        geometry = [i32, i32, i32, i32]  # block x, y, grid x, y
+        lib.rp_mask_cache.argtypes = [
+            p, i32, i32, i32, u32, u32, u32, u32, *geometry, p,
+        ]
         lib.rp_mask_cache.restype = i32
         lib.rp_fused_smem_bytes.argtypes = [i32, i32, i32]
         lib.rp_fused_smem_bytes.restype = i32
         lib.rp_lazy_matrix.argtypes = [
-            p, i32, i64, u32, u32, u32, u32, ctypes.c_float, p,
+            p, i32, i32, u32, u32, u32, u32, ctypes.c_float, i32, *geometry, p,
         ]
         lib.rp_lazy_matrix.restype = i32
         lib.rp_error_string.argtypes = [i32]
@@ -382,39 +470,55 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def rp_mask_cache(seed, n_components: int, n_features: int, density: float,
-                  *, block_offset: int = 0, device="cuda"):
-    """Launch the mask-cache writer: the unscaled mask as bf16, ``(k,
-    dp)`` with ``dp`` = ``n_features`` rounded up to 64 and the columns
-    past ``n_features`` zero, on the card (what ``rp_fused_project`` loads
-    its mask tiles from)."""
+def _launch_writer(name: str, out, plan: MaskWriterPlan, args: tuple) -> None:
+    """Launch the mask writer's ``name`` instantiation on ``out``'s card
+    with ``args`` (the C arguments between the output and the geometry)."""
+    import torch
+
+    lib = _lib()
+    with torch.cuda.device(out.device):
+        rc = getattr(lib, name)(
+            out.data_ptr(), *args, plan.block_x, plan.block_y, plan.grid_x,
+            plan.grid_y, _stream_ptr(out.device),
+        )
+    _check_launch(lib, rc, name)
+    LAUNCHES[name] += 1
+
+
+def _writer_device(name: str, device):
     import torch
 
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"rp_mask_cache writes on a CUDA device, got {device}")
+        raise ValueError(f"{name} writes on a CUDA device, got {device}")
+    return device
+
+
+def rp_mask_cache(seed, n_components: int, n_features: int, density: float,
+                  *, block_offset: int = 0, device="cuda"):
+    """Launch the mask writer's bf16 instantiation: the unscaled mask,
+    ``(k, dp)`` with ``dp`` = ``n_features`` rounded up to 64 and the
+    columns past ``n_features`` zero, on the card (what
+    ``rp_fused_project`` loads its mask tiles from)."""
+    import torch
+
+    device = _writer_device("rp_mask_cache", device)
     density = _validate(n_components, n_features, density)
-    dp = _mask_columns(n_features)
-    out = torch.empty((n_components, dp), dtype=torch.bfloat16, device=device)
-    lib = _lib()
+    plan = plan_mask_writer(n_components, n_features, 2)
+    out = torch.empty((n_components, plan.cols), dtype=torch.bfloat16,
+                      device=device)
     lim_plus, lim_nonzero = mask_limits(density)
-    with torch.cuda.device(device):
-        rc = lib.rp_mask_cache(
-            out.data_ptr(), n_components, n_features, dp, _seed_u32(seed),
-            int(block_offset) & _MASK32, lim_plus, lim_nonzero,
-            _stream_ptr(device),
-        )
-    _check_launch(lib, rc, "rp_mask_cache")
-    LAUNCHES["rp_mask_cache"] += 1
+    _launch_writer("rp_mask_cache", out, plan, (
+        n_components, n_features, plan.cols, _seed_u32(seed),
+        int(block_offset) & _MASK32, lim_plus, lim_nonzero,
+    ))
     return out
 
 
-def rp_fused_project(x, seed, n_components: int, density: float, *,
-                     block_offset: int = 0, mxu_mode: str = "split2"):
-    """Launch the fused kernel on ``x``'s card: the mask cache, then the
-    tensor-core product on ``plan_project``'s plan.  ``x``: contiguous CUDA
-    tensor, float32 (``'f32'``, ``'split2'``) or bfloat16 (``'bf16'``).
-    Returns ``(n, k)`` float32."""
+def _fused_launch(x, seed, n_components: int, density: float, *,
+                  block_offset: int, mxu_mode: str, mask=None, out=None):
+    """``rp_fused_project``'s body; returns ``(y, plan)`` (the plan's
+    ``route`` is the x route the launch took, which telemetry records)."""
     import torch
 
     if not (isinstance(x, torch.Tensor) and x.is_cuda):
@@ -428,11 +532,20 @@ def rp_fused_project(x, seed, n_components: int, density: float, *,
             f"contiguous={x.is_contiguous()}"
         )
     n, d = x.shape
-    y = torch.empty((n, n_components), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return y
+    if out is None:
+        y = torch.empty((n, n_components), dtype=torch.float32, device=x.device)
+    elif (out.shape != (n, n_components) or out.dtype != torch.float32
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(
+            f"out must be a contiguous ({n}, {n_components}) float32 tensor "
+            f"on {x.device}, got {out.dtype} {tuple(out.shape)} on {out.device}"
+        )
+    else:
+        y = out
     plan = plan_project(n, d, n_components, mxu_mode, _sm_count(x.device),
                         base_aligned=x.data_ptr() % 16 == 0)
+    if n == 0:
+        return y, plan
     if plan.pad_columns or x.data_ptr() % 4:
         # bf16 rows of odd width (or a 2-byte-aligned view): a copy with a
         # zero column, n·2 bytes of padding, so the cp.async route copies
@@ -441,8 +554,17 @@ def rp_fused_project(x, seed, n_components: int, density: float, *,
         x = torch.nn.functional.pad(x, (0, plan.pad_columns))
         plan = plan_project(n, x.shape[1], n_components, mxu_mode,
                             _sm_count(x.device))
-    mask = rp_mask_cache(seed, n_components, d, density,
-                         block_offset=block_offset, device=x.device)
+    if mask is None:
+        mask = rp_mask_cache(seed, n_components, d, density,
+                             block_offset=block_offset, device=x.device)
+    elif (mask.shape != (n_components, plan.mask_columns)
+          or mask.dtype != torch.bfloat16 or mask.device != x.device
+          or not mask.is_contiguous()):
+        raise ValueError(
+            f"mask must be rp_mask_cache's contiguous ({n_components}, "
+            f"{plan.mask_columns}) bfloat16 tensor on {x.device}, got "
+            f"{mask.dtype} {tuple(mask.shape)} on {mask.device}"
+        )
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.rp_fused_project(
@@ -454,34 +576,72 @@ def rp_fused_project(x, seed, n_components: int, density: float, *,
         )
     _check_launch(lib, rc, "rp_fused_project")
     LAUNCHES["rp_fused_project"] += 1
-    return y
+    return y, plan
+
+
+def rp_fused_project(x, seed, n_components: int, density: float, *,
+                     block_offset: int = 0, mxu_mode: str = "split2",
+                     mask=None, out=None):
+    """Launch the fused kernel on ``x``'s card: the mask cache, then the
+    tensor-core product on ``plan_project``'s plan.  ``x``: contiguous CUDA
+    tensor, float32 (``'f32'``, ``'split2'``) or bfloat16 (``'bf16'``).
+    Returns ``(n, k)`` float32, written into ``out`` when it is given.
+    ``mask``: a mask cache that ``rp_mask_cache`` already wrote for the same
+    seed, k, d, density and block offset, shared by several launches (the
+    call then writes none)."""
+    return _fused_launch(x, seed, n_components, density,
+                         block_offset=block_offset, mxu_mode=mxu_mode,
+                         mask=mask, out=out)[0]
 
 
 def rp_lazy_matrix(seed, n_components: int, n_features: int, density: float,
                    *, block_offset: int = 0, device="cuda"):
-    """Launch the mask writer: ``M·scale`` as ``(k, d)`` float32 on the card."""
+    """Launch the mask writer's float32 instantiation: ``M·scale`` as
+    ``(k, d)`` on the card."""
     import torch
 
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"rp_lazy_matrix writes on a CUDA device, got {device}")
+    device = _writer_device("rp_lazy_matrix", device)
     density = _validate(n_components, n_features, density)
+    plan = plan_mask_writer(n_components, n_features, 4)
     out = torch.empty((n_components, n_features), dtype=torch.float32,
                       device=device)
-    lib = _lib()
     lim_plus, lim_nonzero = mask_limits(density)
-    with torch.cuda.device(device):
-        rc = lib.rp_lazy_matrix(
-            out.data_ptr(), n_components, n_features, _seed_u32(seed),
-            int(block_offset) & _MASK32, lim_plus, lim_nonzero,
-            1.0 / math.sqrt(density * n_components), _stream_ptr(out.device),
-        )
-    _check_launch(lib, rc, "rp_lazy_matrix")
-    LAUNCHES["rp_lazy_matrix"] += 1
+    _launch_writer("rp_lazy_matrix", out, plan, (
+        n_components, n_features, _seed_u32(seed), int(block_offset) & _MASK32,
+        lim_plus, lim_nonzero, 1.0 / math.sqrt(density * n_components),
+        plan.store,
+    ))
     return out
 
 
 # -- public wrappers -----------------------------------------------------------
+
+
+def _emit_kernel_dispatch(shape, n_components: int, mxu_mode: str, path: str,
+                          steps: int) -> None:
+    """``kernel.dma.dispatch``: one record per host dispatch of the fused
+    projection (a ``fused_sparse_project`` call, or a whole
+    ``fused_project_multistep`` chain), with the reference's fields.
+    ``steps`` is the chain length (``multistep_chain_length``; 1 for a
+    single call).  ``path`` is the x route the launch took, ``'tma'`` or
+    ``'cp.async'`` (``plan_project``'s ``route``), or ``'plain'`` for a CPU
+    tensor (the plain version): not the reference's ``'dma'``/``'single'``,
+    which name the TPU kernel's two x pipelines."""
+    from randomprojection_tpu_torch.utils import telemetry
+
+    if not telemetry.enabled():
+        return
+    telemetry.emit(
+        telemetry.EVENTS.KERNEL_DMA_DISPATCH,
+        rows=int(shape[0]), d=int(shape[1]), n_components=int(n_components),
+        mxu_mode=mxu_mode, path=path, steps=int(steps),
+    )
+
+
+def _mode_input(x, mxu_mode: str):
+    import torch
+
+    return x.to(torch.bfloat16 if mxu_mode == "bf16" else torch.float32)
 
 
 def fused_sparse_project(x, seed, n_components: int, density: float, *,
@@ -499,16 +659,61 @@ def fused_sparse_project(x, seed, n_components: int, density: float, *,
     bytes).  A CPU tensor is computed by ``fused_project``; a CUDA tensor
     by the kernel; each validates its arguments as ``_fused_raw`` does.
     """
-    import torch
-
-    x = x.to(torch.bfloat16 if mxu_mode == "bf16" else torch.float32)
+    x = _mode_input(x, mxu_mode)
     if x.device.type == "cpu":
-        return fused_project(x, seed, n_components, density,
-                             block_offset=block_offset, mxu_mode=mxu_mode)
-    if x.device.type == "cuda":
-        return rp_fused_project(x.contiguous(), seed, n_components, density,
+        y, path = fused_project(x, seed, n_components, density,
+                                block_offset=block_offset,
+                                mxu_mode=mxu_mode), "plain"
+    elif x.device.type == "cuda":
+        y, plan = _fused_launch(x.contiguous(), seed, n_components, density,
                                 block_offset=block_offset, mxu_mode=mxu_mode)
-    raise ValueError(f"no fused kernel for device {x.device}")
+        path = plan.route
+    else:
+        raise ValueError(f"no fused kernel for device {x.device}")
+    _emit_kernel_dispatch(x.shape, n_components, mxu_mode, path, 1)
+    return y
+
+
+def fused_project_multistep(x, seed, n_components: int, density: float, *,
+                            steps: int, mxu_mode: str = "f32",
+                            donate: bool = False):
+    """The multistep dispatch chain (the reference's
+    ``fused_project_multistep``): ``x`` in ``steps`` contiguous row blocks
+    of ``ceil(n/steps)`` rows through the fused projection, the host's
+    call boundary paid once.
+
+    Contract: bit-identical to ``fused_sparse_project`` on each block of
+    that split, concatenated (ragged last block included).  ``steps`` is
+    clamped to the row count; ``steps=1`` is the plain call.
+
+    A CPU tensor runs ``fused_project_multistep_plain``, that loop itself.
+    On a card the chain is ONE mask cache and ONE launch of the persistent
+    kernel over all ``n`` rows: a row's bits depend neither on its batch
+    nor on its place in a tile, so this is the split's result bit for bit,
+    and ``LAUNCHES`` counts the two launches that ran (the design measured
+    fastest against a launch a block, and those launches as one CUDA
+    graph; ``PERF.md``).  ``donate`` is accepted for the reference's
+    signature and has no counterpart: XLA's buffer aliasing does not exist
+    here, nothing frees ``x``, and it never changes a value."""
+    del donate  # no counterpart on the card: see the docstring
+    x = _mode_input(x, mxu_mode)
+    steps = max(1, min(int(steps), max(int(x.shape[0]), 1)))
+    if steps == 1:
+        return fused_sparse_project(x, seed, n_components, density,
+                                    mxu_mode=mxu_mode)
+    if x.device.type == "cpu":
+        y, path = fused_project_multistep_plain(
+            x, seed, n_components, density, steps=steps, mxu_mode=mxu_mode
+        ), "plain"
+    elif x.device.type == "cuda":
+        y, plan = _fused_launch(x.contiguous(), seed, n_components, density,
+                                block_offset=0, mxu_mode=mxu_mode)
+        path = plan.route
+    else:
+        raise ValueError(f"no fused kernel for device {x.device}")
+    _emit_kernel_dispatch(x.shape, n_components, mxu_mode, path,
+                          multistep_chain_length(x.shape[0], steps))
+    return y
 
 
 def lazy_matrix(seed, n_components: int, n_features: int, density: float, *,

@@ -108,6 +108,98 @@ def test_mask_cache_is_the_plain_mask(cuda):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("seed", [0, 2**32 - 5, 12345678901])
+@pytest.mark.parametrize("k", [8, 512])
+@pytest.mark.parametrize("d", [1, 3, 4097, 4099, 4100])
+def test_mask_writer_trouble_shapes(cuda, d, k, seed, offset):
+    """Both instantiations of the mask writer bit for bit against their
+    plain versions: one column, a ragged run, float32 rows of odd width
+    (single stores), of even width (pairs) and of d % 4 == 0 (16 bytes)."""
+    got = fk.rp_lazy_matrix(seed, k, d, 1 / 3, block_offset=offset,
+                            device=cuda)
+    cache = fk.rp_mask_cache(seed, k, d, 1 / 3, block_offset=offset,
+                             device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.lazy_matrix_plain(
+        seed, k, d, 1 / 3, block_offset=offset, device=cuda))
+    assert torch.equal(cache, fk.mask_cache_plain(
+        seed, k, d, 1 / 3, block_offset=offset, device=cuda))
+
+
+def test_mask_writer_loops_rows_past_the_grid(cuda):
+    """k = 600,000 rows of 3 columns: past the grid's 65,535 × 8 rows, so
+    threads step on by the grid's rows."""
+    k, d = 600_000, 3
+    assert fk.plan_mask_writer(k, d, 4).grid_y == fk.MAX_GRID_Y
+    got = fk.rp_lazy_matrix(5, k, d, 0.5, device=cuda)
+    cache = fk.rp_mask_cache(5, k, d, 0.5, device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.lazy_matrix_plain(5, k, d, 0.5, device=cuda))
+    assert torch.equal(cache, fk.mask_cache_plain(5, k, d, 0.5, device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["split2", "f32", "bf16"])
+@pytest.mark.parametrize("n,steps", [(70, 3), (1000, 16), (5, 99), (257, 7)])
+def test_chain_equals_separate_launches(cuda, mode, n, steps):
+    """The chain on the card: bit for bit the launches on its row split
+    (ragged last block; steps past the rows clamp to one row a block), in
+    one mask cache and one persistent launch."""
+    x = _x(n, 700, seed=n)
+    if mode == "bf16":
+        x = x.to(torch.bfloat16)
+    per = -(-n // min(steps, n))
+    fk.reset_launches()
+    parts = [fk.fused_sparse_project(x[lo:lo + per], 13, 16, 0.25,
+                                     mxu_mode=mode)
+             for lo in range(0, n, per)]
+    blocks = len(parts)
+    assert blocks == fk.multistep_chain_length(n, steps)
+    assert fk.LAUNCHES["rp_fused_project"] == blocks
+    fk.reset_launches()
+    got = fk.fused_project_multistep(x, 13, 16, 0.25, steps=steps,
+                                     mxu_mode=mode)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == {"rp_fused_project": 1, "rp_mask_cache": 1,
+                           "rp_lazy_matrix": 0}
+    assert torch.equal(got, torch.cat(parts))
+
+
+def test_backend_chain_on_the_card_equals_one_step(cuda):
+    import randomprojection_tpu_torch as rpt
+
+    X = torch.randn(3000, 1100, device=cuda)
+    ests = [rpt.SparseRandomProjection(
+        32, density=1 / 3, random_state=4,
+        backend_options={"materialization": "lazy", "dispatch_steps": k},
+    ).fit(X) for k in (1, 16)]
+    one = ests[0].transform(X)
+    fk.reset_launches()
+    chained = ests[1].transform(X)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["rp_fused_project"] == 1
+    assert fk.LAUNCHES["rp_mask_cache"] == 1
+    assert torch.equal(chained, one)
+    Xh = X.cpu().numpy()
+    np.testing.assert_array_equal(ests[1].transform(Xh), ests[0].transform(Xh))
+
+
+def test_fused_kernel_shares_a_mask_and_writes_into_out(cuda):
+    x = _x(300, 1100, seed=3)
+    want = fk.rp_fused_project(x, 4, 64, 1 / 3)
+    mask = fk.rp_mask_cache(4, 64, 1100, 1 / 3, device=cuda)
+    out = torch.empty((300, 64), device=cuda)
+    fk.reset_launches()
+    got = fk.rp_fused_project(x, 4, 64, 1 / 3, mask=mask, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.equal(got, want)
+    assert fk.LAUNCHES["rp_mask_cache"] == 0
+    with pytest.raises(ValueError, match="mask must be"):
+        fk.rp_fused_project(x, 4, 64, 1 / 3, mask=mask[:, :64])
+    with pytest.raises(ValueError, match="out must be"):
+        fk.rp_fused_project(x, 4, 64, 1 / 3, out=out[:10])
+
+
 def test_fused_kernel_smem_formula_matches_the_source(cuda):
     lib = fk._lib()
     for cta_n in (64, 128, 256):

@@ -279,8 +279,6 @@ def test_no_card_and_no_device_raises(monkeypatch):
     [
         ({"mesh": object()}, "A10"),
         ({"feature_axis": "feature"}, "A10"),
-        ({"dispatch_steps": 4}, "B4"),
-        ({"transform_dma": True}, "B1"),
     ],
 )
 def test_options_of_later_slices_raise(opt, item):
