@@ -41,8 +41,15 @@ Phases (any failure exits non-zero and prints no result):
    a model with ``dispatch_steps=16``, equal to the 16-batch loop bit for
    bit with its launches read around it (one ``rp_mask_cache``, one
    ``rp_fused_project``), cold and warm;
-5. the same fit on the dense route and with ``precision='split2'``
-   (distortion only), and a Gaussian model;
+5. the JAX backend's threefry matrices drawn on the card
+   (``ops/kernels.py``): config 2's sparse matrix (seed 0, 256 × 4096,
+   density 1/3) dense and as the split2 mask, a Rademacher matrix at the
+   same shape and config 4's Gaussian hyperplanes (seed 7, 256 × 768),
+   each held to the same draw on the CPU (bit for bit; the Gaussian within
+   its 4 ulps), the float32 sparse matrix to the reference's SHA-256, and
+   timed by CUDA events beside its bound; then the same fit on the dense
+   route (the threefry matrix, SHA-256 held again) and with
+   ``precision='split2'`` (distortion only), and a Gaussian model;
 6. ``transform_stream`` over a host source for 8 batches with a
    checkpoint, cut after 3 batches and resumed: bit-identical to an
    uninterrupted run;
@@ -96,7 +103,21 @@ Phases (any failure exits non-zero and prints no result):
    ``torch.profiler`` splits one graphed device-rung call at 16 probes into
    device time by kernel beside its host wall (the card's busy share).  The
    probe kernel's and the mask writer's rows give device time (CUDA events
-   around a CUDA graph of 20 calls) beside the wrapper's time.
+   around a CUDA graph of 20 calls) beside the wrapper's time;
+10. durable snapshots and exactly-once ingest (``durable.py``) at config
+   4's size: phase 8's 2^24 codes (512 MiB) with a seeded 1% deleted,
+   ``save_index``, ``verify_snapshot``, ``load_index``, and ``query_topk``
+   of the 2,048 queries on the restored chunks (K4) equal to the live
+   index bit for bit; phase 9's 2^20-code LSH index saved and loaded, a
+   16-probe query equal to the live one; a ``DurableIngest`` of
+   ``SignRandomProjection(256)`` over 2^20 rows of 768 drawn on the card in
+   65,536-row batches, a commit every 4 batches, compacted at the end;
+   and a child process on the card (``python -m
+   randomprojection_tpu_torch.durable --child ... --device cuda``) killed
+   at its 6th batch and resumed: codes, manifest checksums and answers
+   equal the uninterrupted run's.  Save and load seconds and GB/s and the
+   ingest's rows/s are printed; the snapshots live under a scratch
+   directory the phase removes.
 
 The kernels' timings are printed as one JSON line.
 
@@ -107,7 +128,9 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -169,6 +192,29 @@ LSH_RECALL_GATE, LSH_FRACTION_GATE = 0.95, 0.10
 # full coverage: 4 bands x 8 bits over 2^16 codes in two chunks
 FULL_N, FULL_BANDS, FULL_BAND_BITS, FULL_NQ = 1 << 16, 4, 8, 64
 REPEATS = 50  # the probe kernel's repeats at its largest trouble shape
+# config 2's matrix (seed 0, 256 x 4096, density 1/3, float32) as the JAX
+# backend draws it: its nonzeros and the SHA-256 of its C-order bytes,
+# computed with jax 0.9.0 on the CPU by
+#   k = jax.random.fold_in(jax.random.key(0), 0x5250)
+#   R = np.asarray(randomprojection_tpu.ops.kernels.sparse_matrix(
+#       k, 256, 4096, 1/3, jnp.float32))
+#   hashlib.sha256(R.tobytes()).hexdigest()
+THREEFRY_NNZ = 349_665
+THREEFRY_SHA = "cd0d88ada17b39e4280c42b32fa89d8358b5619e6ca2b8cb0f8a364bf9cef048"
+GAUSS_ULPS = 4  # the Gaussian's stated tolerance (ops/threefry.py)
+# 32-bit integer ops of one threefry word (20 rounds of add, two shifts,
+# or, xor; 17 key-schedule adds; the xor of the two output words) and of
+# its uniform (shift, or, subtract, compare): counted at the float32 rate
+THREEFRY_OPS_PER_ENTRY = 100 + 17 + 1 + 4
+# a Gaussian entry adds erf_inv: log1p and sqrt (~20), the 8-step Horner
+# polynomial as multiply-adds (16), the selects and two multiplies
+GAUSS_EXTRA_OPS = 40
+# durable ingest at config 4's width: SignRandomProjection(256) over 2^20
+# rows of 768 in 65,536-row batches, a commit every 4 batches, the chunks
+# folded into one at the end (16 chunks); the crash child dies at its 6th
+# batch, after the first commit
+INGEST_ROWS, INGEST_SEED, INGEST_COMMIT, INGEST_COMPACT = 1 << 20, 5, 4, 16
+KILL_AT, KILL_NTH = "mid-batch", 6
 
 CARD = ""
 
@@ -610,9 +656,126 @@ def phase_other_routes(torch, rpt, X):
         ("gaussian", rpt.GaussianRandomProjection(N_COMPONENTS, random_state=0)),
     ):
         est.fit(X)
+        if label == "dense":
+            R = est.components_as_numpy()
+            sha = hashlib.sha256(np.ascontiguousarray(R).tobytes()).hexdigest()
+            check(sha == THREEFRY_SHA and np.count_nonzero(R) == THREEFRY_NNZ,
+                  "the dense route's matrix is not the JAX backend's")
+            log("route dense: the matrix is the JAX backend's threefry "
+                "matrix (SHA-256 equal)")
         eps = distortion(est, sample)
         log(f"route {label}: distortion {eps:.3e} (budget {DISTORTION_BUDGET})")
         check(eps <= DISTORTION_BUDGET, f"{label} distortion over budget")
+
+
+def wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``fn`` through to the card's finish."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_threefry(torch):
+    """The JAX backend's threefry matrices drawn on the card: config 2's
+    sparse matrix dense and as the split2 mask, a Rademacher matrix at the
+    same shape and config 4's Gaussian hyperplanes, each held to the same
+    draw on the CPU (bit for bit; the Gaussian within its ulps) and timed
+    by CUDA events beside its bound.  Beside each, the fit route it
+    replaced: the numpy stream's matrix drawn on the host (``host_matrix``)
+    and uploaded, on the host's clock as the draw is."""
+    from randomprojection_tpu_torch.backends.base import ProjectionSpec
+    from randomprojection_tpu_torch.backends.numpy_backend import host_matrix
+    from randomprojection_tpu_torch.backends.torch_backend import TorchBackend
+    from randomprojection_tpu_torch.ops import kernels, threefry
+
+    def key(seed, device):
+        return threefry.fold_in(threefry.seed_key(seed, device), 0x5250)
+
+    def ulps(a, b):
+        a = a.float().cpu().numpy().view(np.int32).astype(np.int64)
+        b = b.float().cpu().numpy().view(np.int32).astype(np.int64)
+        return int(np.abs(a - b).max())
+
+    split_spec = ProjectionSpec("sparse", N_COMPONENTS, N_FEATURES, 0,
+                                density=DENSITY, dtype="float32")
+
+    def split2(device):
+        return TorchBackend(device=device, precision="split2").materialize(
+            split_spec).mask
+
+    def dense_host(R):
+        return R.toarray() if hasattr(R, "toarray") else R
+
+    def uploaded(kind, k, d, seed):
+        spec = ProjectionSpec(kind, k, d, seed, dtype="float32",
+                              **({"density": DENSITY} if kind == "sparse"
+                                 else {}))
+        return lambda: torch.from_numpy(np.ascontiguousarray(
+            dense_host(host_matrix(spec)), dtype=np.float32)).to("cuda")
+
+    def split2_uploaded():
+        R = dense_host(host_matrix(split_spec))
+        return TorchBackend(device="cuda", precision="split2").split_state(
+            np.sign(R), 1.0 / np.sqrt(DENSITY * N_COMPONENTS)).mask
+
+    k, d = N_COMPONENTS, N_FEATURES
+    host_routes = {
+        "sparse": uploaded("sparse", k, d, 0), "split2": split2_uploaded,
+        "rademacher": uploaded("rademacher", k, d, 0),
+        "gaussian": uploaded("gaussian", SIGN_BITS, SIGN_FEATURES, 7),
+    }
+    draws = (
+        ("sparse 256x4096 float32 (config 2, seed 0)",
+         lambda dev: kernels.sparse_matrix(key(0, dev), k, d, DENSITY),
+         4, THREEFRY_OPS_PER_ENTRY, 0),
+        ("split2 mask 256x4096 bf16 (config 2, seed 0)", split2,
+         2, THREEFRY_OPS_PER_ENTRY + 1, 0),
+        ("rademacher 256x4096 float32 (seed 0)",
+         lambda dev: kernels.rademacher_matrix(key(0, dev), k, d),
+         4, THREEFRY_OPS_PER_ENTRY, 0),
+        (f"gaussian {SIGN_BITS}x{SIGN_FEATURES} float32 (config 4, seed 7)",
+         lambda dev: kernels.gaussian_matrix(key(7, dev), SIGN_BITS,
+                                             SIGN_FEATURES),
+         4, THREEFRY_OPS_PER_ENTRY + GAUSS_EXTRA_OPS, GAUSS_ULPS),
+    )
+    rows = []
+    for label, fn, item, ops, tol in draws:
+        card = fn("cuda")
+        torch.cuda.synchronize()
+        check(card.is_cuda, f"{label}: not drawn on the card")
+        cpu = fn("cpu")
+        if tol:
+            err = ulps(card, cpu)
+            check(err <= tol, f"{label}: {err} ulps from the CPU")
+            held = f"within {err} ulps of the CPU (tolerance {tol})"
+        else:
+            check(torch.equal(card.cpu(), cpu), f"{label}: differs from the CPU")
+            held = "bit for bit the CPU's"
+        if label.startswith("sparse"):
+            R = card.cpu().numpy()
+            sha = hashlib.sha256(np.ascontiguousarray(R).tobytes()).hexdigest()
+            check(sha == THREEFRY_SHA and np.count_nonzero(R) == THREEFRY_NNZ,
+                  "config 2's matrix is not the reference's (SHA-256)")
+            held += ", SHA-256 the reference's"
+        ms = cuda_ms(lambda: fn("cuda"), reps=5)
+        wall = wall_ms(torch, lambda: fn("cuda"))
+        host = wall_ms(torch, host_routes[label.split()[0]])
+        n = card.numel()
+        row = {"draw": label, "ms": ms, "wall_ms": wall,
+               "host_draw_upload_ms": host,
+               **_bound(n * item / HBM_BYTES_PER_S, n * ops / FP32_FLOP_PER_S)}
+        rows.append(row)
+        log(f"threefry {label}: {held}; {ms:.3f} ms of device time, "
+            f"{wall:.3f} ms on the host's clock (bound {row['bound_ms']:.5f} "
+            f"ms by {row['bound_by']}); the numpy stream drawn on the host "
+            f"and uploaded {host:.3f} ms")
+    log(f"threefry draws {json.dumps(rows)}")
 
 
 def phase_stream(est, streaming, scratch: Path):
@@ -1582,6 +1745,117 @@ def timing_probe(torch, pk, index, queries, launches, errs):
     return row
 
 
+def phase_durable(torch, tk, codes, queries, lsh_index, lsh_queries,
+                  scratch: Path):
+    """Durable snapshots and exactly-once ingest at config 4's size: the
+    serving phase's 2^24 codes with 1% deleted and the LSH tier's 2^20
+    codes each saved, verified and loaded, the restored index answering
+    bit for bit; a ``DurableIngest`` of 2^20 rows drawn on the card; and a
+    crash child on the card killed mid-batch and resumed to the same codes
+    and checksums as the uninterrupted run."""
+    from randomprojection_tpu_torch import durable
+    from randomprojection_tpu_torch.ann import load_lsh_index
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+
+    root = scratch / "durable"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        idx = SimHashIndex(codes)
+        dead = np.random.default_rng(21).choice(N_CODES, N_CODES // 100,
+                                                replace=False)
+        check(idx.delete(dead) == len(dead), "delete count")
+        want_d, want_i = idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+        snap = str(root / "snapshot")
+        t0 = time.perf_counter()
+        man = durable.save_index(idx, snap)
+        save_s = time.perf_counter() - t0
+        status = durable.verify_snapshot(snap)
+        check(status["ok"] and status["coverage_ok"]
+              and not status["orphan_chunks"], f"snapshot status {status}")
+        t0 = time.perf_counter()
+        back = durable.load_index(snap)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(back.device.type == "cuda" and back.n_codes == N_CODES
+              and back.n_deleted == len(dead), "restored index")
+        tk.reset_launches()
+        got_d, got_i = back.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+        n = _topk_launches(tk)
+        check(n == (1, 0, 1), f"{n} rp_fused_topk launches on the restored index")
+        check(np.array_equal(got_d, want_d) and np.array_equal(got_i, want_i),
+              "restored index answers differently")
+        nbytes = sum(
+            os.path.getsize(os.path.join(snap, e["file"]))
+            for e in man["chunks"] + [man["tombstones"]]
+        )
+        log(f"durable: snapshot of {N_CODES} codes x {SIGN_BITS // 8} B, "
+            f"{len(dead)} deleted: save {save_s:.3f} s "
+            f"({nbytes / save_s / 1e9:.3f} GB/s), verify ok, load "
+            f"{load_s:.3f} s ({nbytes / load_s / 1e9:.3f} GB/s); query_topk of "
+            f"{N_QUERIES} queries on the restored chunks == the live index "
+            f"bit for bit (rp_fused_topk launches {n})")
+        del idx, back
+        torch.cuda.empty_cache()
+
+        lsnap = str(root / "lsh")
+        t0 = time.perf_counter()
+        lsh_index.save(lsnap)
+        lsave_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lback = load_lsh_index(lsnap)
+        lload_s = time.perf_counter() - t0
+        check(np.array_equal(lback._buckets.keys, lsh_index._buckets.keys),
+              "restored band keys differ")
+        q = lsh_queries[:LSH_NQ]
+        live = lsh_index.query_topk(q, LSH_M, tile=LSH_TILE, probes=16)
+        got = lback.query_topk(q, LSH_M, tile=LSH_TILE, probes=16)
+        check(np.array_equal(got[0], live[0]) and np.array_equal(got[1], live[1]),
+              "restored LSH index answers differently")
+        log(f"durable: LSH snapshot of {LSH_N} codes: save {lsave_s:.3f} s, "
+            f"load {lload_s:.3f} s (band keys verified); 16-probe query_topk "
+            f"== the live index bit for bit")
+        del lback
+
+        shapes = dict(rows=INGEST_ROWS, batch_rows=BATCH, d=SIGN_FEATURES,
+                      bits=SIGN_BITS, seed=INGEST_SEED,
+                      commit_every=INGEST_COMMIT, compact_after=INGEST_COMPACT,
+                      device="cuda")
+        ingest_dir = str(root / "ingest")
+        t0 = time.perf_counter()
+        summary = durable.demo_ingest(ingest_dir, **shapes)
+        ingest_s = time.perf_counter() - t0
+        check(summary["rows_done"] == INGEST_ROWS and summary["chunks"] == 1,
+              f"ingest summary {summary}")
+        log(f"durable: DurableIngest of {INGEST_ROWS} rows x {SIGN_FEATURES} "
+            f"-> {SIGN_BITS} bits drawn on the card, {BATCH}-row batches, a "
+            f"commit every {INGEST_COMMIT}, compacted at {INGEST_COMPACT} "
+            f"chunks: {ingest_s:.3f} s, {INGEST_ROWS / ingest_s:.1f} rows/s")
+
+        t0 = time.perf_counter()
+        verdict = durable.crash_smoke(str(root / "crash"), query_m=TOPK_M,
+                                      points=(KILL_AT,), nth=KILL_NTH,
+                                      timeout=600, **shapes)
+        crash_s = time.perf_counter() - t0
+        check(verdict["ok"], f"crash and resume: {json.dumps(verdict)[:4000]}")
+        clean = str(root / "crash" / "clean")
+        check(np.array_equal(durable._codes_of(clean),
+                             durable._codes_of(ingest_dir)),
+              "the child's codes differ from the in-process ingest's")
+        sums = [e["sha256"] for e in durable.read_manifest(ingest_dir)["chunks"]]
+        resumed = str(root / "crash" / KILL_AT.replace("-", "_"))
+        check([e["sha256"] for e in durable.read_manifest(resumed)["chunks"]]
+              == sums, "resumed manifest checksums differ")
+        case = verdict["cases"][0]
+        log(f"durable: a child on the card killed at {case['kill_at']} (rc "
+            f"{case['crash_returncode']}) and resumed (rc "
+            f"{case['resume_returncode']}): codes, manifest checksums and "
+            f"query_topk equal the uninterrupted run's; three children in "
+            f"{crash_s:.3f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -1630,6 +1904,7 @@ def main() -> int:
         phase_host_split(torch, rpt, fk, est, X,
                          [(lo, min(lo + BATCH, N_ROWS))
                           for lo in range(0, N_ROWS, BATCH)])
+        phase_threefry(torch)
         phase_other_routes(torch, rpt, X)
         scratch.mkdir(parents=True, exist_ok=True)
         phase_stream(est, streaming, scratch)
@@ -1640,7 +1915,6 @@ def main() -> int:
         phase_topk_shapes(torch, tk, errs)
         kernels.append(timing_topk(torch, tk, codes, queries, topk_launches,
                                    errs))
-        del codes, queries
         torch.cuda.empty_cache()
         index, lsh_codes, lsh_queries, probe_launches = phase_lsh(
             torch, pk, tk, errs)
@@ -1652,6 +1926,7 @@ def main() -> int:
         phase_lsh_server(index, lsh_queries)
         kernels.append(timing_probe(torch, pk, index, lsh_queries,
                                     probe_launches, errs))
+        phase_durable(torch, tk, codes, queries, index, lsh_queries, scratch)
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

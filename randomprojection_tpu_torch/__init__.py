@@ -5,7 +5,9 @@ JL auto-dimensioning, streamed row-batch transform with cursor resume)
 behind the same ``ProjectionBackend`` boundary, and config-4 SimHash
 serving (``SignRandomProjection`` codes, ``SimHashIndex.query_topk``,
 ``TopKServer``) with its multi-probe LSH tier (``ann.LSHSimHashIndex``),
-executed on an NVIDIA card: plain products through
+model persistence (``serialize.save_model``/``load_model``) and durable index
+snapshots with exactly-once ingest (``save_index``/``load_index``,
+``DurableIngest``), executed on an NVIDIA card: plain products through
 torch; the fused lazy-mask projection and mask writer
 (``csrc/fused_project.cu``) and the fused Hamming top-k
 (``csrc/topk.cu``) and the LSH tier's CSR probe gather (``csrc/probe.cu``)
@@ -37,7 +39,9 @@ _LAZY_ESTIMATORS = (
     "topk_bruteforce",
 )
 
-_LAZY_ANN = ("ann", "LSHSimHashIndex")
+_LAZY_DURABLE = ("DurableIngest", "save_index", "load_index")
+
+_LAZY_ANN = ("ann", "LSHSimHashIndex", "load_lsh_index")
 
 __all__ = [
     "johnson_lindenstrauss_min_dim",
@@ -45,6 +49,7 @@ __all__ = [
     "NotFittedError",
     "from_reference",
     *_LAZY_ESTIMATORS,
+    *_LAZY_DURABLE,
     *_LAZY_ANN,
 ]
 
@@ -55,6 +60,10 @@ def __getattr__(name):
         from randomprojection_tpu_torch import models
 
         return getattr(models, name)
+    if name in _LAZY_DURABLE:
+        from randomprojection_tpu_torch import durable
+
+        return getattr(durable, name)
     if name in _LAZY_ANN:
         from randomprojection_tpu_torch import ann
 

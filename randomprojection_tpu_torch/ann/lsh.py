@@ -42,8 +42,13 @@ re-ranks only the candidates.
   ``candidate_budget``; exact at the full ceiling, recall monotone in the
   budget.
 
-Not ported (ROADMAP): the sharded tier ``LSHShardedSimHashIndex`` (A10),
-snapshots of the band keys (A9), the tiered re-rank (A12).  The reference's
+Snapshots: ``save`` spills the band keys beside the chunks
+(``durable.save_index``'s extra hook) and ``load_lsh_index`` restores the
+tier, verifying the persisted keys against the ones rebuilt from the
+codes; a snapshot without keys (a plain index's) rebuilds the bands.
+
+Not ported (ROADMAP): the sharded tier ``LSHShardedSimHashIndex`` (A10)
+and the tiered re-rank (A12).  The reference's
 host-select rung for a re-rank that overflowed the TPU's scoped VMEM has
 no counterpart: the card's kernel plans fit by construction.
 
@@ -59,6 +64,7 @@ from __future__ import annotations
 import itertools
 import math
 import numbers
+import os
 import time
 from typing import Optional
 
@@ -77,6 +83,7 @@ __all__ = [
     "probe_masks",
     "BandedBuckets",
     "LSHSimHashIndex",
+    "load_lsh_index",
 ]
 
 # bucket-space ceiling: indptr is 2^b + 1 offsets a band
@@ -454,6 +461,12 @@ class LSHSimHashIndex(SimHashIndex):
             self._lsh_graphs.clear()
         return newly
 
+    def _restore_tombstones(self, dead: np.ndarray) -> None:
+        """The base re-arm; the captured tiles bake the tombstone plane in,
+        so they go too."""
+        super()._restore_tombstones(dead)
+        self._lsh_graphs.clear()
+
     def _lsh_fold(self, codes: np.ndarray) -> None:
         rows = self._buckets.add(codes)
         self._lsh_buckets_changed()
@@ -491,6 +504,32 @@ class LSHSimHashIndex(SimHashIndex):
             band_bits=self.band_plan.band_bits, remapped=True,
         )
         return mapping
+
+    # -- durable persistence (durable.save_index's extra hook) ----------------
+
+    def _durable_extra(self, dirpath: str, gen: int) -> dict:
+        """Manifest extras for ``durable.save_index``: the band keys (id
+        order) spilled beside the chunks, checksummed like them, plus the
+        band layout and serving knobs."""
+        return _spill_lsh_keys(self, dirpath, gen, self._buckets.keys)
+
+    @classmethod
+    def load(cls, path: str, *, bands: Optional[int] = None,
+             band_bits: Optional[int] = None, probes: Optional[int] = None,
+             fallback_density: Optional[float] = None, device=None,
+             mesh=None, **kwargs):
+        """Restore an LSH index from a snapshot directory — LSH-format or a
+        plain index's (the banded index is then rebuilt from the codes).
+        See ``load_lsh_index``."""
+        if mesh is not None:
+            raise ValueError(
+                "mesh is not ported yet (ROADMAP A10, the sharded tier "
+                "LSHShardedSimHashIndex); LSHSimHashIndex is single-device"
+            )
+        return load_lsh_index(
+            path, bands=bands, band_bits=band_bits, probes=probes,
+            fallback_density=fallback_density, device=device, **kwargs,
+        )
 
     # -- the candidate tier ----------------------------------------------------
 
@@ -1058,3 +1097,108 @@ class LSHSimHashIndex(SimHashIndex):
                 candidates=live_cands, candidate_fraction=round(frac, 6),
             )
         return "done", (best_d, best_g)
+
+
+# -- durable spill/restore ---------------------------------------------------
+
+
+def _spill_lsh_keys(index, dirpath: str, gen: int, keys: np.ndarray) -> dict:
+    """THE ``lsh`` manifest block: write the keys spill atomically beside
+    the chunks and return the checksummed entry plus the band layout and
+    serving knobs."""
+    from randomprojection_tpu_torch import durable
+
+    fname = f"lsh-{gen:06d}.npy"
+    durable._write_npy_atomic(os.path.join(dirpath, fname), keys)
+    return {"lsh": {
+        "file": fname,
+        "sha256": durable._sha256(keys),
+        "rows": int(keys.shape[1]),
+        "bands": index.band_plan.bands,
+        "band_bits": index.band_plan.band_bits,
+        "probes": index.probes,
+        "fallback_density": index.fallback_density,
+    }}
+
+
+def _resolve_lsh_kwargs(manifest: dict, bands, band_bits, probes,
+                        fallback_density):
+    """Band layout / serving knobs for a restore: explicit kwargs win, the
+    manifest's ``lsh`` block fills the gaps, the library defaults the rest
+    (a snapshot without keys)."""
+    meta = manifest.get("lsh") or {}
+    kw = {
+        "bands": meta.get("bands") if bands is None else int(bands),
+        "band_bits": (
+            meta.get("band_bits") if band_bits is None else int(band_bits)
+        ),
+        "probes": (
+            int(meta.get("probes", 8)) if probes is None else int(probes)
+        ),
+        "fallback_density": (
+            float(meta.get("fallback_density", 0.1))
+            if fallback_density is None
+            else float(fallback_density)
+        ),
+    }
+    return kw, meta
+
+
+def _verify_lsh_keys(dirpath: str, meta: dict, plan: BandPlan,
+                     keys: np.ndarray) -> None:
+    """Hold the keys rebuilt from the restored codes to the snapshot's
+    spill: present with the same band layout → bit for bit (checksum
+    first), else ``ValueError``.  Absent (a snapshot without keys) or
+    re-banded by the caller → the rebuild stands on its own."""
+    if not meta:
+        telemetry.emit(
+            EVENTS.INDEX_LSH_BUILD, path=dirpath, rows=int(keys.shape[1]),
+            n=int(keys.shape[1]), bands=plan.bands,
+            band_bits=plan.band_bits, rebuilt="pre-lsh-snapshot",
+        )
+        return
+    if meta.get("bands") != plan.bands or meta.get("band_bits") != plan.band_bits:
+        return
+    from randomprojection_tpu_torch import durable
+
+    arr = durable._load_chunk_verified(dirpath, meta)
+    if arr.shape != keys.shape or arr.dtype != np.uint32:
+        raise ValueError(
+            f"persisted LSH band keys in {dirpath} have shape "
+            f"{arr.shape}/{arr.dtype}, expected {keys.shape}/uint32"
+        )
+    if not np.array_equal(arr, keys):
+        raise ValueError(
+            f"persisted LSH band keys in {dirpath} disagree with keys "
+            "rebuilt from the restored codes — the snapshot is corrupt or "
+            "the key extraction drifted; refusing to serve a wrong bucket "
+            "index"
+        )
+
+
+def load_lsh_index(path: str, *, bands: Optional[int] = None,
+                   band_bits: Optional[int] = None,
+                   probes: Optional[int] = None,
+                   fallback_density: Optional[float] = None, device=None,
+                   **kwargs) -> LSHSimHashIndex:
+    """Restore a single-device LSH index from a snapshot directory onto
+    ``device`` (None: the card).
+
+    LSH-format snapshots restore their band layout and serving knobs from
+    the manifest, and the persisted keys are verified bit for bit against
+    the rebuild; a plain index's snapshot rebuilds the banded index from
+    the codes (explicit kwargs or the defaults pick the layout).  Chunk
+    checksums, coverage and tombstones verify as ``durable.load_index``.
+    ``kwargs`` are further constructor options (``probe_path``, ...)."""
+    from randomprojection_tpu_torch import durable
+
+    manifest = durable.read_manifest(path)
+    kw, meta = _resolve_lsh_kwargs(
+        manifest, bands, band_bits, probes, fallback_density
+    )
+    index = durable.load_index(
+        path, device=device, index_cls=LSHSimHashIndex,
+        index_kwargs={**kwargs, **kw},
+    )
+    _verify_lsh_keys(path, meta, index.band_plan, index._buckets.keys)
+    return index

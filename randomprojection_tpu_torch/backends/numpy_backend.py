@@ -4,8 +4,9 @@ A copy of ``randomprojection_tpu/backends/numpy_backend.py`` with the same
 salted stream (``_STREAM_SALT``), so one seed gives the same matrix here as
 in the JAX package's numpy backend.  Dense BLAS GEMM for Gaussian, scipy
 CSR SpMM for the sparse kernel (call-site contract
-``random_projection.py:613`` and ``:825-827``).  The torch backend's dense
-and split2 matrices are drawn from this same stream.
+``random_projection.py:613`` and ``:825-827``).  The torch backend draws from
+the JAX backend's threefry stream instead (``ops/kernels.py``), as the two
+backends of the JAX package differ.
 """
 
 from __future__ import annotations

@@ -15,13 +15,11 @@ keeps that backend's three states:
   multistep chain (``fused_project_multistep``), bit-identical to K calls
   on K contiguous row blocks.
 
-Matrix families.  The dense and split2 matrices are drawn on the host
-once at fit from the port's numpy-backend stream (``host_matrix``, the
-salted ``SeedSequence`` of the JAX package's numpy backend) and uploaded:
-for seed ``s`` they equal the numpy backend's matrix, on the CPU and on
-the card.  They are NOT the JAX backend's threefry matrices; carry a JAX
-model across with ``interop.from_reference``.  The lazy matrix is the
-integer hash stream that the JAX package's kernels use under
+Matrix families.  The dense and split2 matrices are the JAX backend's:
+drawn at fit on the backend's device from the threefry stream of the key
+``fold_in(key(seed), 0x5250)`` (``ops/kernels.py``), the sparse and
+Rademacher ones bit for bit and the Gaussian within 4 ulps.  The lazy
+matrix is the integer hash stream that the JAX package's kernels use under
 ``interpret=True`` — portable, so unlike the JAX backend this one runs
 lazy models off the TPU.
 
@@ -84,6 +82,15 @@ class _SplitMask:
     def __init__(self, mask, scale: float):
         self.mask = mask
         self.scale = float(scale)
+
+
+def _matrix_key(seed: int, device):
+    """Seed → the matrix stream's key on ``device``, salted as the JAX
+    backend salts it (``fold_in(key(seed), 0x5250)``), so data drawn from
+    ``key(seed)`` cannot collide with the matrix stream."""
+    from randomprojection_tpu_torch.ops import threefry
+
+    return threefry.fold_in(threefry.seed_key(seed, device), 0x5250)
 
 
 def resolve_device(device, *, how="backend_options={'device': 'cpu'}"):
@@ -237,7 +244,7 @@ class TorchBackend(ProjectionBackend):
     def materialize(self, spec: ProjectionSpec):
         import torch
 
-        from randomprojection_tpu_torch.backends.numpy_backend import host_matrix
+        from randomprojection_tpu_torch.ops import kernels
 
         if self.materialization == "lazy":
             if spec.kind not in ("sparse", "rademacher"):
@@ -255,9 +262,8 @@ class TorchBackend(ProjectionBackend):
                 spec.seed, spec.density if spec.kind == "sparse" else 1.0
             )
 
-        R = host_matrix(spec)
-        if sp.issparse(R):
-            R = R.toarray()
+        key = _matrix_key(spec.seed, self.device)
+        k, d = spec.n_components, spec.n_features
         if self.precision == "split2":
             if spec.kind not in ("sparse", "rademacher"):
                 raise ValueError(
@@ -266,12 +272,19 @@ class TorchBackend(ProjectionBackend):
                     f"got {spec.kind!r} (use precision='high' for gaussian)"
                 )
             density = float(spec.density) if spec.kind == "sparse" else 1.0
-            return self.split_state(
-                np.sign(R), 1.0 / math.sqrt(density * spec.n_components)
-            )
-        return torch.from_numpy(np.ascontiguousarray(R, dtype=np.float32)).to(
-            self.device, self._dtype
-        )
+            scale = 1.0 / math.sqrt(density * k)
+            # R entries are exactly ±scale (or 0) in float32, so dividing
+            # by the same float32 scale gives exact ±1/0
+            R = kernels.sparse_matrix(key, k, d, density, torch.float32)
+            mask = (R / torch.tensor(scale, dtype=torch.float32,
+                                     device=self.device)).to(torch.bfloat16)
+            return _SplitMask(mask, scale)
+        if spec.kind == "gaussian":
+            return kernels.gaussian_matrix(key, k, d, self._dtype)
+        if spec.kind == "sparse":
+            return kernels.sparse_matrix(key, k, d, float(spec.density),
+                                         self._dtype)
+        return kernels.rademacher_matrix(key, k, d, self._dtype)
 
     def split_state(self, mask, scale: float) -> _SplitMask:
         """A split2 state from a host ±1/0 mask and its scale."""

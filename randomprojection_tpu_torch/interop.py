@@ -1,17 +1,17 @@
 """Carry a model fitted with the JAX package into the port.
 
-The JAX backend draws its dense matrices with threefry, which the port
-does not reproduce yet (ROADMAP A2): for the same seed the two packages'
-dense matrices differ.  ``from_reference`` takes what the JAX package
-gives as plain Python and numpy — ``est.spec_.to_dict()`` and
-``est.components_as_numpy()`` — and returns a fitted port estimator whose
-state is exactly those components, so both packages compute with the same
-matrix.
+The port draws its dense and split2 matrices from the JAX backend's
+threefry stream (``ops/kernels.py``), so a reference spec alone —
+``est.spec_.to_dict()`` — re-materialises the same matrix: the sparse and
+Rademacher ones bit for bit, the Gaussian within 4 ulps.  Given the
+reference's ``est.components_as_numpy()`` as well, ``from_reference``
+holds exactly those components instead (a matrix bundle, or a matrix that
+no seed of this family defines).
 
 A ``SignRandomProjection`` of the reference carries a Gaussian spec
 (its hyperplanes), which alone does not say which estimator it belongs
 to: pass ``estimator='sign'`` and the port's ``SignRandomProjection``
-comes back, holding the reference's components.
+comes back, with the reference's hyperplanes.
 
 A lazy spec needs no components: the port's lazy matrix is the hash
 stream that the JAX package's kernels contract under ``interpret=True``,
@@ -49,8 +49,9 @@ def from_reference(spec_dict: dict, components=None,
     """A fitted port estimator for a reference model.
 
     ``spec_dict`` is the reference's ``spec_.to_dict()``; ``components`` its
-    ``components_as_numpy()`` (``(k, d)`` ndarray or CSR), required unless
-    ``backend_options`` asks for ``materialization='lazy'``.  With
+    ``components_as_numpy()`` (``(k, d)`` ndarray or CSR), or None to
+    re-materialise the matrix from the spec's seed (a lazy model takes
+    none: its matrix is ``(seed, density)``).  With
     ``precision='split2'`` the components must be the scaled ±1/0 mask
     of a sparse spec; the port then holds the mask in bf16 and the scale.
     ``estimator`` names the reference's estimator (``'gaussian'``,
@@ -79,19 +80,13 @@ def from_reference(spec_dict: dict, components=None,
     est = cls(spec.n_components, **kwargs)
     backend = resolve_backend("torch", **options)
 
-    if options.get("materialization") == "lazy":
-        if components is not None:
-            raise ValueError(
-                "a lazy model is defined by (seed, density); pass no components"
-            )
+    if options.get("materialization") == "lazy" and components is not None:
+        raise ValueError(
+            "a lazy model is defined by (seed, density); pass no components"
+        )
+    if components is None:
         state = backend.materialize(spec)
     else:
-        if components is None:
-            raise ValueError(
-                "a dense or split2 model needs the reference's components: "
-                "the port's dense matrix family differs from the JAX "
-                "backend's threefry family (ROADMAP A2)"
-            )
         if sp.issparse(components):
             components = components.toarray()
         R = np.asarray(components, dtype=np.float64)

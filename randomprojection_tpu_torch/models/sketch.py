@@ -15,8 +15,9 @@ The port of the serving half of ``randomprojection_tpu/models/sketch.py``:
 
 The index and the server run on the card unless the caller asks for the
 CPU (``SimHashIndex(..., device='cpu')``), where the kernel's plain
-version serves.  Meshes (ROADMAP A10), tiered residency (A12) and
-snapshots (A9) are later slices and raise naming their item.  The
+version serves.  ``save``/``load`` write and read the reference's durable
+snapshot format (``durable.py``).  Meshes (ROADMAP A10) and tiered
+residency (A12) are later slices and raise naming their item.  The
 multi-probe LSH tier on top of the index is ``ann.LSHSimHashIndex``; a
 ``TopKServer`` takes per-label probe budgets for it (``probe_policy``).
 """
@@ -372,7 +373,7 @@ class SimHashIndex:
         order (``new id i`` was ``mapping[i]``).  A host rebuild and one
         full re-upload: a maintenance operation, not a serving one, and
         not safe under concurrent queries."""
-        parts = [c.b.cpu().numpy() for c in self._chunks]
+        parts = [self._fetch_chunk_host(c) for c in self._chunks]
         codes = (
             np.concatenate(parts, axis=0)
             if parts
@@ -385,6 +386,11 @@ class SimHashIndex:
             mapping = np.arange(self.n_codes, dtype=np.int64)
         self._rebuild_from_host(codes)
         return mapping
+
+    def _fetch_chunk_host(self, chunk) -> np.ndarray:
+        """Host copy of one chunk's rows: one ``.cpu()`` copy, used only by
+        the snapshot and compaction paths, never per query."""
+        return chunk.b.cpu().numpy()
 
     def _rebuild_from_host(self, codes: np.ndarray) -> None:
         """Replace every resident chunk with ONE chunk holding ``codes``
@@ -404,12 +410,32 @@ class SimHashIndex:
             dropped=int(old_n - self.n_codes),
         )
 
-    def save(self, path: str):
-        raise ValueError("SimHashIndex.save is not ported yet (ROADMAP A9, durable.py)")
+    def _restore_tombstones(self, dead: np.ndarray) -> None:
+        """Re-arm a restored tombstone bitmap (``durable.load_index``):
+        the host mask, its count, and a new revision so every chunk's
+        device mask is rebuilt at the next query."""
+        self._dead = dead
+        self._n_deleted = int(dead.sum())
+        self._dead_rev += 1
+
+    def save(self, path: str) -> dict:
+        """Durable snapshot of the index into directory ``path``:
+        per-chunk ``.npy`` spills plus a versioned, checksummed
+        ``manifest.json`` committed write-tmp → fsync → ``os.replace``
+        (see ``durable.save_index``).  Returns the manifest."""
+        from randomprojection_tpu_torch import durable
+
+        return durable.save_index(self, path)
 
     @classmethod
-    def load(cls, path: str, **kwargs):
-        raise ValueError("SimHashIndex.load is not ported yet (ROADMAP A9, durable.py)")
+    def load(cls, path: str, *, device=None, mesh=None):
+        """Restore an index saved by ``save`` (by either package) onto
+        ``device`` (None: the card): manifest version and per-chunk
+        checksums are verified before upload; chunk structure and the
+        tombstone bitmap round-trip exactly (see ``durable.load_index``)."""
+        from randomprojection_tpu_torch import durable
+
+        return durable.load_index(path, device=device, mesh=mesh)
 
     # -- dense distances ----------------------------------------------------------
 

@@ -1,9 +1,9 @@
 """Streamed row-batch transform (layer L2) with checkpoint/resume.
 
 The counterpart of the core of ``randomprojection_tpu/streaming.py``:
-seekable sources, the stream cursor, and ``stream_transform``'s
-ack-after-yield commit (prefetch/staged ingest and the telemetry spans
-are later slices).
+seekable sources, the fault-injection wrapper, the stream cursor, and
+``stream_transform``'s ack-after-yield commit (prefetch/staged ingest and
+the telemetry spans are later slices).
 
 - **Seekable sources.**  A ``RowBatchSource`` yields fixed-size row batches
   *starting from any row offset*.
@@ -33,6 +33,7 @@ __all__ = [
     "RowBatchSource",
     "ArraySource",
     "CallableSource",
+    "FaultInjectionSource",
     "StreamCursor",
     "stream_transform",
     "stream_to_array",
@@ -137,6 +138,41 @@ class CallableSource(RowBatchSource):
                 raise ValueError(
                     f"Source returned shape {tuple(batch.shape)} for rows "
                     f"[{lo},{hi}); expected {(hi - lo, self.n_features)}"
+                )
+            yield lo, batch
+
+
+class FaultInjectionSource(RowBatchSource):
+    """Test wrapper: raises at the ``fail_after_batches``-th GLOBAL batch.
+
+    The fault-injection harness: crash a stream mid-flight, resume from
+    the checkpoint cursor, assert bit-identical output.  The fault fires
+    on the batch's global index (``lo // batch_rows``), not on a per-
+    iterator yield count, so a resumed iteration that starts past the
+    threshold fails at once until ``disarm()``.
+    """
+
+    class InjectedFault(RuntimeError):
+        pass
+
+    def __init__(self, inner: RowBatchSource, fail_after_batches: int):
+        self._inner = inner
+        self.fail_after_batches = fail_after_batches
+        self.batch_rows = inner.batch_rows
+        self.n_rows = inner.n_rows
+        self.n_features = inner.n_features
+        self.dtype = inner.dtype
+        self._armed = True
+
+    def disarm(self):
+        self._armed = False
+
+    def iter_batches(self, start_row: int = 0):
+        for lo, batch in self._inner.iter_batches(start_row):
+            if self._armed and lo // self.batch_rows >= self.fail_after_batches:
+                raise self.InjectedFault(
+                    f"injected fault before batch {lo // self.batch_rows} "
+                    f"(row {lo})"
                 )
             yield lo, batch
 

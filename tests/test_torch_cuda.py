@@ -705,3 +705,75 @@ def test_lsh_unplanned_wide_bands_launch_the_probe_kernel(cuda):
     dev = card.query_topk(A, 7, tile=32, probes=16)
     np.testing.assert_array_equal(dev[0], host[0])
     np.testing.assert_array_equal(dev[1], host[1])
+
+
+# -- the threefry matrices, snapshots and durable ingest on the card ------------
+
+
+def _ulps(a, b):
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2**32 - 5, 12345678901])
+def test_threefry_matrices_on_the_card_equal_the_cpu(cuda, seed):
+    from randomprojection_tpu_torch.ops import kernels, threefry
+
+    key = threefry.fold_in(threefry.seed_key(seed, "cpu"), 0x5250)
+    for k, d in ((256, 4096), (24, 700)):
+        for density in (1 / 3, 1.0):
+            assert torch.equal(
+                kernels.sparse_matrix(key, k, d, density, device=cuda).cpu(),
+                kernels.sparse_matrix(key, k, d, density),
+            )
+        assert torch.equal(
+            kernels.rademacher_matrix(key, k, d, device=cuda).cpu(),
+            kernels.rademacher_matrix(key, k, d),
+        )
+        # the Gaussian's stated tolerance (4 ulps): the card's float64
+        # log1p is not the CPU's to the last bit
+        assert _ulps(kernels.gaussian_matrix(key, k, d, device=cuda).cpu(),
+                     kernels.gaussian_matrix(key, k, d)) <= 4
+
+
+def test_backend_draws_the_same_matrix_on_the_card(cuda):
+    import randomprojection_tpu_torch as port
+
+    X = np.zeros((2, 1100), np.float32)
+    for options in ({}, {"precision": "split2"}):
+        card = port.SparseRandomProjection(
+            32, density=0.25, random_state=3, backend_options=options).fit(X)
+        cpu = port.SparseRandomProjection(
+            32, density=0.25, random_state=3,
+            backend_options={"device": "cpu", **options}).fit(X)
+        np.testing.assert_array_equal(card.components_as_numpy(),
+                                      cpu.components_as_numpy())
+
+
+def test_snapshot_round_trip_on_the_card(cuda, tmp_path):
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 256, size=(9000, 32), dtype=np.uint8)
+    live = SimHashIndex(codes[:6000])
+    live.add(codes[6000:])
+    live.delete(rng.integers(0, 9000, 90))
+    q = codes[rng.integers(0, 9000, 64)] ^ np.uint8(1)
+    live.save(str(tmp_path))
+    back = SimHashIndex.load(str(tmp_path))
+    assert back.device.type == "cuda" and len(back._chunks) == 2
+    want = live.query_topk(q, 16)
+    for got in (back.query_topk(q, 16),
+                SimHashIndex.load(str(tmp_path), device="cpu").query_topk(q, 16)):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_crash_child_on_the_card_resumes_bit_identical(cuda, tmp_path):
+    from randomprojection_tpu_torch import durable
+
+    verdict = durable.crash_smoke(str(tmp_path), rows=512, batch_rows=64,
+                                  d=32, bits=64, device="cuda",
+                                  points=("mid-batch",), nth=4, timeout=300)
+    assert verdict["ok"], verdict

@@ -77,8 +77,13 @@ def test_from_reference_lazy_needs_no_components():
     np.testing.assert_array_equal(est.components_as_numpy(), want)
     with pytest.raises(ValueError, match="no components"):
         from_reference(spec, want, backend_options=LAZY)
-    with pytest.raises(ValueError, match="needs the reference's components"):
-        from_reference(spec, backend_options=CPU)
+    # a dense spec without components re-materialises the JAX backend's
+    # threefry matrix from the seed
+    dense = from_reference(spec, backend_options=CPU)
+    want = ref.SparseRandomProjection(16, density=0.25, random_state=9,
+                                      backend="jax").fit(_x(4, 700))
+    np.testing.assert_array_equal(dense.components_as_numpy(),
+                                  want.components_as_numpy())
 
 
 def test_from_reference_split2_rejects_a_non_mask():

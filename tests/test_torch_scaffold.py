@@ -190,15 +190,21 @@ def test_numpy_estimator_matches_reference_numpy_estimator():
     np.testing.assert_array_equal(a, b)
 
 
-def test_torch_dense_matrix_is_the_numpy_stream():
-    """The torch backend's dense matrix for seed s is the numpy backend's."""
+def test_torch_dense_matrix_is_the_jax_threefry_matrix():
+    """The torch backend's dense matrix for seed s is the JAX backend's
+    threefry matrix (no longer the numpy stream, which stays the numpy
+    backend's own)."""
     est = port.SparseRandomProjection(
         16, density=1 / 3, random_state=5, backend_options=CPU
     ).fit(np.zeros((4, 700), np.float32))
-    want = ref_numpy_backend.NumpyBackend().materialize(
+    want = ref.SparseRandomProjection(
+        16, density=1 / 3, random_state=5, backend="jax"
+    ).fit(np.zeros((4, 700), np.float32)).components_as_numpy()
+    np.testing.assert_array_equal(est.components_as_numpy(), want)
+    numpy_stream = ref_numpy_backend.NumpyBackend().materialize(
         RefSpec(**est.spec_.to_dict())
     )
-    np.testing.assert_array_equal(est.components_as_numpy(), want.toarray())
+    assert not np.array_equal(est.components_as_numpy(), numpy_stream.toarray())
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 63, 64, 65, 100, 1280, 65537, 10**6])
