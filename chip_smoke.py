@@ -119,6 +119,29 @@ Phases (any failure exits non-zero and prints no result):
    ingest's rows/s are printed; the snapshots live under a scratch
    directory the phase removes.
 
+11. tiered residency (``tiering.py``) at config 4's width: the port's
+   ``tier_smoke`` on the card; phase 8's 2^24 codes as 16 chunks of 2^20
+   with a budget of 4 (128 MiB hot, 384 MiB cold in pinned host memory, 4x
+   over budget) answering ``query_topk`` of the 2,048 queries at m = 16 bit
+   for bit like the resident index in turns with it (16 scans and 16
+   merges a call, zero fallbacks; q/s of both, the cold fetches' host wall
+   and overlap window, H2D GB/s of a pinned chunk and the share of the
+   cold upload hidden under kernels); phase 9's 2^20 codes as 16 chunks of
+   2^16 with 4 hot: the disk tier's exact answers and the tiered LSH index
+   at probes 4 and 16 equal to the resident ones, a forced demote, every
+   chunk promoted (the device rung back, on newly captured graphs, dropped
+   at the next demotion), and an injected staging failure answering
+   exactly on the fallback counter; and a crash child on the card killed
+   at ``mid-demotion@1`` and resumed to the clean run's codes and answers;
+12. config 5: ``CountSketch(256)`` at hash space 2^20 over 2^20 docs of 100
+   tokens drawn from a 50,000-word vocabulary (seed 0, the reference's
+   ``measure_config5`` recipe; the one cut is depth, 100M -> 2^20 docs):
+   ``TokenSource`` -> ``FeatureHasher`` (the port's murmur3 library) ->
+   ``transform_stream`` on the card in 65,536-doc batches, the first batch
+   within rtol = atol = 2e-5 of the host float64 transform; ingest tokens/s,
+   the device sketch's docs/s (per-batch dispatches, tokens resident) and
+   end-to-end docs/s (the serial pipeline: the staged ingest is ROADMAP A4).
+
 The kernels' timings are printed as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -215,6 +238,17 @@ GAUSS_EXTRA_OPS = 40
 # batch, after the first commit
 INGEST_ROWS, INGEST_SEED, INGEST_COMMIT, INGEST_COMPACT = 1 << 20, 5, 4, 16
 KILL_AT, KILL_NTH = "mid-batch", 6
+# tiered residency (benchmark.py TIER_BENCH_SHAPES["full"]'s 16 chunks with 4
+# hot, 4x over budget), at the serving cell's 2^24 codes and the LSH cell's
+# 2^20; the crash child ingests 2^16 rows in 8 chunks and dies at its first
+# demotion
+TIER_CHUNKS, TIER_HOT = 16, 4
+TIER_CRASH_ROWS, TIER_CRASH_BATCH = 1 << 16, 1 << 13
+# config 5 (benchmark.py measure_config5): CountSketch(256) at hash space
+# 2^20, a 50,000-word vocabulary drawn uniformly with seed 0, 100 tokens a
+# doc, 65,536-doc batches; the one cut is depth, 100M -> 2^20 docs
+C5_FEATURES, C5_K, C5_VOCAB, C5_TOKENS, C5_DOCS = 1 << 20, 256, 50_000, 100, 1 << 20
+C5_TOL = 2e-5  # the card against the host float64 transform (rtol = atol)
 
 CARD = ""
 
@@ -1856,6 +1890,322 @@ def phase_durable(torch, tk, codes, queries, lsh_index, lsh_queries,
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _tier_sums(reg):
+    return (reg.counter("index.tier.fallbacks"), reg.counter("index.tier.fetches"),
+            reg.hist_sum("index.tier.fetch_s"), reg.hist_sum("index.tier.overlap_s"))
+
+
+def _h2d_gbps(torch, host) -> float:
+    """GB/s of one pinned tensor's copy to the card (CUDA events)."""
+    ms = cuda_ms(lambda: host.to("cuda", non_blocking=True), reps=5)
+    return host.numel() * host.element_size() / (ms / 1e3) / 1e9
+
+
+def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
+               scratch: Path) -> int:
+    """Tiered residency at config 4's width (see the module docstring);
+    returns K4's launches on the timed tiered calls."""
+    from randomprojection_tpu_torch import durable, tier_smoke
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+    from randomprojection_tpu_torch.utils import telemetry
+
+    reg = telemetry.registry()
+    root = scratch / "tier"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    opened = []
+    try:
+        t0 = time.perf_counter()
+        summary = tier_smoke.main("cuda")
+        log(f"tier: tier_smoke on the card in {time.perf_counter() - t0:.3f} s "
+            f"({summary['cold_chunks']} of {summary['chunks']} chunks cold, "
+            f"{summary['fallbacks']} fallbacks on its injected-failure leg)")
+
+        # -- exact leg: 2^24 codes as 16 chunks, 4 hot ----------------------
+        host = codes.cpu().numpy()
+        chunk = N_CODES // TIER_CHUNKS
+        budget = TIER_HOT * chunk * host.shape[1]
+        t0 = time.perf_counter()
+        tiered = SimHashIndex(host[:chunk], hbm_budget_bytes=budget)
+        opened.append(tiered)
+        for lo in range(chunk, N_CODES, chunk):
+            tiered.add(host[lo:lo + chunk])
+        build_s = time.perf_counter() - t0
+        r = tiered._tier.residency()
+        cold = [c for c in r["chunks"] if c["tier"] != "hot"]
+        check(r["hot_bytes"] == budget and len(cold) == TIER_CHUNKS - TIER_HOT,
+              f"residency {r['hot_bytes']} B hot, {len(cold)} cold")
+        check(all(c.b.is_pinned() for c in tiered._chunks
+                  if not c.b.is_cuda), "a cold chunk is not in pinned memory")
+        resident = SimHashIndex(codes)
+        # the same 16 chunks all resident: what the chunking alone costs
+        resident16 = SimHashIndex(codes[:chunk])
+        for lo in range(chunk, N_CODES, chunk):
+            resident16.add(codes[lo:lo + chunk])
+        want = resident.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+        for idx in (tiered, resident16):  # first-call set-up
+            idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+        f0 = _tier_sums(reg)
+        indexes = {"resident": resident, "resident16": resident16,
+                   "tiered": tiered}
+        walls = {k: [] for k in indexes}
+        launches = 0
+        for turn in ("resident", "resident16", "tiered", "tiered",
+                     "resident16", "resident", "tiered", "resident16",
+                     "resident"):
+            idx = indexes[turn]
+            tk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+            walls[turn].append(time.perf_counter() - t0)
+            n = _topk_launches(tk)
+            chunks = 1 if turn == "resident" else TIER_CHUNKS
+            check(n == (chunks, 0, chunks), f"{n} K4 launches on the {turn} call")
+            check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+                  f"{turn} answers differ from the resident index")
+            if turn == "tiered":
+                launches += sum(n)
+        f1 = _tier_sums(reg)
+        fallbacks, fetches = f1[0] - f0[0], f1[1] - f0[1]
+        check(fallbacks == 0, f"{fallbacks} tier fallbacks on the timed calls")
+        gbps = _h2d_gbps(torch, tiered._chunks[-1].b)
+        cold_bytes = len(cold) * chunk * host.shape[1]
+        upload_s = cold_bytes / (gbps * 1e9)
+        rw, tw = min(walls["resident"]), min(walls["tiered"])
+        r16 = min(walls["resident16"])
+        hidden = min(max(1.0 - (tw - r16) / upload_s, 0.0), 1.0)
+        # the host merge of the 16 chunks' candidates, apart
+        dummy = [(np.zeros((N_QUERIES, TOPK_M), np.int32),
+                  np.zeros((N_QUERIES, TOPK_M), np.int32))] * TIER_CHUNKS
+
+        class _Done:
+            def __init__(self, a):
+                self.a = a
+
+            def result(self, _):
+                return self.a
+
+        handles = [(_Done(d), _Done(i)) for d, i in dummy]
+        t0 = time.perf_counter()
+        resident16._topk_finish_tile(handles, TOPK_M)
+        merge_s = time.perf_counter() - t0
+        k4_16 = cuda_ms(lambda: [tk.rp_fused_topk(queries, c.b, c.n, TOPK_M)
+                                 for c in resident16._chunks], reps=3)
+        log(f"tier exact: {N_CODES} codes x {host.shape[1]} B as {TIER_CHUNKS} "
+            f"chunks, {TIER_HOT} hot ({budget} B) and {len(cold)} cold in pinned "
+            f"host memory (built in {build_s:.3f} s); query_topk of {N_QUERIES} "
+            f"queries m={TOPK_M} == the resident index bit for bit in every "
+            f"turn; walls (ms) resident "
+            f"{[round(w * 1e3, 3) for w in walls['resident']]}, the 16 chunks "
+            f"all resident {[round(w * 1e3, 3) for w in walls['resident16']]}, "
+            f"tiered {[round(w * 1e3, 3) for w in walls['tiered']]}: "
+            f"{N_QUERIES / rw:.1f} q/s resident, {N_QUERIES / r16:.1f} q/s "
+            f"16 chunks resident, {N_QUERIES / tw:.1f} q/s tiered; K4 over the "
+            f"16 chunks alone {k4_16:.3f} ms, the host merge of their "
+            f"candidates {merge_s * 1e3:.3f} ms; "
+            f"{fetches} cold fetches, host stage wall {f1[2] - f0[2]:.6f} s, "
+            f"overlap window {f1[3] - f0[3]:.6f} s; H2D {gbps:.3f} GB/s "
+            f"(a pinned {chunk * host.shape[1] >> 20} MiB chunk), the cold "
+            f"{cold_bytes >> 20} MiB alone {upload_s * 1e3:.3f} ms, hidden "
+            f"under kernels {hidden:.1%} (against the 16 resident chunks); "
+            f"index.tier.fallbacks {fallbacks}")
+        tiered.close()
+        del tiered, resident, resident16, host
+        opened.clear()
+        torch.cuda.empty_cache()
+
+        # -- disk and LSH leg: 2^20 codes as 16 chunks of 2^16, 4 hot -------
+        lchunk = LSH_N // TIER_CHUNKS
+        lbudget = TIER_HOT * lchunk * LSH_BYTES
+        q = lsh_queries[:LSH_NQ]
+
+        def build(cls, **kw):
+            idx = cls(lsh_codes[:lchunk], **kw)
+            opened.append(idx)
+            for lo in range(lchunk, LSH_N, lchunk):
+                idx.add(lsh_codes[lo:lo + lchunk])
+            return idx
+
+        exact_want = lsh_index.query_topk(q, LSH_M, tile=LSH_TILE, probes=0)
+        disk = build(SimHashIndex, hbm_budget_bytes=lbudget, cold_tier="disk",
+                     cold_dir=str(root / "cold"))
+        spills = sorted(os.listdir(root / "cold"))
+        check(len(spills) == TIER_CHUNKS - TIER_HOT, f"{len(spills)} spills")
+        f0 = _tier_sums(reg)
+        t0 = time.perf_counter()
+        got = disk.query_topk(q, LSH_M, tile=LSH_TILE)
+        disk_s = time.perf_counter() - t0
+        check(np.array_equal(got[0], exact_want[0])
+              and np.array_equal(got[1], exact_want[1]), "disk tier answers")
+        lkw = dict(bands=LSH_BANDS, band_bits=LSH_BAND_BITS, fallback_density=1.0)
+        t0 = time.perf_counter()
+        ltier = build(LSHSimHashIndex, hbm_budget_bytes=lbudget, **lkw)
+        lbuild_s = time.perf_counter() - t0
+        # residency moves here only where this leg forces it (the card
+        # tests run the background rebalance under live queries)
+        ltier._tier._maybe_rebalance = lambda: None
+        qps = {}
+        for p in (4, 16):
+            want_p = lsh_index.query_topk(q, LSH_M, tile=LSH_TILE, probes=p)
+            t0 = time.perf_counter()
+            got = ltier.query_topk(q, LSH_M, tile=LSH_TILE, probes=p)
+            qps[p] = LSH_NQ / (time.perf_counter() - t0)
+            check(np.array_equal(got[0], want_p[0])
+                  and np.array_equal(got[1], want_p[1]),
+                  f"tiered LSH at probes={p} answers differently")
+        f1 = _tier_sums(reg)
+        check(f1[0] == f0[0], f"{f1[0] - f0[0]} fallbacks on the disk/LSH calls")
+        want16 = lsh_index.query_topk(q, LSH_M, tile=LSH_TILE, probes=16)
+
+        def same16(what):
+            got = ltier.query_topk(q, LSH_M, tile=LSH_TILE, probes=16)
+            check(np.array_equal(got[0], want16[0])
+                  and np.array_equal(got[1], want16[1]), what)
+
+        hot0 = next(c for c in ltier._chunks if c.b.is_cuda)
+        check(ltier._tier.demote(hot0.row0), "the forced demote")
+        same16("after a forced demote")
+        # promote every cold chunk: the device rung serves again, on graphs
+        # captured anew over the promoted chunks
+        ltier._tier.budget_bytes = LSH_N * LSH_BYTES
+        for e in list(ltier._tier._entries):
+            ltier._tier._promote(e)
+        check(not ltier._tier.any_cold(), "promotion left cold chunks")
+        check(ltier._lsh_probe_device(None), "the device rung is not back")
+        pk.reset_launches()
+        same16("on the device rung after the promotion")
+        captures = pk.GRAPH_CAPTURES
+        check(captures >= 1 and len(ltier._lsh_graphs) >= 1,
+              "no graph captured after the promotion")
+        ltier._tier.demote(ltier._chunks[0].row0)
+        check(len(ltier._lsh_graphs) == 0, "a demotion kept the graphs")
+        same16("after a demotion of the promoted index")
+        # the injected staging failure: the degraded rung, exact answers
+        orig = tk.stage_rows
+
+        def _boom(*a, **k):
+            raise RuntimeError("injected staging failure")
+
+        tk.stage_rows = _boom
+        try:
+            fb0 = reg.counter("index.tier.fallbacks")
+            same16("tiered LSH on the upload-failure rung")
+            got = disk.query_topk(q, LSH_M, tile=LSH_TILE)
+            check(np.array_equal(got[1], exact_want[1]), "disk tier on the "
+                  "upload-failure rung")
+            fb = reg.counter("index.tier.fallbacks") - fb0
+        finally:
+            tk.stage_rows = orig
+        check(fb > 0, "the upload-failure rung never reached the counter")
+        log(f"tier disk+LSH: {LSH_N} codes as {TIER_CHUNKS} chunks, {TIER_HOT} "
+            f"hot: the disk tier's {len(spills)} spills answer {LSH_NQ} exact "
+            f"queries bit for bit in {disk_s:.3f} s; the tiered LSH index "
+            f"(built in {lbuild_s:.3f} s) == the resident one at probes 4 and 16 "
+            f"({qps[4]:.1f} and {qps[16]:.1f} q/s on the host rung); a forced "
+            f"demote, then every chunk promoted: the device rung answers bit for "
+            f"bit on {captures} new graph(s), dropped at the next demotion; the "
+            f"injected staging failure: {fb} fallbacks, exact answers")
+        for idx in opened:
+            idx.close()
+        opened.clear()
+
+        # -- crash leg: a child on the card killed at mid-demotion@1 --------
+        t0 = time.perf_counter()
+        verdict = durable.crash_smoke(
+            str(root / "crash"), rows=TIER_CRASH_ROWS, batch_rows=TIER_CRASH_BATCH,
+            d=SIGN_FEATURES, bits=SIGN_BITS, seed=INGEST_SEED, device="cuda",
+            query_m=TOPK_M, points=("mid-demotion",), nth=1, timeout=600)
+        check(verdict["ok"], f"mid-demotion crash: {json.dumps(verdict)[:4000]}")
+        case = verdict["cases"][0]
+        log(f"tier crash: a child on the card killed at {case['kill_at']} (rc "
+            f"{case['crash_returncode']}) and resumed (rc "
+            f"{case['resume_returncode']}): codes, checksums and query_topk equal "
+            f"the clean run's; three children in {time.perf_counter() - t0:.3f} s")
+        return launches
+    finally:
+        for idx in opened:
+            idx.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_config5(torch):
+    """Config 5 on the card (see the module docstring)."""
+    import scipy.sparse as sp
+
+    from randomprojection_tpu_torch.models.sketch import CountSketch
+    from randomprojection_tpu_torch.ops.hashing import FeatureHasher
+    from randomprojection_tpu_torch.streaming import TokenSource
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    words = np.asarray([f"tok{i}" for i in range(C5_VOCAB)])
+    toks = words[rng.integers(0, C5_VOCAB, size=C5_DOCS * C5_TOKENS)]
+    gen_s = time.perf_counter() - t0
+    fh = FeatureHasher(n_features=C5_FEATURES, input_type="string",
+                       dtype=np.float32)
+    fh.transform_tokens(toks[:1000])  # builds the murmur3 library
+    indptr = np.arange(0, BATCH * C5_TOKENS + 1, C5_TOKENS, dtype=np.int64)
+
+    def read_tokens(lo, hi):
+        return toks[lo * C5_TOKENS: hi * C5_TOKENS], indptr[: hi - lo + 1]
+
+    src = TokenSource(read_tokens, C5_DOCS, fh, batch_rows=BATCH)
+    cs = CountSketch(C5_K, random_state=0).fit_source(src)
+    check(cs._device.type == "cuda", "CountSketch is not on the card")
+    first = next(src.iter_batches(0))[1]
+    kind = cs._csr_route(first)[0]
+    y = cs.transform(first)
+    want = cs._transform_csr(sp.csr_array(
+        (first.data.astype(np.float64), first.indices, first.indptr),
+        shape=first.shape))
+    err = float(np.abs(y - want).max())
+    check(y.shape == (BATCH, C5_K) and np.isfinite(y).all(), "sketch shape")
+    check(np.allclose(y, want, rtol=C5_TOL, atol=C5_TOL),
+          f"first batch off the host float64 transform by {err}")
+
+    def hash_one():
+        t = time.perf_counter()
+        fh.transform_tokens(toks[: BATCH * C5_TOKENS], indptr)
+        return time.perf_counter() - t
+
+    hash_s = min(hash_one() for _ in range(3))
+    from randomprojection_tpu_torch.ops.hashing import hash_tokens
+
+    def murmur_one():
+        t = time.perf_counter()
+        hash_tokens(toks[: BATCH * C5_TOKENS], C5_FEATURES)
+        return time.perf_counter() - t
+
+    murmur_s = min(murmur_one() for _ in range(3))
+    # the device sketch alone: every batch laid out and uploaded first,
+    # then one dispatch a batch, CUDA events around them
+    prepared = [cs.prepare_batch(b) for _, b in src.iter_batches(0)]
+    torch.cuda.synchronize()
+    sketch_ms = cuda_ms(lambda: [cs._transform_async(b) for b in prepared],
+                        reps=3)
+    del prepared
+    t0 = time.perf_counter()
+    rows = 0
+    for _, yb in cs.transform_stream(src):
+        check(np.isfinite(yb).all(), "a streamed batch is not finite")
+        rows += yb.shape[0]
+    e2e_s = time.perf_counter() - t0
+    check(rows == C5_DOCS, f"the stream gave {rows} rows")
+    log(f"config5: {C5_DOCS} docs x {C5_TOKENS} tokens from {C5_VOCAB} words "
+        f"(drawn in {gen_s:.3f} s) -> FeatureHasher(2^20) -> CountSketch({C5_K}) "
+        f"on the card, {BATCH}-doc batches on the {kind} route; first batch "
+        f"max|dev - host f64| {err:.3e} (rtol=atol={C5_TOL}); ingest "
+        f"{BATCH * C5_TOKENS / hash_s:.1f} tokens/s (host murmur3 + CSR; the "
+        f"murmur3 call alone {BATCH * C5_TOKENS / murmur_s:.1f} tokens/s on "
+        f"{os.cpu_count()} cores); device "
+        f"sketch {C5_DOCS / (sketch_ms / 1e3):.1f} docs/s ({C5_DOCS // BATCH} "
+        f"per-batch dispatches, tokens resident, {sketch_ms:.3f} ms); end to end "
+        f"{C5_DOCS / e2e_s:.1f} docs/s (serial TokenSource -> transform_stream, "
+        f"{e2e_s:.3f} s)")
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -1920,13 +2270,20 @@ def main() -> int:
             torch, pk, tk, errs)
         profile_lsh(torch, pk, index, lsh_queries)
         phase_lsh_wide(pk, tk, lsh_codes, lsh_queries)
-        del lsh_codes
         phase_probe_shapes(torch, pk, index, lsh_queries, errs)
         phase_lsh_full(pk)
         phase_lsh_server(index, lsh_queries)
         kernels.append(timing_probe(torch, pk, index, lsh_queries,
                                     probe_launches, errs))
         phase_durable(torch, tk, codes, queries, index, lsh_queries, scratch)
+        # K4's row counts the tiered exact path's launches too
+        next(r for r in kernels if r["name"] == "rp_fused_topk")[
+            "launches"] += phase_tier(
+            torch, tk, pk, codes, queries, lsh_codes, lsh_queries, index,
+            scratch)
+        del lsh_codes, codes, index
+        torch.cuda.empty_cache()
+        phase_config5(torch)
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

@@ -4,7 +4,10 @@ The JL estimators (Gaussian and sparse Achlioptas/Li random projection,
 JL auto-dimensioning, streamed row-batch transform with cursor resume)
 behind the same ``ProjectionBackend`` boundary, and config-4 SimHash
 serving (``SignRandomProjection`` codes, ``SimHashIndex.query_topk``,
-``TopKServer``) with its multi-probe LSH tier (``ann.LSHSimHashIndex``),
+``TopKServer``) with its multi-probe LSH tier (``ann.LSHSimHashIndex``)
+and tiered hot/cold residency (``SimHashIndex(hbm_budget_bytes=...)``),
+config-5 Count-Sketch feature hashing (``CountSketch``,
+``ops.hashing.FeatureHasher``, ``streaming.TokenSource``),
 model persistence (``serialize.save_model``/``load_model``) and durable index
 snapshots with exactly-once ingest (``save_index``/``load_index``,
 ``DurableIngest``), executed on an NVIDIA card: plain products through
@@ -31,6 +34,7 @@ _LAZY_ESTIMATORS = (
     "GaussianRandomProjection",
     "SparseRandomProjection",
     "SignRandomProjection",
+    "CountSketch",
     "SimHashIndex",
     "TopKServer",
     "pairwise_hamming",

@@ -47,10 +47,19 @@ Snapshots: ``save`` spills the band keys beside the chunks
 tier, verifying the persisted keys against the ones rebuilt from the
 codes; a snapshot without keys (a plain index's) rebuilds the bands.
 
-Not ported (ROADMAP): the sharded tier ``LSHShardedSimHashIndex`` (A10)
-and the tiered re-rank (A12).  The reference's
-host-select rung for a re-rank that overflowed the TPU's scoped VMEM has
-no counterpart: the card's kernel plans fit by construction.
+Tiered residency: an index with a budget (``hbm_budget_bytes``) that
+holds cold chunks serves through the host rung, whose re-rank splits the
+candidate union by residency (``_lsh_rerank_tiered``): the cold rows are
+gathered on the host and staged on a side stream while K4 re-ranks the
+hot rows, then K4 re-ranks the cold rows, and the two top-m planes merge
+under the (distance, lower-global-id) order.  The device rung needs every
+chunk resident; every promotion, demotion and ``reset`` drops the
+captured tiles.
+
+Not ported (ROADMAP): the sharded tier ``LSHShardedSimHashIndex`` (A10).
+The reference's host-select rung for a re-rank that overflowed the TPU's
+scoped VMEM has no counterpart: the card's kernel plans fit by
+construction.
 
 Telemetry: ``index.lsh.dispatch``, ``index.lsh.fallback`` (with its
 reason), ``index.lsh.build``, ``index.lsh.device_dispatch``,
@@ -352,6 +361,12 @@ class BandedBuckets:
         return self._ids[band][indptr[key]: indptr[key + 1]].copy()
 
 
+def _binding_key(b) -> int:
+    """A chunk binding's identity in a tile key: a tensor's data pointer
+    (what a captured graph bakes in), else the host copy's ``id``."""
+    return b.data_ptr() if hasattr(b, "data_ptr") else id(b)
+
+
 def _merge_topm_rows(bd, bg, nd, ng, sentinel: int):
     """Row-wise exact merge of two (dist, id) top-m planes under the
     (distance, lower-global-id) order, deduplicating ids: ``top_m(A ∪ B) =
@@ -465,6 +480,11 @@ class LSHSimHashIndex(SimHashIndex):
         """The base re-arm; the captured tiles bake the tombstone plane in,
         so they go too."""
         super()._restore_tombstones(dead)
+        self._lsh_graphs.clear()
+
+    def _residency_changed(self) -> None:
+        """A tier swap or reset: the captured tiles bake the chunks' device
+        pointers in, so they go."""
         self._lsh_graphs.clear()
 
     def _lsh_fold(self, codes: np.ndarray) -> None:
@@ -613,7 +633,7 @@ class LSHSimHashIndex(SimHashIndex):
         def finish(entry):
             lo, hi, kind, payload = entry
             if kind == "lsh":
-                d, i = self._lsh_finish_tile(payload)
+                d, i = self._lsh_finish_tile(payload, m_eff)
             elif kind == "lsh_dev":
                 d, i = self._lsh_finish_device_tile(payload, m_eff)
             elif kind == "exact":
@@ -693,22 +713,124 @@ class LSHSimHashIndex(SimHashIndex):
             hi = np.searchsorted(cand, c.row0 + c.n)
             if hi > lo:
                 local = self._to_device((cand[lo:hi] - c.row0).astype(np.int64))
-                parts.append(c.b[local])
+                parts.append(self._resident_codes(c, audit=True)[local])
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _lsh_rerank_dispatch(self, a, cand: np.ndarray, m_eff: int):
         """The exact re-rank of one tile against its gathered candidates
-        with the top-k kernel, and the start of the copies to the host."""
-        d, i = topk_kernels.fused_topk(
-            self._to_device(a), self._gather_codes_device(cand),
-            int(cand.size), m_eff,
-        )
+        with the top-k kernel, and the start of the copies to the host.  A
+        tiered index holding cold chunks splits the candidates by
+        residency (``_lsh_rerank_tiered``)."""
+        a = self._to_device(a)
+        if self._tier is not None and self._tier.any_cold():
+            return self._lsh_rerank_tiered(a, cand, m_eff)
+        return self._lsh_rerank_one(a, cand, self._gather_codes_device(cand),
+                                    m_eff)
+
+    @staticmethod
+    def _lsh_rerank_one(a, cand: np.ndarray, cand_dev, m_eff: int):
+        """One K4 re-rank against one gathered candidate plane (the tile's
+        whole union, or one residency side of it)."""
+        d, i = topk_kernels.fused_topk(a, cand_dev, int(cand.size), m_eff)
         return _HostFetch(d), _HostFetch(i), cand
 
-    def _lsh_finish_tile(self, payload):
+    def _lsh_rerank_tiered(self, a, cand: np.ndarray, m_eff: int):
+        """The tiered re-rank: split the candidate union by chunk residency,
+        gather the cold rows on the host (a RAM read for the host tier,
+        the touched pages for a disk memmap), start their upload on the
+        side stream FIRST, launch the hot side's K4 (the upload runs under
+        it), then the cold side's K4 on the landed rows.  Each side selects
+        its own top-``min(m_eff, side)`` and ``_lsh_finish_tile`` merges
+        the planes: exact by the union-of-top-m identity, and full because
+        the starved gate already guaranteed ``|hot| + |cold| ≥ m_eff``.  A
+        failed upload degrades to a synchronous one (fallback audit)."""
+        import torch
+
+        from randomprojection_tpu_torch.tiering import host_view, is_resident
+
+        tier = self._tier
+        t0 = time.perf_counter()
+        per_chunk: dict = {}
+        hot_ids, hot_parts, cold_ids, cold_parts = [], [], [], []
+        for c in self._chunks:
+            lo = np.searchsorted(cand, c.row0)
+            hi = np.searchsorted(cand, c.row0 + c.n)
+            if hi <= lo:
+                continue
+            per_chunk[c.row0] = int(hi - lo)
+            local = (cand[lo:hi] - c.row0).astype(np.int64)
+            b = c.b  # one read: the worker may swap the binding
+            if self.device.type == "cuda":
+                hot = is_resident(b, self.device)
+            else:
+                hot = tier.chunk_is_hot(c) and is_resident(b, self.device)
+            if hot:
+                hot_ids.append(cand[lo:hi])
+                hot_parts.append(b[self._to_device(local)])
+            else:
+                cold_ids.append(cand[lo:hi])
+                cold_parts.append(host_view(b)[local])
+        cand_hot = (np.concatenate(hot_ids) if hot_ids
+                    else np.empty(0, cand.dtype))
+        cand_cold = (np.concatenate(cold_ids) if cold_ids
+                     else np.empty(0, cand.dtype))
+        tier.note_gather(int(cand_hot.size), int(cand_cold.size), per_chunk)
+        hot_dev = None
+        if hot_parts:
+            hot_dev = hot_parts[0] if len(hot_parts) == 1 else torch.cat(hot_parts)
+        if cand_cold.size == 0:
+            # the whole union is resident (a promotion raced the check)
+            return self._lsh_rerank_one(a, cand, hot_dev, m_eff)
+        cold_rows = (cold_parts[0] if len(cold_parts) == 1
+                     else np.concatenate(cold_parts, axis=0))
+        sync = False
+        try:
+            cold_dev, ev = topk_kernels.stage_rows(cold_rows, device=self.device)
+        except Exception as e:
+            tier.note_fallback(f"upload:{type(e).__name__}",
+                               rows=int(cand_cold.size))
+            sync = True
+            cold_dev, ev = self._sync_upload(cold_rows), None
+        wall_s = time.perf_counter() - t0
+        t_staged = time.perf_counter()
+        hot_payload, m_hot = None, 0
+        if cand_hot.size:
+            # the hot side's kernel is launched while the cold rows go up
+            m_hot = int(min(m_eff, cand_hot.size))
+            hot_payload = self._lsh_rerank_one(a, cand_hot, hot_dev, m_hot)
+        overlap_s = 0.0 if sync else time.perf_counter() - t_staged
+        topk_kernels.wait_staged(cold_dev, ev)
+        m_cold = int(min(m_eff, cand_cold.size))
+        cold_payload = self._lsh_rerank_one(a, cand_cold, cold_dev, m_cold)
+        tier.note_fetch(rows=int(cand_cold.size),
+                        nbytes=int(cand_cold.size) * self.n_bytes,
+                        wall_s=wall_s, overlap_s=overlap_s,
+                        source=tier.cold_tier, sync=sync)
+        return ("tiered", (hot_payload, m_hot), (cold_payload, m_cold))
+
+    def _lsh_finish_tile(self, payload, m_eff: int):
         """Wait for one re-rank and map candidate positions back to global
         ids: ``cand`` is ascending, so the kernel's lower-position tie rule
-        is the lower-global-id rule."""
+        is the lower-global-id rule.  A ``'tiered'`` payload finishes each
+        residency side the same way, pads the smaller one to ``m_eff``
+        with the empty-slot sentinel pair and merges the two under the
+        (distance, lower-global-id) order; the sides are disjoint, and
+        each of them is ascending in id."""
+        if payload[0] == "tiered":
+            _, (hp, m_hot), (cp, m_cold) = payload
+            cd, ci = self._lsh_finish_tile(cp, m_cold)
+            if hp is None:
+                return cd, ci  # all cold: the gate gave m_cold == m_eff
+            hd, hi_ = self._lsh_finish_tile(hp, m_hot)
+            sent = np.int32(self.n_bits + 1)
+            cols = ((hd, hi_, m_hot), (cd, ci, m_cold))
+            (hd, hi_), (cd, ci) = [
+                (np.pad(d, ((0, 0), (0, m_eff - m)), constant_values=sent),
+                 np.pad(i, ((0, 0), (0, m_eff - m)),
+                        constant_values=_INT32_MAX))
+                for d, i, m in cols
+            ]
+            return _merge_topm_rows(hd, hi_, cd, ci, int(sent))
         d, i, cand = payload
         return d.result(None), cand[i.result(None)].astype(np.int32)
 
@@ -720,6 +842,13 @@ class LSHSimHashIndex(SimHashIndex):
         the device rung for an index on a card."""
         path = (self.probe_path if probe_path is None
                 else _check_probe_path(probe_path))
+        if path == "host":
+            return False
+        if self._tier is not None and self._tier.any_cold():
+            # the device rung gathers from every chunk on the device: with
+            # cold chunks it would upload whole chunks a tile; the host
+            # rung and the tiered re-rank stage only the candidate rows
+            return False
         if path == "auto":
             return self.device.type == "cuda"
         return path == "device"
@@ -798,7 +927,8 @@ class LSHSimHashIndex(SimHashIndex):
         return dev
 
     def _lsh_chunk_planes(self) -> list:
-        return [(c.b, c.row0, c.n) for c in self._chunks]
+        return [(self._resident_codes(c, audit=True), c.row0, c.n)
+                for c in self._chunks]
 
     def _lsh_graph_key(self, nq: int, n_probes: int, cap: int,
                        m_eff: int) -> tuple:
@@ -809,7 +939,7 @@ class LSHSimHashIndex(SimHashIndex):
         return (int(nq), self.n_bytes, int(n_probes), int(cap), int(m_eff),
                 self.band_plan.bands, self.band_plan.band_bits,
                 int(self.n_codes), self._lsh_dev_rev, self._dead_rev,
-                tuple((c.row0, c.n, c.b.data_ptr()) for c in self._chunks))
+                tuple((c.row0, c.n, _binding_key(c.b)) for c in self._chunks))
 
     def _lsh_device_composite(self, q, masks_dev, act_dev, m_eff: int,
                               cap: int, fetch):

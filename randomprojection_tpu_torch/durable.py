@@ -26,12 +26,18 @@ answers bit for bit.
   runs the kill matrix, restarts each crashed run and holds the result to
   a clean run.
 
+Tiered indexes: ``save_index`` writes the index's ``tier`` block (its
+budget, cold tier and each chunk's residency at snapshot time; the
+payload is residency-independent), ``verify_snapshot`` reports it, and
+``load_index(index_kwargs={'hbm_budget_bytes': ...})`` re-tiers the
+restored chunks under the caller's budget.  The fourth kill point,
+``mid-demotion``, is in the tier's demotion (``tiering.py``), between the
+spill write and the residency swap; the harness child crosses it in a
+disk-tiered leg after its ingest.
+
 Not ported yet: the sharded pair ``save_sharded_index``/
 ``load_sharded_index`` (ROADMAP A10; ``load_index`` refuses an
-``id_offset`` manifest) and tiered residency (A12): a ``tier`` block is
-validated as the reference validates it, and every chunk is restored
-resident.  The reference's fourth kill point, ``mid-demotion``, lives in
-the tiering code and comes with it.
+``id_offset`` manifest).
 
 Telemetry: ``index.snapshot.save``/``index.snapshot.load``,
 ``recover.resume``, ``recover.orphan_chunk`` and
@@ -81,14 +87,14 @@ INDEX_FORMAT_VERSION = 1
 MANIFEST_NAME = "manifest.json"
 
 # fault-injection points, in pipeline order; RP_DURABLE_KILL="<point>@<n>"
-# SIGKILLs the process the n-th time that point is reached
-KILL_POINTS = ("mid-batch", "post-yield-pre-ack", "mid-snapshot-rename")
+# SIGKILLs the process the n-th time that point is reached.  The last one
+# is in the tier's demotion (tiering.py): the cold spill file exists but
+# the residency swap has not happened
+KILL_POINTS = ("mid-batch", "post-yield-pre-ack", "mid-snapshot-rename",
+               "mid-demotion")
 KILL_ENV = "RP_DURABLE_KILL"
 _kill_counts: dict = {}
 
-# the reference's cold tiers (tiering.COLD_TIERS): a manifest's tier block
-# names one of them
-COLD_TIERS = ("host", "disk")
 
 
 def _maybe_kill(point: str) -> None:
@@ -321,6 +327,12 @@ def save_index(index, dirpath: str, *, ingest: Optional[dict] = None) -> dict:
     extra_hook = getattr(index, "_durable_extra", None)
     if extra_hook is not None:
         manifest.update(extra_hook(dirpath, gen))
+    # a tiered index's residency at snapshot time: provenance and a
+    # verification surface (the spills above read hot and cold chunks
+    # alike), never a load-time requirement
+    tier = getattr(index, "_tier", None)
+    if tier is not None:
+        manifest.update(tier.manifest_block())
     _commit_manifest(dirpath, manifest)
     for fn in _scan_orphans(dirpath, manifest):
         os.unlink(os.path.join(dirpath, fn))
@@ -336,6 +348,8 @@ def save_index(index, dirpath: str, *, ingest: Optional[dict] = None) -> dict:
 def _check_tier_block(manifest: dict) -> None:
     """Validate a manifest's tiered-residency block as the reference does
     (no-op when absent); unknown formats or tags raise ``ValueError``."""
+    from randomprojection_tpu_torch.tiering import COLD_TIERS
+
     block = manifest.get("tier")
     if block is None:
         return
@@ -373,9 +387,11 @@ def load_index(dirpath: str, *, device=None, mesh=None, index_cls=None,
     The manifest's format version is checked first, every chunk payload
     is SHA-256-verified before upload, chunk structure and global ids are
     restored exactly, and the tombstone bitmap (if any) is re-armed.  A
-    tier block is validated and every chunk restored resident.
-    ``index_cls``/``index_kwargs`` restore a subclass instead (the LSH
-    tier; ``ann.load_lsh_index`` is its public face)."""
+    tier block is validated; the restored index tiers under
+    ``index_kwargs``' ``hbm_budget_bytes`` (and ``cold_tier``/``cold_dir``)
+    when given, and is fully resident otherwise.  ``index_cls`` restores a
+    subclass instead (the LSH tier; ``ann.load_lsh_index`` is its public
+    face)."""
     from randomprojection_tpu_torch.models.sketch import SimHashIndex
 
     if mesh is not None:
@@ -781,8 +797,17 @@ def demo_ingest(path: str, *, rows: int = 192, batch_rows: int = 32,
     ``device`` (None: the card) → ``SignRandomProjection`` on the torch
     backend there → ``DurableIngest``) whose every byte is a pure function
     of the arguments, so a killed-and-resumed run can be compared bit for
-    bit with a clean one.  Returns a summary dict."""
-    from randomprojection_tpu_torch.models.sketch import SignRandomProjection
+    bit with a clean one.  Returns a summary dict.
+
+    After the ingest, a tiered-demotion leg re-opens the committed codes as
+    a disk-tiered index (spills in ``<path>/cold``, a subdirectory the
+    orphan sweep never enters) and demotes every chunk: each demotion
+    crosses the ``mid-demotion`` kill point between its spill write and
+    its residency swap."""
+    from randomprojection_tpu_torch.models.sketch import (
+        SignRandomProjection,
+        SimHashIndex,
+    )
 
     device = _harness_device(device)
     source = _demo_source(rows, batch_rows, d, seed, device)
@@ -792,11 +817,23 @@ def demo_ingest(path: str, *, rows: int = 192, batch_rows: int = 32,
     ingest = DurableIngest(path, commit_every_batches=commit_every,
                            compact_after_chunks=compact_after, device=device)
     index = ingest.run(est, source)
+    tiered = SimHashIndex(
+        np.empty((0, index.n_bytes), np.uint8), n_bits=index.n_bits,
+        device=device, hbm_budget_bytes=1 << 40, cold_tier="disk",
+        cold_dir=os.path.join(path, "cold"),
+    )
+    try:
+        for chunk in index._chunks:
+            tiered.add(index._fetch_chunk_host(chunk))
+        demoted = sum(tiered._tier.demote(c.row0) for c in tiered._chunks)
+    finally:
+        tiered.close()
     return {
         "path": path,
         "rows_done": ingest.rows_done(),
         "n_codes": int(index.n_codes),
         "chunks": len(index._chunks),
+        "tier_demotions": int(demoted),
     }
 
 

@@ -1,5 +1,5 @@
-"""Estimators of the port (layer L5): the JL projections and SimHash
-serving."""
+"""Estimators of the port (layer L5): the JL projections, SimHash serving
+and CountSketch."""
 
 from randomprojection_tpu_torch.models.base import BaseRandomProjection
 from randomprojection_tpu_torch.models.projections import (
@@ -7,6 +7,7 @@ from randomprojection_tpu_torch.models.projections import (
     SparseRandomProjection,
 )
 from randomprojection_tpu_torch.models.sketch import (
+    CountSketch,
     SignRandomProjection,
     SimHashIndex,
     TopKServer,
@@ -21,6 +22,7 @@ __all__ = [
     "GaussianRandomProjection",
     "SparseRandomProjection",
     "SignRandomProjection",
+    "CountSketch",
     "SimHashIndex",
     "TopKServer",
     "cosine_from_hamming",

@@ -16,10 +16,17 @@ The port of the serving half of ``randomprojection_tpu/models/sketch.py``:
 The index and the server run on the card unless the caller asks for the
 CPU (``SimHashIndex(..., device='cpu')``), where the kernel's plain
 version serves.  ``save``/``load`` write and read the reference's durable
-snapshot format (``durable.py``).  Meshes (ROADMAP A10) and tiered
-residency (A12) are later slices and raise naming their item.  The
-multi-probe LSH tier on top of the index is ``ann.LSHSimHashIndex``; a
-``TopKServer`` takes per-label probe budgets for it (``probe_policy``).
+snapshot format (``durable.py``).  ``hbm_budget_bytes`` tiers the chunks
+past a device-memory budget into pinned host memory or onto disk
+(``tiering.py``); meshes (ROADMAP A10) are a later slice and raise naming
+their item.  The multi-probe LSH tier on top of the index is
+``ann.LSHSimHashIndex``; a ``TopKServer`` takes per-label probe budgets
+for it (``probe_policy``).
+
+- ``CountSketch``: the Count-Sketch / hashing-trick projection of config
+  5, its ``h_``/``s_`` tables drawn on the host as the reference draws
+  them, its dense, scatter and CSR routes run with torch ops on the card
+  (none of them is a Pallas kernel in the reference).
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ from concurrent.futures import Future
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 
-from randomprojection_tpu_torch.models.base import BaseRandomProjection
+from randomprojection_tpu_torch.models.base import BaseRandomProjection, ParamsMixin
 from randomprojection_tpu_torch.ops import topk_kernels
 from randomprojection_tpu_torch.parallel.sharded import row_bucket
 # a tensor's copy to the host: pinned memory, non_blocking, an event
@@ -42,8 +50,11 @@ from randomprojection_tpu_torch.parallel.sharded import row_bucket
 from randomprojection_tpu_torch.streaming import _HostFetch
 from randomprojection_tpu_torch.utils import telemetry
 from randomprojection_tpu_torch.utils.telemetry import EVENTS
+from randomprojection_tpu_torch.utils.validation import NotFittedError, check_array
 
 __all__ = [
+    "CountSketch",
+    "DeviceBatch",
     "SignRandomProjection",
     "SimHashIndex",
     "TopKServer",
@@ -187,6 +198,14 @@ class SimHashIndex:
     runs only when asked (``device='cpu'``), with the kernel's plain
     version.  At most ``2**31 - 1`` codes per index: device ids are int32.
 
+    ``hbm_budget_bytes`` tiers the index (``tiering.TieredResidency``):
+    chunks are admitted to the device until their bytes reach the budget,
+    later ones land cold (``cold_tier='host'``: a pinned host copy;
+    ``'disk'``: a checksummed spill under ``cold_dir``), and the serving
+    paths stage a cold chunk's rows on a side stream under the hot chunks'
+    kernels.  Answers are those of the fully resident index, bit for bit.
+    A tiered index runs a background worker: ``close()`` joins it.
+
     Thread-safety: queries may run concurrently with each other, but
     mutation (``add``/``delete``/``compact``) requires the index to be
     quiescent — drain a ``TopKServer`` before compacting.
@@ -201,18 +220,11 @@ class SimHashIndex:
             resolve_device,
         )
 
-        for name, value, default, item in (
-            ("mesh", mesh, None, "A10 (scale-out)"),
-            ("hbm_budget_bytes", hbm_budget_bytes, None,
-             "A12 (tiered residency)"),
-            ("cold_tier", cold_tier, "host", "A12 (tiered residency)"),
-            ("cold_dir", cold_dir, None, "A12 (tiered residency)"),
-        ):
-            if value != default:
-                raise ValueError(
-                    f"{name}={value!r} is not ported yet (ROADMAP {item}); "
-                    f"SimHashIndex takes {name}={default!r} only"
-                )
+        if mesh is not None:
+            raise ValueError(
+                f"mesh={mesh!r} is not ported yet (ROADMAP A10 (scale-out)); "
+                "SimHashIndex takes mesh=None only"
+            )
         self.device = resolve_device(device, how="device='cpu'")
         if self.device.type == "cuda" and self.device.index is None:
             import torch
@@ -238,6 +250,16 @@ class SimHashIndex:
         self._dead: Optional[np.ndarray] = None
         self._n_deleted = 0
         self._dead_rev = 0
+        # tiered residency: None = every chunk on the device
+        self._tier = None
+        if hbm_budget_bytes is not None:
+            from randomprojection_tpu_torch.tiering import TieredResidency
+
+            self._tier = TieredResidency(
+                int(hbm_budget_bytes), cold_tier=cold_tier,
+                cold_dir=cold_dir, device=self.device,
+            )
+            self._tier.on_change = self._residency_changed
         if codes.shape[0]:
             self._upload_chunk(codes)
 
@@ -294,7 +316,17 @@ class SimHashIndex:
                 f"ids); have {self.n_codes}, adding {n} would overflow. "
                 "Grow past int32 by sharding over more devices"
             )
-        self._chunks.append(_IndexChunk(self._to_device(codes), n, self.n_codes))
+        hot = self._tier is None or self._tier.admit(n * self.n_bytes)
+        if hot:
+            b = self._to_device(codes)
+        else:
+            # past the budget: the chunk lands cold and its rows are
+            # staged per query instead of residing
+            b = self._tier.place_cold(_host_rows_of(codes))
+        chunk = _IndexChunk(b, n, self.n_codes)
+        self._chunks.append(chunk)
+        if self._tier is not None:
+            self._tier.register(chunk, n * self.n_bytes, hot)
         if self._dead is not None:
             self._dead = np.concatenate([self._dead, np.zeros(n, dtype=bool)])
         row0 = self.n_codes
@@ -388,14 +420,50 @@ class SimHashIndex:
         return mapping
 
     def _fetch_chunk_host(self, chunk) -> np.ndarray:
-        """Host copy of one chunk's rows: one ``.cpu()`` copy, used only by
-        the snapshot and compaction paths, never per query."""
-        return chunk.b.cpu().numpy()
+        """Host copy of one chunk's rows, hot or cold: one ``.cpu()`` copy
+        or a read of the cold copy, used only by the snapshot and
+        compaction paths, never per query."""
+        from randomprojection_tpu_torch.tiering import host_view
+
+        b = chunk.b
+        if getattr(b, "is_cuda", False):
+            return b.cpu().numpy()
+        return np.array(host_view(b), copy=True)
+
+    def _residency_changed(self) -> None:
+        """Hook of the tier's swaps and reset (subclasses drop what bakes a
+        chunk's device pointer in)."""
+
+    def _resident_codes(self, chunk, *, audit: bool = False):
+        """The chunk's codes on the index's device: its binding when that
+        is a device tensor, else a synchronous upload of the host copy (a
+        cold chunk, or one demoted under a dispatch, counted on the
+        tier's fallback audit when ``audit``)."""
+        from randomprojection_tpu_torch.tiering import is_resident
+
+        b = chunk.b
+        if is_resident(b, self.device):
+            return b
+        if audit and self._tier is not None:
+            self._tier.note_fallback("demoted_under_dispatch",
+                                     rows=int(chunk.n))
+        return self._sync_upload(b)
+
+    def close(self) -> None:
+        """Join the tiered-residency worker when one exists (idempotent; a
+        no-op for an untiered index).  A tiered index should be closed
+        before the process exits."""
+        if self._tier is not None:
+            self._tier.close()
 
     def _rebuild_from_host(self, codes: np.ndarray) -> None:
         """Replace every resident chunk with ONE chunk holding ``codes``
         (the live code set in id order) and clear the tombstones."""
         old_n, old_chunks = self.n_codes, len(self._chunks)
+        if self._tier is not None:
+            # forget residency and this generation's spills; the caller
+            # guarantees quiescence
+            self._tier.reset()
         self._chunks = []
         self.n_codes = 0
         self._dead = None
@@ -461,8 +529,10 @@ class SimHashIndex:
         for lo in range(0, A.shape[0], tile):
             hi = min(lo + tile, A.shape[0])
             a = self._to_device(A[lo:hi])
-            pending.append((lo, hi, [_HostFetch(topk_kernels.hamming_counts(a, c.b))
-                                     for c in self._chunks]))
+            pending.append((lo, hi, [
+                _HostFetch(topk_kernels.hamming_counts(
+                    a, self._resident_codes(c)))
+                for c in self._chunks]))
             telemetry.registry().counter_inc(
                 "simhash.chunk_dispatches", len(self._chunks)
             )
@@ -541,10 +611,21 @@ class SimHashIndex:
         each result's copy to the host; returns the per-chunk
         ``(dist, idx)`` fetches for ``_topk_finish_tile``."""
         a = self._to_device(a_np)
+        stager = None
+        if self._tier is not None and self._tier.any_cold():
+            from randomprojection_tpu_torch.tiering import _TileStager
+
+            stager = _TileStager(self._chunks, self._tier, self._sync_upload)
         handles = []
-        for c in self._chunks:
-            d, i = self._chunk_topk(a, c, int(min(m_eff, c.n)))
+        for ci, c in enumerate(self._chunks):
+            # the stager hands back a cold chunk's staged copy (its upload
+            # started under the previous chunk's kernel) and starts the
+            # next cold chunk's upload before this kernel is launched
+            b = stager.resolve(ci) if stager is not None else None
+            d, i = self._chunk_topk(a, c, int(min(m_eff, c.n)), b=b)
             handles.append((_HostFetch(d), _HostFetch(i)))
+        if stager is not None:
+            stager.finish()
         telemetry.registry().counter_inc(
             "simhash.chunk_dispatches", len(self._chunks)
         )
@@ -578,20 +659,42 @@ class SimHashIndex:
             np.take_along_axis(i, sel, axis=1).astype(np.int32),
         )
 
-    def _chunk_topk(self, a, chunk, m_c: int):
+    def _sync_upload(self, b):
+        """The degraded rung of a staged upload: a cold binding uploaded on
+        the current stream (pinned, ``non_blocking``: ordered before the
+        kernel that reads it)."""
+        import torch
+
+        # a memmap is read-only: torch takes a writable copy of it
+        return self._to_device(b if isinstance(b, torch.Tensor) else np.array(b))
+
+    def _chunk_topk(self, a, chunk, m_c: int, b=None):
         """Device top-``m_c`` of one chunk for one query tile: ``(dist,
         local_idx)``, each ``(t, m_c)`` int32, from the fused top-k
         kernel (its plain version on the CPU).  Pad and tombstoned rows
         never enter the selection; a chunk with no deletions runs the
-        unmasked variant."""
+        unmasked variant.  ``b`` overrides the chunk's binding (the tiered
+        path passes a cold chunk's staged copy); a binding that is not on
+        the device (demoted under this dispatch) is uploaded here."""
         dead = self._chunk_dead_device(chunk)
-        d, i = topk_kernels.fused_topk(a, chunk.b, chunk.n, m_c, dead=dead)
+        if b is None:
+            b = self._resident_codes(chunk, audit=True)
+        d, i = topk_kernels.fused_topk(a, b, chunk.n, m_c, dead=dead)
         if telemetry.enabled():
             telemetry.emit(
                 EVENTS.TOPK_KERNEL_DISPATCH, queries=int(a.shape[0]),
                 m=int(m_c), rows=int(chunk.n), masked=dead is not None,
             )
         return d, i
+
+
+def _host_rows_of(codes) -> np.ndarray:
+    """A chunk's codes as a host array (a tensor on the card is copied)."""
+    import torch
+
+    if isinstance(codes, torch.Tensor):
+        return codes.cpu().numpy()
+    return np.asarray(codes)
 
 
 def _metric_label(label) -> str:
@@ -926,3 +1029,510 @@ class TopKServer:
             self._serve(batch)
             if saw_sentinel:
                 draining = True
+
+
+# -- CountSketch (config 5) ------------------------------------------------------------
+
+
+class DeviceBatch:
+    """A streaming CSR batch already laid out for one CountSketch route and
+    on its way to the device (``CountSketch.prepare_batch``): ``kind``
+    names the route (``'docmajor'`` / ``'flat'``), ``arrays`` are its
+    device operands in argument order, ``shape``/``nbytes`` mirror the
+    source batch so the stream's bookkeeping is unchanged."""
+
+    __slots__ = ("kind", "arrays", "n", "n_pad", "t_pad", "shape", "nbytes")
+
+    def __init__(self, kind: str, arrays: tuple, n: int, n_pad: int,
+                 t_pad: int, shape: tuple, nbytes: int):
+        self.kind = kind
+        self.arrays = arrays
+        self.n = n
+        self.n_pad = n_pad
+        self.t_pad = t_pad
+        self.shape = shape
+        self.nbytes = nbytes
+
+
+def _flat_mesh_layout(X, p: int):
+    """Token-balanced host layout of one CSR batch over ``p`` row ranges
+    (``parallel.sharded.token_balanced_bounds`` cuts, so the padded token
+    width tracks ``nnz/p``): each range scatters into its own
+    ``rows_blk``-row block and ``perm`` maps the block-concatenated
+    output back to row order.  Returns ``(rows_l, idx, vals, rows_blk,
+    t_pad, perm)``, the first three ``(p, t_pad)``, ``perm`` ``(n,)``
+    int32.  The single-device flat route is ``p = 1`` (``perm`` the
+    identity); more ranges wait for the mesh (ROADMAP A10)."""
+    from randomprojection_tpu_torch.parallel.sharded import (
+        row_bucket,
+        token_balanced_bounds,
+    )
+
+    n = X.shape[0]
+    indptr = X.indptr.astype(np.int64, copy=False)
+    bounds_rows = token_balanced_bounds(indptr, p)
+    tok_bounds = indptr[bounds_rows]
+    rows_per = np.diff(bounds_rows)
+    counts = np.diff(tok_bounds)
+    rows_blk = row_bucket(int(max(rows_per.max(), 1)))
+    t_pad = row_bucket(int(max(counts.max(), 1)))
+    rows_l = np.zeros((p, t_pad), np.int32)
+    idx_s = np.zeros((p, t_pad), np.int32)
+    vals_s = np.zeros((p, t_pad), np.float32)
+    row_sizes = np.diff(indptr)
+    perm = np.empty(n, np.int64)
+    for s in range(p):
+        r0, r1 = int(bounds_rows[s]), int(bounds_rows[s + 1])
+        lo, hi = int(tok_bounds[s]), int(tok_bounds[s + 1])
+        c = hi - lo
+        rows_l[s, :c] = np.repeat(np.arange(r1 - r0, dtype=np.int32),
+                                  row_sizes[r0:r1])
+        idx_s[s, :c] = X.indices[lo:hi]
+        vals_s[s, :c] = X.data[lo:hi]
+        perm[r0:r1] = s * rows_blk + np.arange(r1 - r0)
+    return rows_l, idx_s, vals_s, rows_blk, t_pad, perm.astype(np.int32)
+
+
+def _docmajor_chunk(rows_local: int, t_pad: int, k: int) -> int:
+    """Doc chunk of the compare-reduce: bounds its ``(chunk, t_pad, k)``
+    float32 working set to ~256 MiB."""
+    chunk = rows_local
+    while chunk * t_pad * k * 4 > (1 << 28) and chunk % 2 == 0:
+        chunk //= 2
+    return chunk
+
+
+def _docmajor_kernel(idxm, valm, hs, k: int, chunk: int):
+    """The doc-major compare-reduce sketch ``(idx (n, t_pad) int32, val (n,
+    t_pad) f32, hs packed table) -> (n, k)`` f32 in torch ops: ONE gather of
+    the packed table ``2h + (s<0)`` a token, then ``Y[r, c] = Σ_t
+    sv[r, t]·[h[r, t] = c]`` per doc chunk, a masked reduction with no
+    scatter (a fixed summation order: deterministic)."""
+    import torch
+
+    n, t_pad = idxm.shape
+    g = hs.index_select(0, idxm.reshape(-1)).reshape(n, t_pad)
+    sv = valm * (1 - 2 * (g & 1)).to(torch.float32)
+    h2 = g >> 1
+    iota = torch.arange(k, dtype=h2.dtype, device=h2.device)
+    out = torch.empty((n, k), dtype=torch.float32, device=h2.device)
+    for lo in range(0, n, chunk):
+        hc, svc = h2[lo:lo + chunk], sv[lo:lo + chunk]
+        out[lo:lo + chunk] = torch.where(
+            hc[:, :, None] == iota, svc[:, :, None], 0.0).sum(dim=1)
+    return out
+
+
+class CountSketch(ParamsMixin):
+    """Count-Sketch / hashing-trick projection ``(n, d) → (n, k)``.
+
+    The hash map ``h_`` (int32 in ``[0, k)``) and signs ``s_`` (±1 int8)
+    are drawn from the seed on the host exactly as the reference draws
+    them (``SeedSequence([0x43534B31, seed])``), so both packages and every
+    route compute the same sketch.
+
+    ``backend='auto'``/``'torch'`` runs on the card (``backend_options=
+    {'device': 'cpu'}`` on the CPU; with no card and no device the fit
+    raises); ``'numpy'`` keeps every route on the host.  Routes:
+
+    - dense float32: a one-hot ±1 matrix product (``M[h(j), j] = s(j)``,
+      exact in bf16; x cut into three exact bf16 parts, float32 sums)
+      while the mask fits ``_MXU_MASK_BYTES_CAP``, else a scatter-add
+      (``index_add_``; ``use_mxu=False`` forces it, ``use_mxu=True``
+      refuses anything else);
+    - CSR float32: gather the resident tables and sketch on the device,
+      doc-major compare-reduce for low-skew batches, else a flat
+      gather + scatter-add (``_csr_route``);
+    - float64 (dense or CSR) and every ``'numpy'`` batch: the host scatter,
+      exact.
+
+    On the card the scatter routes sum in the order the atomics land, so
+    they agree with the host to float32 rounding, not bit for bit.
+    ``mesh=`` is not ported yet (ROADMAP A10).
+    """
+
+    def __init__(self, n_components, *, random_state=None, backend="auto",
+                 backend_options: Optional[dict] = None,
+                 use_mxu: Optional[bool] = None, mesh=None):
+        if not isinstance(n_components, numbers.Integral) or n_components <= 0:
+            raise ValueError(
+                f"n_components must be a positive int, got {n_components!r}"
+            )
+        if mesh is not None:
+            raise ValueError(
+                f"mesh={mesh!r} is not ported yet (ROADMAP A10 (scale-out)); "
+                "CountSketch takes mesh=None only"
+            )
+        self.n_components = int(n_components)
+        self.random_state = random_state
+        self.backend = backend
+        self.backend_options = backend_options
+        # None = the one-hot product when its mask fits the cap; False =
+        # force the scatter; True = require the one-hot product
+        self.use_mxu = use_mxu
+        self.mesh = mesh
+
+    def fit_schema(self, n_samples: int, n_features: int, dtype=np.float64):
+        if n_features <= 0:
+            raise ValueError(f"n_features must be strictly positive, got {n_features}")
+        from randomprojection_tpu_torch.models.base import _resolve_seed
+
+        self.seed_ = _resolve_seed(self.random_state)
+        # a salted stream: a seed shared with the user's data generator
+        # must not correlate h_/s_ with the data
+        rng = np.random.default_rng(np.random.SeedSequence([0x43534B31, self.seed_]))
+        self.n_components_ = self.n_components
+        self.n_features_in_ = n_features
+        self.h_ = rng.integers(0, self.n_components, size=n_features, dtype=np.int32)
+        self.s_ = rng.integers(0, 2, size=n_features, dtype=np.int8) * 2 - 1
+        self._resolve_execution()
+        return self
+
+    def _resolve_execution(self):
+        """(Re)derive the device and drop the cached device tables; called
+        at fit and whenever ``set_params`` touches an execution parameter."""
+        from randomprojection_tpu_torch.backends.torch_backend import (
+            resolve_device,
+        )
+
+        if self.backend not in ("auto", "torch", "numpy"):
+            raise ValueError(
+                f"backend must be 'auto', 'torch' or 'numpy', got {self.backend!r}"
+            )
+        opts = dict(self.backend_options or {})
+        unknown = set(opts) - {"device"}
+        if unknown:
+            raise ValueError(
+                f"CountSketch takes backend_options {{'device'}} only, got "
+                f"{sorted(unknown)}"
+            )
+        if self.backend == "numpy":
+            if self.use_mxu:
+                raise ValueError(
+                    "use_mxu=True requires the torch backend (backend="
+                    f"'torch' or 'auto'), got backend={self.backend!r}"
+                )
+            self._device = None
+        else:
+            self._device = resolve_device(opts.get("device"))
+        for key in ("_dev_tables", "_dev_packed", "_dev_mask"):
+            self.__dict__.pop(key, None)
+
+    @property
+    def _use_device(self) -> bool:
+        return self._device is not None
+
+    def set_params(self, **params):
+        super().set_params(**params)
+        if {"use_mxu", "backend", "backend_options"} & params.keys() and \
+                hasattr(self, "h_"):
+            self._resolve_execution()
+        return self
+
+    def fit(self, X, y=None):
+        X = check_array(X, accept_sparse=True)
+        return self.fit_schema(*X.shape, dtype=X.dtype)
+
+    def _check_is_fitted(self):
+        if not hasattr(self, "h_"):
+            raise NotFittedError(
+                f"This {type(self).__name__} instance is not fitted yet."
+            )
+
+    def _check_width(self, X):
+        if X.shape[1] != self.n_features_in_:
+            raise ValueError(
+                f"X has {X.shape[1]} features, expected {self.n_features_in_}"
+            )
+
+    def transform(self, X):
+        """The sketch of one batch as a host array."""
+        self._check_is_fitted()
+        if sp.issparse(X):
+            if self.use_mxu:
+                raise ValueError(
+                    "use_mxu=True cannot serve sparse input (the one-hot "
+                    "product is dense-only); densify X or use use_mxu=None"
+                )
+            X = X.tocsr()
+            self._check_width(X)
+            if self._csr_on_device(X):
+                return self._transform_csr_device(X).cpu().numpy()
+            return self._transform_csr(X)
+        X = check_array(X, accept_sparse=False)
+        self._check_width(X)
+        if self._use_device:
+            y = self._transform_dense_device(X)
+            return y if isinstance(y, np.ndarray) else y.cpu().numpy()
+        return self._transform_dense_np(X)
+
+    def fit_transform(self, X, y=None):
+        return self.fit(X).transform(X)
+
+    def _transform_dense_np(self, X):
+        Y = np.zeros((X.shape[0], self.n_components_), dtype=X.dtype)
+        np.add.at(Y, (slice(None), self.h_), X * self.s_)
+        return Y
+
+    # the one-hot mask's cap: past it (d = 2^20 at k = 256 would be 512 MiB
+    # of bf16) the scatter wins on memory
+    _MXU_MASK_BYTES_CAP = 64 << 20
+
+    def _upload(self, a):
+        """A host array on the device (pinned, ``non_blocking`` on a card)."""
+        import torch
+
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self._device.type == "cpu":
+            return t
+        return t.pin_memory().to(self._device, non_blocking=True)
+
+    def _device_tables(self):
+        """``h_`` and ``s_`` (as float32) on the device, uploaded once a fit."""
+        t = self.__dict__.get("_dev_tables")
+        if t is None:
+            t = (self._upload(self.h_), self._upload(self.s_.astype(np.float32)))
+            self.__dict__["_dev_tables"] = t
+        return t
+
+    def _device_packed_table(self):
+        """The packed table ``hs = 2·h + (s<0)`` (int32) on the device: the
+        doc-major route gathers one word a token, not two."""
+        t = self.__dict__.get("_dev_packed")
+        if t is None:
+            hs = (self.h_.astype(np.int64) * 2 + (self.s_ < 0)).astype(np.int32)
+            t = self._upload(hs)
+            self.__dict__["_dev_packed"] = t
+        return t
+
+    def _mxu_route(self) -> bool:
+        """True when the dense float32 route is the one-hot product."""
+        k, d = self.n_components_, self.n_features_in_
+        fits_cap = 2 * k * d <= self._MXU_MASK_BYTES_CAP
+        if self.use_mxu and not fits_cap:
+            raise ValueError(
+                f"use_mxu=True but the one-hot mask ({2 * k * d} bytes bf16) "
+                f"exceeds the {self._MXU_MASK_BYTES_CAP}-byte cap; use "
+                "use_mxu=None (auto) or False (scatter)"
+            )
+        return fits_cap if self.use_mxu is None else bool(self.use_mxu)
+
+    def _onehot_mask(self):
+        """``M (k, d)`` bf16 with ``M[h(j), j] = s(j)``, built on the device
+        once a fit."""
+        import torch
+
+        m = self.__dict__.get("_dev_mask")
+        if m is None:
+            h, s = self._device_tables()
+            m = torch.zeros((self.n_components_, self.n_features_in_),
+                            dtype=torch.float32, device=self._device)
+            m[h.long(), torch.arange(self.n_features_in_, device=self._device)] = s
+            m = m.to(torch.bfloat16)
+            self.__dict__["_dev_mask"] = m
+        return m
+
+    def _transform_dense_device(self, X):
+        """Dense rows on the device: float64 (and other non-float32 dtypes)
+        stay on the host, exact; float32 runs the one-hot product or the
+        scatter.  Returns a device tensor (or the host array)."""
+        import torch
+
+        from randomprojection_tpu_torch.ops.precision import mm_f32acc
+        from randomprojection_tpu_torch.ops.split_matmul import (
+            split_f32_to_bf16_triple,
+        )
+
+        if X.dtype != np.float32:
+            if self.use_mxu:
+                raise ValueError(
+                    f"use_mxu=True cannot serve {X.dtype} input (the one-hot "
+                    "product runs in float32); cast X to float32 or use "
+                    "use_mxu=None"
+                )
+            return self._transform_dense_np(X)
+        x = self._upload(X)
+        if self._mxu_route():
+            mt = self._onehot_mask().t()
+            # three exact bf16 parts: each product with ±1 is exact, the
+            # sums are float32
+            return sum(mm_f32acc(p, mt) for p in split_f32_to_bf16_triple(x))
+        h, s = self._device_tables()
+        y = torch.zeros((x.shape[0], self.n_components_), dtype=torch.float32,
+                        device=self._device)
+        return y.index_add_(1, h, x * s)
+
+    def _csr_on_device(self, X) -> bool:
+        """Device CSR eligibility: the torch backend, float32 data (float64
+        stays on the host, exact) and a flat scatter index ``n_pad·k`` that
+        fits int32."""
+        from randomprojection_tpu_torch.parallel.sharded import row_bucket
+
+        n_pad = row_bucket(max(X.shape[0], 1))
+        return (self._use_device and X.dtype == np.float32
+                and n_pad * self.n_components_ < 2**31)
+
+    # doc-major eligibility: the padded token matrix's inflation over the
+    # real token count, and a per-row width cap (one huge document must
+    # not widen every row)
+    _DOCMAJOR_MAX_INFLATION = 4.0
+    _DOCMAJOR_MAX_WIDTH = 2048
+
+    def _csr_route(self, X):
+        """The doc-major/flat rule for one CSR batch, shared by the dispatch
+        and ``prepare_batch``: ``(kind, n_pad, t_pad)``, ``t_pad`` the
+        bucketed widest row for ``'docmajor'`` and None for ``'flat'``."""
+        from randomprojection_tpu_torch.parallel.sharded import row_bucket
+
+        n = X.shape[0]
+        n_pad = row_bucket(max(n, 1))
+        t_max = int(np.diff(X.indptr).max()) if n else 0
+        if t_max:
+            t_row = row_bucket(t_max)
+            if (t_row <= self._DOCMAJOR_MAX_WIDTH
+                    and n_pad * t_row
+                    <= self._DOCMAJOR_MAX_INFLATION * max(X.nnz, 1)):
+                return "docmajor", n_pad, t_row
+        return "flat", n_pad, None
+
+    @staticmethod
+    def _docmajor_host_layout(X, n_pad: int, t_pad: int):
+        """CSR → padded doc-major ``(idxm, valm)`` host arrays; pad tokens
+        carry value 0."""
+        n = X.shape[0]
+        counts = np.diff(X.indptr)
+        row_ids = np.repeat(np.arange(n, dtype=np.int64), counts)
+        pos = np.arange(X.nnz, dtype=np.int64) - np.repeat(
+            X.indptr[:-1].astype(np.int64), counts)
+        idxm = np.zeros((n_pad, t_pad), np.int32)
+        valm = np.zeros((n_pad, t_pad), np.float32)
+        idxm[row_ids, pos] = X.indices
+        valm[row_ids, pos] = X.data
+        return idxm, valm
+
+    def _docmajor_dispatch(self, idxm_dev, valm_dev, n: int, n_pad: int,
+                           t_pad: int):
+        k = self.n_components_
+        y = _docmajor_kernel(idxm_dev, valm_dev, self._device_packed_table(),
+                             k, _docmajor_chunk(n_pad, t_pad, k))
+        return y[:n]
+
+    def _flat_dispatch(self, rows_dev, idx_dev, vals_dev, n: int, n_pad: int,
+                       t_pad: int):
+        """Gather the resident tables at the tokens, scatter-add into the
+        flat ``(n_pad·k)`` accumulator (``index_add_``)."""
+        import torch
+
+        k = self.n_components_
+        h, s = self._device_tables()
+        flat = rows_dev.long() * k + h.index_select(0, idx_dev)
+        y = torch.zeros(n_pad * k, dtype=torch.float32, device=self._device)
+        y.index_add_(0, flat, vals_dev * s.index_select(0, idx_dev))
+        return y.reshape(n_pad, k)[:n]
+
+    def _flat_layout(self, X):
+        rows_l, idx, vals, rows_blk, t_pad, _ = _flat_mesh_layout(X, 1)
+        return rows_l[0], idx[0], vals[0], rows_blk, t_pad
+
+    def _transform_csr_device(self, X):
+        """Sketch a float32 CSR batch on the device (config 5's hot loop):
+        per batch only the tokens' ``(idx, val)`` (doc-major) or ``(row,
+        idx, val)`` (flat) cross, the 2^20-wide input never materializes,
+        and the tables stay resident.  Returns a device tensor."""
+        n = X.shape[0]
+        kind, n_pad, t_row = self._csr_route(X)
+        if kind == "docmajor":
+            idxm, valm = self._docmajor_host_layout(X, n_pad, t_row)
+            return self._docmajor_dispatch(self._upload(idxm),
+                                           self._upload(valm), n, n_pad, t_row)
+        rows, idx, vals, n_pad, t_pad = self._flat_layout(X)
+        return self._flat_dispatch(self._upload(rows), self._upload(idx),
+                                   self._upload(vals), n, n_pad, t_pad)
+
+    def _transform_csr(self, X):
+        """The host scatter (float64 and the numpy backend): exact."""
+        self._check_width(X)
+        out_dtype = X.dtype if X.dtype in (np.float32, np.float64) else np.float64
+        Y = np.zeros((X.shape[0], self.n_components_), dtype=out_dtype)
+        rows = np.repeat(np.arange(X.shape[0]), np.diff(X.indptr).astype(np.int64))
+        np.add.at(Y, (rows, self.h_[X.indices]),
+                  X.data.astype(out_dtype) * self.s_[X.indices])
+        return Y
+
+    # -- streaming (the protocol of BaseRandomProjection) ------------------------
+
+    def fit_source(self, source):
+        n_rows, n_features, dtype = source.schema()
+        return self.fit_schema(n_rows, n_features, dtype=dtype)
+
+    def transform_stream(self, source, **kwargs):
+        from randomprojection_tpu_torch.streaming import stream_transform
+
+        return stream_transform(self, source, **kwargs)
+
+    def prepare_batch(self, X):
+        """Lay a CSR batch out for its device route and start its upload
+        (pinned, ``non_blocking``), so the dispatch only launches.  Batches
+        the device CSR routes do not serve are returned unchanged."""
+        self._check_is_fitted()
+        if not sp.issparse(X) or self.use_mxu:
+            return X
+        X = X.tocsr()
+        self._check_width(X)
+        if not self._csr_on_device(X):
+            return X
+        n = X.shape[0]
+        nbytes = int(X.data.nbytes + X.indices.nbytes + X.indptr.nbytes)
+        kind, n_pad, t_row = self._csr_route(X)
+        if kind == "docmajor":
+            idxm, valm = self._docmajor_host_layout(X, n_pad, t_row)
+            return DeviceBatch("docmajor", (self._upload(idxm), self._upload(valm)),
+                               n, n_pad, t_row, X.shape, nbytes)
+        rows, idx, vals, n_pad, t_pad = self._flat_layout(X)
+        return DeviceBatch(
+            "flat", (self._upload(rows), self._upload(idx), self._upload(vals)),
+            n, n_pad, t_pad, X.shape, nbytes)
+
+    def _transform_async(self, X):
+        """The stream's transform: a device tensor still being computed on
+        the device routes (``stream_transform`` copies it to the host
+        behind its kernels), a host array on the host routes.  Takes
+        ``DeviceBatch``es from ``prepare_batch``."""
+        self._check_is_fitted()
+        if isinstance(X, DeviceBatch):
+            if X.kind == "docmajor":
+                return self._docmajor_dispatch(*X.arrays, X.n, X.n_pad, X.t_pad)
+            return self._flat_dispatch(*X.arrays, X.n, X.n_pad, X.t_pad)
+        if sp.issparse(X):
+            X = X.tocsr()
+            self._check_width(X)
+            if not self.use_mxu and self._csr_on_device(X):
+                return self._transform_csr_device(X)
+            return self.transform(X)
+        X = check_array(X, accept_sparse=False)
+        self._check_width(X)
+        if self._use_device:
+            return self._transform_dense_device(X)
+        return self._transform_dense_np(X)
+
+    def _stream_out_dtype(self):
+        return None  # keep the dtype the route produced
+
+    def _stream_out_width(self) -> int:
+        return self.n_components_
+
+    def get_feature_names_out(self, input_features=None):
+        """Output names ``countsketch<i>``."""
+        self._check_is_fitted()
+        return np.asarray([f"countsketch{i}" for i in range(self.n_components_)],
+                          dtype=object)
+
+    def inverse_transform(self, Y):
+        """Unbiased decode: ``x̂[j] = s(j) · Y[:, h(j)]``."""
+        self._check_is_fitted()
+        Y = np.asarray(Y)
+        if Y.shape[1] != self.n_components_:
+            raise ValueError(
+                f"Y has {Y.shape[1]} components, expected {self.n_components_}"
+            )
+        return Y[:, self.h_] * self.s_

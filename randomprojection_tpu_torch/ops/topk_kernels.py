@@ -62,7 +62,9 @@ __all__ = [
     "reset_launches",
     "rp_fused_topk",
     "smem_bytes",
+    "stage_rows",
     "topk_plain",
+    "wait_staged",
 ]
 
 #: kernel launches since the last ``reset_launches()``: an
@@ -414,3 +416,79 @@ def fused_topk(q, codes, n_real: int, m: int, *, dead=None):
     if q.device.type == "cuda":
         return rp_fused_topk(q, codes, n_real, m, dead=dead)
     raise ValueError(f"no top-k kernel for device {q.device}")
+
+
+# -- tier-boundary staging ------------------------------------------------------------
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device):
+    """The upload stream of ``device``'s staged cold rows: one per card and
+    process, so staged copies queue behind each other, not behind kernels."""
+    import torch
+
+    s = _SIDE_STREAMS.get(device)
+    if s is None:
+        s = _SIDE_STREAMS.setdefault(device, torch.cuda.Stream(device=device))
+    return s
+
+
+def stage_rows(rows, *, device, pad_to: Optional[int] = None):
+    """Start the upload of host code rows to ``device`` and return ``(tensor,
+    event)`` without waiting for it: the tiered serving paths stage their
+    cold rows before they launch the hot side's kernel, so the copy runs
+    under it.
+
+    ``rows`` is a host array (a memmap is read here, only the pages it
+    covers) or a CPU tensor.  On a card the rows go through a pinned bounce
+    buffer (a pinned tensor without padding goes up as it is), zero-padded
+    there to ``pad_to`` rows, and the copy is queued ``non_blocking`` on
+    the device's side stream with an event behind it; the consumer calls
+    ``wait_staged`` before the kernel that reads the tensor.  The tensor
+    is allocated on the side stream, and ``wait_staged`` records its use
+    on the consuming stream, so the allocator reuses its memory only after
+    that stream's kernels.  On the CPU the rows are copied and the event
+    is None."""
+    import torch
+
+    device = torch.device(device)
+    host_t = rows if isinstance(rows, torch.Tensor) else None
+    n, nb = rows.shape
+    total = n if pad_to is None else int(pad_to)
+    if total < n:
+        raise ValueError(f"stage_rows pad_to={pad_to} below row count {n}")
+    if device.type == "cpu":
+        out = torch.zeros((total, nb), dtype=torch.uint8)
+        out.numpy()[:n] = host_t.numpy() if host_t is not None else rows
+        return out, None
+    if device.type != "cuda":
+        raise ValueError(f"no staging path for device {device}")
+    if host_t is not None and host_t.is_pinned() and total == n:
+        bounce = host_t
+    else:
+        # the pinned block returns to torch's host cache only after the
+        # copy queued on it has run (the cache records the stream's use)
+        bounce = torch.empty((total, nb), dtype=torch.uint8, pin_memory=True)
+        view = bounce.numpy()
+        view[:n] = host_t.numpy() if host_t is not None else rows
+        view[n:] = 0
+    stream = _side_stream(device)
+    with torch.cuda.stream(stream):
+        dev = torch.empty((total, nb), dtype=torch.uint8, device=device)
+        dev.copy_(bounce, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return dev, done
+
+
+def wait_staged(tensor, event) -> None:
+    """Make the current stream wait for ``stage_rows``' copy of ``tensor``
+    and record the tensor's use there (no-op for a CPU stage)."""
+    if event is None:
+        return
+    import torch
+
+    cur = torch.cuda.current_stream(tensor.device)
+    cur.wait_event(event)
+    tensor.record_stream(cur)

@@ -19,7 +19,9 @@ Two PRNG families of lazy matrices exist, and a file says which it holds:
   ``backend_options["prng_family"] = "interpret-hash"``, which the port
   strips before it builds the backend, so the model round-trips here.
 
-A ``CountSketch`` payload is refused until CountSketch is ported.
+A ``CountSketch`` is seed-defined: its payload (``countsketch``: width,
+features, seed and ``use_mxu``) re-draws the same ``h_``/``s_`` in either
+package.
 """
 
 from __future__ import annotations
@@ -49,12 +51,15 @@ def _registry() -> dict:
         GaussianRandomProjection,
         SparseRandomProjection,
     )
-    from randomprojection_tpu_torch.models.sketch import SignRandomProjection
+    from randomprojection_tpu_torch.models.sketch import (
+        CountSketch,
+        SignRandomProjection,
+    )
 
     return {
         cls.__name__: cls
         for cls in (GaussianRandomProjection, SparseRandomProjection,
-                    SignRandomProjection)
+                    SignRandomProjection, CountSketch)
     }
 
 
@@ -65,11 +70,22 @@ def save_model(est, path: str, *, include_matrix: bool = False) -> None:
     payload = {
         "format_version": FORMAT_VERSION,
         "class": type(est).__name__,
-        "spec": est.spec_.to_dict(),
-        "params": {
-            "dense_output": getattr(est, "dense_output", None),
-            "compute_inverse_components": est.compute_inverse_components,
-        },
+    }
+    if not hasattr(est, "spec_"):  # CountSketch: seed-defined, no spec
+        payload["countsketch"] = {
+            "n_components": est.n_components_,
+            "n_features": est.n_features_in_,
+            "seed": est.seed_,
+            # the route is part of the numeric contract: the one-hot
+            # product and the scatter round differently
+            "use_mxu": est.use_mxu,
+        }
+        _write_payload(path, payload)
+        return
+    payload["spec"] = est.spec_.to_dict()
+    payload["params"] = {
+        "dense_output": getattr(est, "dense_output", None),
+        "compute_inverse_components": est.compute_inverse_components,
     }
     if type(getattr(est, "_state", None)).__name__ == "_LazyMask":
         # the port's lazy matrix is the hash family, not the reference's
@@ -89,7 +105,10 @@ def save_model(est, path: str, *, include_matrix: bool = False) -> None:
             arrays["inverse_components"] = np.asarray(inv)
         np.savez(path + ".npz", **arrays)
         payload["matrix_file"] = os.path.basename(path) + ".npz"
+    _write_payload(path, payload)
 
+
+def _write_payload(path: str, payload: dict) -> None:
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(payload, f, indent=1)
@@ -150,11 +169,6 @@ def load_model(path: str, *, backend: Optional[str] = None,
         raise ValueError(
             f"backend must be one of {_BACKENDS} or None, got {backend!r}"
         )
-    if "countsketch" in payload or payload.get("class") == "CountSketch":
-        raise ValueError(
-            f"{path} holds a CountSketch, which is not ported yet (ROADMAP "
-            "A8, CountSketch and feature hashing)"
-        )
     cls = _registry().get(payload.get("class"))
     if cls is None:
         raise ValueError(f"Unknown model class {payload.get('class')!r} in {path}")
@@ -170,6 +184,15 @@ def load_model(path: str, *, backend: Optional[str] = None,
                 "it.  Restore the sibling .npz, or re-save the model "
                 "without include_matrix."
             )
+
+    if "countsketch" in payload:
+        d = payload["countsketch"]
+        if backend_options and backend == "numpy":
+            raise ValueError("backend_options apply to backend='torch' only")
+        est = cls(d["n_components"], random_state=d["seed"],
+                  backend=backend or "torch", backend_options=backend_options,
+                  use_mxu=d.get("use_mxu"))
+        return est.fit_schema(1, d["n_features"])
 
     spec = ProjectionSpec.from_dict(payload["spec"])
     options = _load_options(payload, path, backend)

@@ -1,9 +1,10 @@
 """Streamed row-batch transform (layer L2) with checkpoint/resume.
 
 The counterpart of the core of ``randomprojection_tpu/streaming.py``:
-seekable sources, the fault-injection wrapper, the stream cursor, and
-``stream_transform``'s ack-after-yield commit (prefetch/staged ingest and
-the telemetry spans are later slices).
+seekable sources (the raw-token ``TokenSource`` of config 5 among them),
+the fault-injection wrapper, the stream cursor, and ``stream_transform``'s
+ack-after-yield commit (prefetch/staged ingest and the telemetry spans
+are later slices).
 
 - **Seekable sources.**  A ``RowBatchSource`` yields fixed-size row batches
   *starting from any row offset*.
@@ -33,6 +34,7 @@ __all__ = [
     "RowBatchSource",
     "ArraySource",
     "CallableSource",
+    "TokenSource",
     "FaultInjectionSource",
     "StreamCursor",
     "stream_transform",
@@ -138,6 +140,60 @@ class CallableSource(RowBatchSource):
                 raise ValueError(
                     f"Source returned shape {tuple(batch.shape)} for rows "
                     f"[{lo},{hi}); expected {(hi - lo, self.n_features)}"
+                )
+            yield lo, batch
+
+
+class TokenSource(RowBatchSource):
+    """Raw-token documents → hashed CSR batches (the config-5 pipeline,
+    "streaming TF-IDF").
+
+    ``read_tokens(lo, hi)`` returns the tokens of documents ``[lo, hi)`` as
+    ``(tokens, indptr)`` or ``(tokens, indptr, values)``: ``tokens`` a flat
+    array or sequence, ``indptr`` LOCAL row pointers of length ``hi-lo+1``
+    (``indptr[0] == 0``).  ``hasher`` (``ops.hashing.FeatureHasher``)
+    hashes each batch into a CSR; composed with
+    ``CountSketch.transform_stream`` this is tokens → murmur3 (C++) → the
+    sketch on the card, with the cursor's checkpoint and resume (the
+    cursor counts documents; ``read_tokens`` must be deterministic in
+    ``(lo, hi)``).  ``hash_threads`` pins the C++ kernel's worker count
+    for each batch's hash (bit-identical at any count; ``None`` keeps the
+    ambient default).
+    """
+
+    def __init__(self, read_tokens: Callable, n_rows: int, hasher,
+                 batch_rows: int = 65536, *,
+                 hash_threads: Optional[int] = None):
+        if batch_rows <= 0:
+            raise ValueError(f"batch_rows must be positive, got {batch_rows}")
+        if hash_threads is not None and int(hash_threads) < 1:
+            raise ValueError(
+                f"hash_threads must be >= 1 or None, got {hash_threads!r}"
+            )
+        self._read_tokens = read_tokens
+        self.hasher = hasher
+        self.batch_rows = batch_rows
+        self.n_rows = n_rows
+        self.n_features = hasher.n_features
+        self.dtype = np.dtype(hasher.dtype)
+        self.hash_threads = hash_threads
+
+    def iter_batches(self, start_row: int = 0):
+        from randomprojection_tpu_torch.ops.hashing import hash_threads_override
+
+        _check_start_row(start_row, self.batch_rows, self.n_rows)
+        for lo in range(start_row, self.n_rows, self.batch_rows):
+            hi = min(lo + self.batch_rows, self.n_rows)
+            out = self._read_tokens(lo, hi)
+            tokens, indptr = out[0], out[1]
+            values = out[2] if len(out) > 2 else None
+            with hash_threads_override(self.hash_threads):
+                batch = self.hasher.transform_tokens(tokens, indptr, values)
+            if batch.shape != (hi - lo, self.n_features):
+                raise ValueError(
+                    f"read_tokens produced a {batch.shape} batch for rows "
+                    f"[{lo},{hi}); expected {(hi - lo, self.n_features)} — "
+                    "indptr must be local with indptr[0]=0"
                 )
             yield lo, batch
 

@@ -777,3 +777,151 @@ def test_crash_child_on_the_card_resumes_bit_identical(cuda, tmp_path):
                                   d=32, bits=64, device="cuda",
                                   points=("mid-batch",), nth=4, timeout=300)
     assert verdict["ok"], verdict
+
+
+# -- tiered residency and CountSketch on the card ----------------------------------
+
+
+def _tier_codes(rows, nb, seed):
+    return np.random.default_rng(seed).integers(0, 256, size=(rows, nb),
+                                                dtype=np.uint8)
+
+
+def test_tier_cold_chunks_live_in_pinned_memory(cuda, tmp_path):
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+
+    codes = _tier_codes(4000, 16, 20)
+    idx = SimHashIndex(codes[:1000], hbm_budget_bytes=1000 * 16)
+    try:
+        for lo in range(1000, 4000, 1000):
+            idx.add(codes[lo:lo + 1000])
+        assert idx._chunks[0].b.is_cuda
+        for c in idx._chunks[1:]:
+            assert not c.b.is_cuda and c.b.is_pinned()
+        assert idx._tier.demote(0)
+        assert idx._chunks[0].b.is_pinned()
+    finally:
+        idx.close()
+
+
+def test_stage_rows_lands_every_source_on_the_card(cuda, tmp_path):
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    rows = _tier_codes(777, 24, 21)
+    np.save(tmp_path / "c.npy", rows)
+    mm = np.load(tmp_path / "c.npy", mmap_mode="r")
+    pinned = torch.from_numpy(rows.copy()).pin_memory()
+    for src, pad in ((rows, None), (mm, 1024), (pinned, None), (pinned, 800)):
+        dev, ev = tk.stage_rows(src, device=cuda, pad_to=pad)
+        tk.wait_staged(dev, ev)
+        got = dev.cpu().numpy()
+        np.testing.assert_array_equal(got[:777], rows)
+        assert got.shape[0] == (pad or 777) and not got[777:].any()
+
+
+def test_tier_demote_during_queries_stays_bit_exact(cuda):
+    """The worker thread demotes and promotes chunks while the main thread
+    serves: every answer equals the resident index's (a staged copy is
+    waited for on the consuming stream, a demoted device tensor is never
+    reused under a kernel that reads it)."""
+    import threading
+
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+
+    codes = _tier_codes(4 * 200_000, 32, 22)
+    q = codes[np.random.default_rng(23).integers(0, codes.shape[0], 512)] ^ np.uint8(3)
+    resident = SimHashIndex(codes)
+    want = resident.query_topk(q, 16)
+    tiered = SimHashIndex(codes[:200_000], hbm_budget_bytes=2 * 200_000 * 32)
+    stop = threading.Event()
+    try:
+        for lo in range(200_000, codes.shape[0], 200_000):
+            tiered.add(codes[lo:lo + 200_000])
+        tier = tiered._tier
+
+        def churn():
+            entries = list(tier._entries)
+            while not stop.is_set():
+                for e in entries[:2]:
+                    tier._demote(e)
+                    tier._promote(e)
+
+        t = threading.Thread(target=churn)
+        t.start()
+        for _ in range(12):
+            got = tiered.query_topk(q, 16)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+        stop.set()
+        t.join()
+    finally:
+        stop.set()
+        tiered.close()
+
+
+def test_tier_promotion_then_device_rung_is_bit_exact(cuda):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    codes = _tier_codes(4 * 3000, 8, 24)
+    A = codes[:64] ^ np.uint8(1)
+    kw = dict(bands=4, band_bits=8, probes=4, fallback_density=1.0)
+    resident = LSHSimHashIndex(codes, **kw)
+    want = resident.query_topk(A, 7, tile=32)
+    idx = LSHSimHashIndex(codes[:3000], hbm_budget_bytes=1 << 30, **kw)
+    try:
+        for lo in range(3000, codes.shape[0], 3000):
+            idx.add(codes[lo:lo + 3000])
+        idx._tier._maybe_rebalance = lambda: None  # residency moves by hand
+        np.testing.assert_array_equal(idx.query_topk(A, 7, tile=32)[1], want[1])
+        assert len(idx._lsh_graphs) > 0  # the device rung captured its tiles
+        assert idx._tier.demote(3000)
+        assert len(idx._lsh_graphs) == 0  # the demotion dropped them
+        assert not idx._lsh_probe_device(None)  # a cold chunk: the host rung
+        got = idx.query_topk(A, 7, tile=32)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        idx._tier._promote(idx._tier._entries[1])
+        assert idx._lsh_probe_device(None)
+        pk.reset_launches()
+        got = idx.query_topk(A, 7, tile=32)
+        assert pk.GRAPH_CAPTURES >= 1 and pk.GRAPH_REPLAYS == 2
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    finally:
+        idx.close()
+
+
+def test_tier_smoke_on_the_card(cuda):
+    from randomprojection_tpu_torch import tier_smoke
+
+    assert tier_smoke.main("cuda")["fallbacks"] > 0
+
+
+@pytest.mark.parametrize("route", ["docmajor", "flat", "dense", "scatter"])
+def test_countsketch_routes_on_the_card_match_the_cpu(cuda, route):
+    import scipy.sparse as sp
+
+    from randomprojection_tpu_torch.models.sketch import CountSketch
+
+    rng = np.random.default_rng(25)
+    X = rng.normal(size=(300, 5000)).astype(np.float32)
+    X[np.abs(X) < 1.5] = 0.0
+    if route == "flat":
+        X[7, :] = rng.normal(size=5000)  # one wide row: no doc-major
+    Xin = X if route in ("dense", "scatter") else sp.csr_array(X)
+    mxu = False if route == "scatter" else None
+    card = CountSketch(64, random_state=3, use_mxu=mxu).fit(Xin)
+    cpu = CountSketch(64, random_state=3, use_mxu=mxu,
+                      backend_options={"device": "cpu"}).fit(Xin)
+    host = CountSketch(64, random_state=3, backend="numpy").fit(Xin)
+    if route in ("docmajor", "flat"):
+        assert card._csr_route(Xin)[0] == route
+    y = card.transform(Xin)
+    np.testing.assert_allclose(y, cpu.transform(Xin), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(y, host.transform(Xin), rtol=2e-5, atol=2e-5)
+    if route in ("docmajor", "flat"):
+        b = card.prepare_batch(Xin)
+        assert b.kind == route and b.arrays[0].is_cuda
+        np.testing.assert_allclose(card._transform_async(b).cpu().numpy(), y,
+                                   rtol=2e-5, atol=2e-5)

@@ -10,8 +10,9 @@
   ``recover.checksum_mismatch``; ``verify_snapshot`` reports it.
 - ``DurableIngest`` resumes an in-process ``FaultInjectionSource`` crash
   bit-identical to an uninterrupted run, and ``crash_smoke`` SIGKILLs real
-  child processes at the three kill points and resumes each to the clean
-  run's codes, checksums and answers.
+  child processes at the four kill points (``mid-demotion`` in the child's
+  disk-tiered leg) and resumes each to the clean run's codes, checksums
+  and answers.
 """
 
 import json
@@ -350,4 +351,4 @@ def test_child_command_runs_one_ingest(tmp_path):
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary == {"path": str(tmp_path / "x"), "rows_done": 64,
-                       "n_codes": 64, "chunks": 1}
+                       "n_codes": 64, "chunks": 1, "tier_demotions": 1}

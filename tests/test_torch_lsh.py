@@ -553,6 +553,11 @@ def test_package_exports():
     for name in ("DurableIngest", "save_index", "load_index"):
         assert getattr(rpt, name) is getattr(durable, name)
         assert name in rpt.__all__
+    # CountSketch, as the reference's __init__ exports it
+    from randomprojection_tpu_torch.models import sketch
+
+    assert rpt.CountSketch is sketch.CountSketch
+    assert "CountSketch" in rpt.__all__
 
 
 # -- the server's probe classes ----------------------------------------------------
