@@ -125,14 +125,19 @@ Phases (any failure exits non-zero and prints no result):
    over budget) answering ``query_topk`` of the 2,048 queries at m = 16 bit
    for bit like the resident index in turns with it (16 scans and 16
    merges a call, zero fallbacks; q/s of both, the cold fetches' host wall
-   and overlap window, H2D GB/s of a pinned chunk and the share of the
-   cold upload hidden under kernels); phase 9's 2^20 codes as 16 chunks of
-   2^16 with 4 hot: the disk tier's exact answers and the tiered LSH index
-   at probes 4 and 16 equal to the resident ones, a forced demote, every
-   chunk promoted (the device rung back, on newly captured graphs, dropped
-   at the next demotion), and an injected staging failure answering
-   exactly on the fallback counter; and a crash child on the card killed
-   at ``mid-demotion@1`` and resumed to the clean run's codes and answers;
+   and overlap window, H2D GB/s of a pinned chunk, and the share of the
+   cold upload hidden: 1 - (tiered wall - the wall of the same calls with
+   the cold chunks pre-staged on the card) / the upload time of the cold
+   bytes alone, a pair of adjacent turns at a time, unclamped); phase 9's
+   2^20 codes as 16 chunks of 2^16 with 4 hot: the disk tier's exact
+   answers and the tiered LSH index at probes 4 and 16 on the device rung
+   (K5 on the card, the cold candidate rows staged) equal to the resident
+   index's device rung in turns with it, and its host rung likewise, a
+   forced demote, every chunk promoted (the graphed device rung back,
+   dropped at the next demotion), and an injected staging failure
+   answering exactly on the fallback counter; and a crash child on the
+   card killed at ``mid-demotion@1`` and resumed to the clean run's codes
+   and answers;
 12. config 5: ``CountSketch(256)`` at hash space 2^20 over 2^20 docs of 100
    tokens drawn from a 50,000-word vocabulary (seed 0, the reference's
    ``measure_config5`` recipe; the one cut is depth, 100M -> 2^20 docs):
@@ -1944,30 +1949,47 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
         for lo in range(chunk, N_CODES, chunk):
             resident16.add(codes[lo:lo + chunk])
         want = resident.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+        # residency moves here only where this phase forces it
+        tiered._tier._maybe_rebalance = lambda: None
+        # the same tiered calls with every cold chunk already on the card:
+        # the upload turned off, all else (stager, waits, merge) as it runs
+        prestaged = {c.b.data_ptr(): c.b.to("cuda") for c in tiered._chunks
+                     if not c.b.is_cuda}
+        orig = tk.stage_rows
+
+        def _prestaged(rows, *, device, pad_to=None):
+            return prestaged[rows.data_ptr()], None
+
         for idx in (tiered, resident16):  # first-call set-up
             idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
         f0 = _tier_sums(reg)
         indexes = {"resident": resident, "resident16": resident16,
-                   "tiered": tiered}
+                   "tiered": tiered, "prestaged": tiered}
         walls = {k: [] for k in indexes}
-        launches = 0
-        for turn in ("resident", "resident16", "tiered", "tiered",
-                     "resident16", "resident", "tiered", "resident16",
+        tier_launches = 0
+        for turn in ("resident", "resident16", "tiered", "prestaged",
+                     "prestaged", "tiered", "resident16", "resident", "tiered",
+                     "prestaged", "prestaged", "tiered", "resident16",
                      "resident"):
             idx = indexes[turn]
             tk.reset_launches()
+            tk.stage_rows = _prestaged if turn == "prestaged" else orig
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
-            walls[turn].append(time.perf_counter() - t0)
+            try:
+                t0 = time.perf_counter()
+                got = idx.query_topk(queries, TOPK_M, tile=QUERY_TILE)
+                walls[turn].append(time.perf_counter() - t0)
+            finally:
+                tk.stage_rows = orig
             n = _topk_launches(tk)
             chunks = 1 if turn == "resident" else TIER_CHUNKS
             check(n == (chunks, 0, chunks), f"{n} K4 launches on the {turn} call")
             check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
                   f"{turn} answers differ from the resident index")
             if turn == "tiered":
-                launches += sum(n)
+                tier_launches += sum(n)
         f1 = _tier_sums(reg)
+        del prestaged
         fallbacks, fetches = f1[0] - f0[0], f1[1] - f0[1]
         check(fallbacks == 0, f"{fallbacks} tier fallbacks on the timed calls")
         gbps = _h2d_gbps(torch, tiered._chunks[-1].b)
@@ -1975,7 +1997,10 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
         upload_s = cold_bytes / (gbps * 1e9)
         rw, tw = min(walls["resident"]), min(walls["tiered"])
         r16 = min(walls["resident16"])
-        hidden = min(max(1.0 - (tw - r16) / upload_s, 0.0), 1.0)
+        # the share of the upload hidden, a pair of adjacent turns at a
+        # time: 1 - (tiered - pre-staged) / the upload alone, unclamped
+        hidden = [1.0 - (t - p_) / upload_s
+                  for t, p_ in zip(walls["tiered"], walls["prestaged"])]
         # the host merge of the 16 chunks' candidates, apart
         dummy = [(np.zeros((N_QUERIES, TOPK_M), np.int32),
                   np.zeros((N_QUERIES, TOPK_M), np.int32))] * TIER_CHUNKS
@@ -1993,24 +2018,32 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
         merge_s = time.perf_counter() - t0
         k4_16 = cuda_ms(lambda: [tk.rp_fused_topk(queries, c.b, c.n, TOPK_M)
                                  for c in resident16._chunks], reps=3)
+
+        def ms(ws):
+            return [round(w * 1e3, 3) for w in ws]
+
         log(f"tier exact: {N_CODES} codes x {host.shape[1]} B as {TIER_CHUNKS} "
             f"chunks, {TIER_HOT} hot ({budget} B) and {len(cold)} cold in pinned "
             f"host memory (built in {build_s:.3f} s); query_topk of {N_QUERIES} "
             f"queries m={TOPK_M} == the resident index bit for bit in every "
-            f"turn; walls (ms) resident "
-            f"{[round(w * 1e3, 3) for w in walls['resident']]}, the 16 chunks "
-            f"all resident {[round(w * 1e3, 3) for w in walls['resident16']]}, "
-            f"tiered {[round(w * 1e3, 3) for w in walls['tiered']]}: "
-            f"{N_QUERIES / rw:.1f} q/s resident, {N_QUERIES / r16:.1f} q/s "
-            f"16 chunks resident, {N_QUERIES / tw:.1f} q/s tiered; K4 over the "
-            f"16 chunks alone {k4_16:.3f} ms, the host merge of their "
-            f"candidates {merge_s * 1e3:.3f} ms; "
-            f"{fetches} cold fetches, host stage wall {f1[2] - f0[2]:.6f} s, "
-            f"overlap window {f1[3] - f0[3]:.6f} s; H2D {gbps:.3f} GB/s "
-            f"(a pinned {chunk * host.shape[1] >> 20} MiB chunk), the cold "
-            f"{cold_bytes >> 20} MiB alone {upload_s * 1e3:.3f} ms, hidden "
-            f"under kernels {hidden:.1%} (against the 16 resident chunks); "
-            f"index.tier.fallbacks {fallbacks}")
+            f"turn; walls (ms) resident {ms(walls['resident'])}, the 16 chunks "
+            f"all resident {ms(walls['resident16'])}, tiered "
+            f"{ms(walls['tiered'])}, tiered with the cold chunks pre-staged "
+            f"on the card {ms(walls['prestaged'])}: {N_QUERIES / rw:.1f} q/s "
+            f"resident, {N_QUERIES / r16:.1f} q/s 16 chunks resident, "
+            f"{N_QUERIES / tw:.1f} q/s tiered (at best); K4 over the 16 chunks "
+            f"alone {k4_16:.3f} ms, the host merge of their candidates "
+            f"{merge_s * 1e3:.3f} ms; {fetches} cold fetches, host stage wall "
+            f"{f1[2] - f0[2]:.6f} s, overlap window {f1[3] - f0[3]:.6f} s; H2D "
+            f"{gbps:.3f} GB/s (a pinned {chunk * host.shape[1] >> 20} MiB "
+            f"chunk), the cold {cold_bytes >> 20} MiB alone "
+            f"{upload_s * 1e3:.3f} ms; tiered minus pre-staged per pair of "
+            f"turns (ms) "
+            f"{[round((t - p_) * 1e3, 3) for t, p_ in zip(walls['tiered'], walls['prestaged'])]}"
+            f", the upload's hidden share 1 - that / the upload alone "
+            f"{[round(h, 4) for h in hidden]} (raw, unclamped); "
+            f"index.tier.fallbacks {fallbacks}; {tier_launches} K4 launches "
+            f"on the {len(walls['tiered'])} timed tiered calls")
         tiered.close()
         del tiered, resident, resident16, host
         opened.clear()
@@ -2046,15 +2079,41 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
         # residency moves here only where this leg forces it (the card
         # tests run the background rebalance under live queries)
         ltier._tier._maybe_rebalance = lambda: None
-        qps = {}
+        lsh_launches = [0, 0]  # K4 (scans + merges), K5 on the timed calls
+        lwalls = {}
         for p in (4, 16):
             want_p = lsh_index.query_topk(q, LSH_M, tile=LSH_TILE, probes=p)
             t0 = time.perf_counter()
-            got = ltier.query_topk(q, LSH_M, tile=LSH_TILE, probes=p)
-            qps[p] = LSH_NQ / (time.perf_counter() - t0)
+            got = ltier.query_topk(q, LSH_M, tile=LSH_TILE, probes=p,
+                                   probe_path="host")
+            host_s = time.perf_counter() - t0
             check(np.array_equal(got[0], want_p[0])
                   and np.array_equal(got[1], want_p[1]),
-                  f"tiered LSH at probes={p} answers differently")
+                  f"tiered LSH host rung at probes={p} answers differently")
+            ltier.query_topk(q, LSH_M, tile=LSH_TILE, probes=p)  # set-up
+            w = {"resident": [], "tiered": [], "host": [host_s]}
+            for turn in ("resident", "tiered", "tiered", "resident",
+                         "resident", "tiered"):
+                idx = lsh_index if turn == "resident" else ltier
+                tk.reset_launches()
+                pk.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = idx.query_topk(q, LSH_M, tile=LSH_TILE, probes=p)
+                w[turn].append(time.perf_counter() - t0)
+                check(np.array_equal(got[0], want_p[0])
+                      and np.array_equal(got[1], want_p[1]),
+                      f"{turn} LSH device rung at probes={p} answers "
+                      f"differently from the resident index")
+                if turn == "tiered":
+                    n4, n5 = _topk_launches(tk), pk.LAUNCHES["rp_probe"]
+                    check(n5 > 0 and n4[0] + n4[1] == n4[2] > 0
+                          and pk.GRAPH_REPLAYS == 0,
+                          f"the tiered device rung launched K5 {n5}, K4 {n4}, "
+                          f"{pk.GRAPH_REPLAYS} graph replays")
+                    lsh_launches[0] += sum(n4)
+                    lsh_launches[1] += n5
+            lwalls[p] = w
         f1 = _tier_sums(reg)
         check(f1[0] == f0[0], f"{f1[0] - f0[0]} fallbacks on the disk/LSH calls")
         want16 = lsh_index.query_topk(q, LSH_M, tile=LSH_TILE, probes=16)
@@ -2066,14 +2125,16 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
 
         hot0 = next(c for c in ltier._chunks if c.b.is_cuda)
         check(ltier._tier.demote(hot0.row0), "the forced demote")
+        pk.reset_launches()
         same16("after a forced demote")
-        # promote every cold chunk: the device rung serves again, on graphs
+        check(pk.GRAPH_CAPTURES == 0 and pk.LAUNCHES["rp_probe"] > 0,
+              "the device rung with cold chunks is not the eager tiered one")
+        # promote every cold chunk: the device rung serves on graphs
         # captured anew over the promoted chunks
         ltier._tier.budget_bytes = LSH_N * LSH_BYTES
         for e in list(ltier._tier._entries):
             ltier._tier._promote(e)
         check(not ltier._tier.any_cold(), "promotion left cold chunks")
-        check(ltier._lsh_probe_device(None), "the device rung is not back")
         pk.reset_launches()
         same16("on the device rung after the promotion")
         captures = pk.GRAPH_CAPTURES
@@ -2103,10 +2164,20 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
             f"hot: the disk tier's {len(spills)} spills answer {LSH_NQ} exact "
             f"queries bit for bit in {disk_s:.3f} s; the tiered LSH index "
             f"(built in {lbuild_s:.3f} s) == the resident one at probes 4 and 16 "
-            f"({qps[4]:.1f} and {qps[16]:.1f} q/s on the host rung); a forced "
-            f"demote, then every chunk promoted: the device rung answers bit for "
-            f"bit on {captures} new graph(s), dropped at the next demotion; the "
-            f"injected staging failure: {fb} fallbacks, exact answers")
+            f"in every turn; "
+            + "; ".join(
+                f"probes {p}: walls (ms) resident device rung "
+                f"{ms(lwalls[p]['resident'])}, tiered device rung "
+                f"{ms(lwalls[p]['tiered'])}, tiered host rung "
+                f"{ms(lwalls[p]['host'])} = {LSH_NQ / min(lwalls[p]['resident']):.1f}, "
+                f"{LSH_NQ / min(lwalls[p]['tiered']):.1f} and "
+                f"{LSH_NQ / lwalls[p]['host'][0]:.1f} q/s"
+                for p in (4, 16))
+            + f"; {lsh_launches[0]} K4 and {lsh_launches[1]} K5 launches on the "
+            f"timed tiered calls, no graph; a forced demote, then every chunk "
+            f"promoted: the device rung answers bit for bit on {captures} new "
+            f"graph(s), dropped at the next demotion; the injected staging "
+            f"failure: {fb} fallbacks, exact answers")
         for idx in opened:
             idx.close()
         opened.clear()
@@ -2123,7 +2194,7 @@ def phase_tier(torch, tk, pk, codes, queries, lsh_codes, lsh_queries, lsh_index,
             f"{case['crash_returncode']}) and resumed (rc "
             f"{case['resume_returncode']}): codes, checksums and query_topk equal "
             f"the clean run's; three children in {time.perf_counter() - t0:.3f} s")
-        return launches
+        return tier_launches, lsh_launches
     finally:
         for idx in opened:
             idx.close()
@@ -2155,7 +2226,6 @@ def phase_config5(torch):
     cs = CountSketch(C5_K, random_state=0).fit_source(src)
     check(cs._device.type == "cuda", "CountSketch is not on the card")
     first = next(src.iter_batches(0))[1]
-    kind = cs._csr_route(first)[0]
     y = cs.transform(first)
     want = cs._transform_csr(sp.csr_array(
         (first.data.astype(np.float64), first.indices, first.indptr),
@@ -2195,7 +2265,7 @@ def phase_config5(torch):
     check(rows == C5_DOCS, f"the stream gave {rows} rows")
     log(f"config5: {C5_DOCS} docs x {C5_TOKENS} tokens from {C5_VOCAB} words "
         f"(drawn in {gen_s:.3f} s) -> FeatureHasher(2^20) -> CountSketch({C5_K}) "
-        f"on the card, {BATCH}-doc batches on the {kind} route; first batch "
+        f"on the card, {BATCH}-doc batches on the flat route; first batch "
         f"max|dev - host f64| {err:.3e} (rtol=atol={C5_TOL}); ingest "
         f"{BATCH * C5_TOKENS / hash_s:.1f} tokens/s (host murmur3 + CSR; the "
         f"murmur3 call alone {BATCH * C5_TOKENS / murmur_s:.1f} tokens/s on "
@@ -2276,11 +2346,14 @@ def main() -> int:
         kernels.append(timing_probe(torch, pk, index, lsh_queries,
                                     probe_launches, errs))
         phase_durable(torch, tk, codes, queries, index, lsh_queries, scratch)
-        # K4's row counts the tiered exact path's launches too
-        next(r for r in kernels if r["name"] == "rp_fused_topk")[
-            "launches"] += phase_tier(
+        # each tiered path's launches apart from the serving path's
+        tier_launches, lsh_launches = phase_tier(
             torch, tk, pk, codes, queries, lsh_codes, lsh_queries, index,
             scratch)
+        rows = {r["name"]: r for r in kernels}
+        rows["rp_fused_topk"]["tier_launches"] = tier_launches
+        rows["rp_fused_topk"]["tier_lsh_launches"] = lsh_launches[0]
+        rows["rp_probe"]["tier_lsh_launches"] = lsh_launches[1]
         del lsh_codes, codes, index
         torch.cuda.empty_cache()
         phase_config5(torch)

@@ -48,13 +48,15 @@ tier, verifying the persisted keys against the ones rebuilt from the
 codes; a snapshot without keys (a plain index's) rebuilds the bands.
 
 Tiered residency: an index with a budget (``hbm_budget_bytes``) that
-holds cold chunks serves through the host rung, whose re-rank splits the
-candidate union by residency (``_lsh_rerank_tiered``): the cold rows are
-gathered on the host and staged on a side stream while K4 re-ranks the
-hot rows, then K4 re-ranks the cold rows, and the two top-m planes merge
-under the (distance, lower-global-id) order.  The device rung needs every
-chunk resident; every promotion, demotion and ``reset`` drops the
-captured tiles.
+holds cold chunks splits each tile's candidate union by residency.  On
+the device rung (``_lsh_device_tiered``) K5 and the dedup run on the
+device as before, K4 re-ranks the hot slots from the resident chunks,
+and under that kernel the host gathers the cold candidate rows and
+stages them on a side stream for K4 over the cold side; the two top-m
+planes merge on the device under the (distance, lower-global-id) order.
+That rung is eager (a graph would bake in the host sync and the staged
+rows).  The host rung's re-rank (``_lsh_rerank_tiered``) splits the same
+way.  Every promotion, demotion and ``reset`` drops the captured tiles.
 
 Not ported (ROADMAP): the sharded tier ``LSHShardedSimHashIndex`` (A10).
 The reference's host-select rung for a re-rank that overflowed the TPU's
@@ -844,11 +846,6 @@ class LSHSimHashIndex(SimHashIndex):
                 else _check_probe_path(probe_path))
         if path == "host":
             return False
-        if self._tier is not None and self._tier.any_cold():
-            # the device rung gathers from every chunk on the device: with
-            # cold chunks it would upload whole chunks a tile; the host
-            # rung and the tiered re-rank stage only the candidate rows
-            return False
         if path == "auto":
             return self.device.type == "cuda"
         return path == "device"
@@ -946,8 +943,12 @@ class LSHSimHashIndex(SimHashIndex):
         """One tile through ``device_probe_topk`` on the index's device;
         returns ``fetch(dist, gid, stats, counts)``.  On a card the tile is
         one replay of its key's CUDA graph (captured at the key's first
-        tile) and ``fetch`` runs under the cache's lock; there is no eager
-        route on a card.  ``q`` is the host tile (or a tensor)."""
+        tile) and ``fetch`` runs under the cache's lock; the one eager
+        route on a card is an index holding cold chunks
+        (``_lsh_device_tiered``).  ``q`` is the host tile (or a tensor)."""
+        if self._tier is not None and self._tier.any_cold():
+            return fetch(*self._lsh_device_tiered(q, masks_dev, act_dev, m_eff,
+                                                  cap))
         indptr_dev, ids_dev = self._lsh_device_csr()
         dead_dev = self._lsh_device_dead()
         chunks = self._lsh_chunk_planes()
@@ -963,6 +964,105 @@ class LSHSimHashIndex(SimHashIndex):
             self._to_device(q), masks_dev, act_dev, indptr_dev, ids_dev,
             dead_dev, chunks, m_eff, cap=cap, band_bits=bb,
         ))
+
+    def _lsh_device_tiered(self, q, masks_dev, act_dev, m_eff: int, cap: int):
+        """The device rung of an index holding cold chunks, eager: band
+        keys, K5 and the slot sort on the device as ``device_probe_topk``
+        runs them, then the live slots split by residency.  The slot ids
+        and their sides start to the host, K4 re-ranks the hot slots
+        gathered from the resident chunks, and under that kernel the host
+        gathers the cold candidate rows (a RAM read for the host tier, the
+        touched pages of a disk memmap) and stages them on the side stream
+        for K4 over the cold side.  The two top-``m`` planes merge on the
+        device under the (distance, lower-global-id) order; they are
+        disjoint, so the merge is exact.  Returns ``(dist, gid, stats,
+        counts)`` as ``device_probe_topk`` does.  A failed upload degrades
+        to a synchronous one (fallback audit)."""
+        import torch
+
+        from randomprojection_tpu_torch.tiering import host_view, is_resident
+
+        tier = self._tier
+        q = self._to_device(q)
+        indptr_dev, ids_dev = self._lsh_device_csr()
+        hot, cold = [], []
+        for c in self._chunks:
+            b = c.b  # one read: the worker may swap the binding
+            if is_resident(b, self.device) and (self.device.type == "cuda"
+                                                or tier.chunk_is_hot(c)):
+                hot.append((b, c.row0, c.n))
+            else:
+                cold.append((b, c.row0, c.n))
+        s, sc, dead, stat, cnt = probe_kernels.device_probe_slots(
+            q, masks_dev, act_dev, indptr_dev, ids_dev,
+            self._lsh_device_dead(), cap=cap,
+            band_bits=self.band_plan.band_bits)
+        in_hot = torch.zeros_like(dead)
+        for _, row0, n in hot:
+            in_hot |= (sc >= row0) & (sc < row0 + n)
+        live = ~dead
+        # each slot's side (0 dead, 1 hot, 2 cold), to the host with the ids
+        # ahead of the hot side's kernel
+        side = live.to(torch.int32) + (live & ~in_hot).to(torch.int32)
+        ids_h, side_h = _HostFetch(s), _HostFetch(side)
+        sent = self.n_bits + 1
+        if hot:
+            d, gid = probe_kernels.rerank_slots(
+                q, probe_kernels.gather_rows(hot, sc), s, ~(live & in_hot),
+                m_eff)
+        else:
+            d = torch.full((q.shape[0], m_eff), sent, dtype=torch.int32,
+                           device=self.device)
+            gid = torch.full_like(d, _INT32_MAX)
+        ids_np, side_np = ids_h.result(None), side_h.result(None)
+        t0 = time.perf_counter()
+        cand = ids_np[side_np > 0].astype(np.int64)
+        cold_ids = ids_np[side_np == 2].astype(np.int64)
+        per_chunk = {}
+        for c in self._chunks:
+            k = int(np.searchsorted(cand, c.row0 + c.n)
+                    - np.searchsorted(cand, c.row0))
+            if k:
+                per_chunk[c.row0] = k
+        tier.note_gather(int(cand.size - cold_ids.size), int(cold_ids.size),
+                         per_chunk)
+        if cold_ids.size == 0:
+            return d, gid, stat, cnt
+        parts = []
+        for b, row0, n in cold:
+            lo, hi = np.searchsorted(cold_ids, (row0, row0 + n))
+            if hi > lo:
+                parts.append(host_view(b)[cold_ids[lo:hi] - row0])
+        rows = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+        sync = False
+        try:
+            rows_dev, ev = topk_kernels.stage_rows(rows, device=self.device)
+        except Exception as e:
+            tier.note_fallback(f"upload:{type(e).__name__}",
+                               rows=int(cold_ids.size))
+            sync = True
+            rows_dev, ev = self._sync_upload(rows), None
+        wall_s = time.perf_counter() - t0
+        t_staged = time.perf_counter()
+        gid_dev = self._to_device(cold_ids.astype(np.int32))
+        topk_kernels.wait_staged(rows_dev, ev)
+        m_cold = int(min(m_eff, cold_ids.size))
+        cd, ci = topk_kernels.fused_topk(q, rows_dev, int(cold_ids.size), m_cold)
+        cg = gid_dev[ci.long()]
+        if m_cold < m_eff:
+            pad = (0, m_eff - m_cold)
+            cd = torch.nn.functional.pad(cd, pad, value=sent)
+            cg = torch.nn.functional.pad(cg, pad, value=_INT32_MAX)
+        key = torch.cat([(d.long() << 32) | gid.long(),
+                         (cd.long() << 32) | cg.long()], dim=1)
+        key = torch.sort(key, dim=1).values[:, :m_eff]
+        tier.note_fetch(rows=int(cold_ids.size),
+                        nbytes=int(cold_ids.size) * self.n_bytes,
+                        wall_s=wall_s,
+                        overlap_s=0.0 if sync else time.perf_counter() - t_staged,
+                        source=tier.cold_tier, sync=sync)
+        return ((key >> 32).to(torch.int32),
+                (key & 0x7FFFFFFF).to(torch.int32), stat, cnt)
 
     @staticmethod
     def _staged(a):

@@ -1035,92 +1035,27 @@ class TopKServer:
 
 
 class DeviceBatch:
-    """A streaming CSR batch already laid out for one CountSketch route and
-    on its way to the device (``CountSketch.prepare_batch``): ``kind``
-    names the route (``'docmajor'`` / ``'flat'``), ``arrays`` are its
-    device operands in argument order, ``shape``/``nbytes`` mirror the
-    source batch so the stream's bookkeeping is unchanged."""
+    """A streaming CSR batch already laid out for the flat route and on its
+    way to the device (``CountSketch.prepare_batch``): ``arrays`` are the
+    tokens' ``(row, idx, val)`` device operands, ``shape``/``nbytes``
+    mirror the source batch so the stream's bookkeeping is unchanged."""
 
-    __slots__ = ("kind", "arrays", "n", "n_pad", "t_pad", "shape", "nbytes")
+    __slots__ = ("arrays", "n", "shape", "nbytes")
 
-    def __init__(self, kind: str, arrays: tuple, n: int, n_pad: int,
-                 t_pad: int, shape: tuple, nbytes: int):
-        self.kind = kind
+    def __init__(self, arrays: tuple, n: int, shape: tuple, nbytes: int):
         self.arrays = arrays
         self.n = n
-        self.n_pad = n_pad
-        self.t_pad = t_pad
         self.shape = shape
         self.nbytes = nbytes
 
 
-def _flat_mesh_layout(X, p: int):
-    """Token-balanced host layout of one CSR batch over ``p`` row ranges
-    (``parallel.sharded.token_balanced_bounds`` cuts, so the padded token
-    width tracks ``nnz/p``): each range scatters into its own
-    ``rows_blk``-row block and ``perm`` maps the block-concatenated
-    output back to row order.  Returns ``(rows_l, idx, vals, rows_blk,
-    t_pad, perm)``, the first three ``(p, t_pad)``, ``perm`` ``(n,)``
-    int32.  The single-device flat route is ``p = 1`` (``perm`` the
-    identity); more ranges wait for the mesh (ROADMAP A10)."""
-    from randomprojection_tpu_torch.parallel.sharded import (
-        row_bucket,
-        token_balanced_bounds,
-    )
-
-    n = X.shape[0]
-    indptr = X.indptr.astype(np.int64, copy=False)
-    bounds_rows = token_balanced_bounds(indptr, p)
-    tok_bounds = indptr[bounds_rows]
-    rows_per = np.diff(bounds_rows)
-    counts = np.diff(tok_bounds)
-    rows_blk = row_bucket(int(max(rows_per.max(), 1)))
-    t_pad = row_bucket(int(max(counts.max(), 1)))
-    rows_l = np.zeros((p, t_pad), np.int32)
-    idx_s = np.zeros((p, t_pad), np.int32)
-    vals_s = np.zeros((p, t_pad), np.float32)
-    row_sizes = np.diff(indptr)
-    perm = np.empty(n, np.int64)
-    for s in range(p):
-        r0, r1 = int(bounds_rows[s]), int(bounds_rows[s + 1])
-        lo, hi = int(tok_bounds[s]), int(tok_bounds[s + 1])
-        c = hi - lo
-        rows_l[s, :c] = np.repeat(np.arange(r1 - r0, dtype=np.int32),
-                                  row_sizes[r0:r1])
-        idx_s[s, :c] = X.indices[lo:hi]
-        vals_s[s, :c] = X.data[lo:hi]
-        perm[r0:r1] = s * rows_blk + np.arange(r1 - r0)
-    return rows_l, idx_s, vals_s, rows_blk, t_pad, perm.astype(np.int32)
-
-
-def _docmajor_chunk(rows_local: int, t_pad: int, k: int) -> int:
-    """Doc chunk of the compare-reduce: bounds its ``(chunk, t_pad, k)``
-    float32 working set to ~256 MiB."""
-    chunk = rows_local
-    while chunk * t_pad * k * 4 > (1 << 28) and chunk % 2 == 0:
-        chunk //= 2
-    return chunk
-
-
-def _docmajor_kernel(idxm, valm, hs, k: int, chunk: int):
-    """The doc-major compare-reduce sketch ``(idx (n, t_pad) int32, val (n,
-    t_pad) f32, hs packed table) -> (n, k)`` f32 in torch ops: ONE gather of
-    the packed table ``2h + (s<0)`` a token, then ``Y[r, c] = Σ_t
-    sv[r, t]·[h[r, t] = c]`` per doc chunk, a masked reduction with no
-    scatter (a fixed summation order: deterministic)."""
-    import torch
-
-    n, t_pad = idxm.shape
-    g = hs.index_select(0, idxm.reshape(-1)).reshape(n, t_pad)
-    sv = valm * (1 - 2 * (g & 1)).to(torch.float32)
-    h2 = g >> 1
-    iota = torch.arange(k, dtype=h2.dtype, device=h2.device)
-    out = torch.empty((n, k), dtype=torch.float32, device=h2.device)
-    for lo in range(0, n, chunk):
-        hc, svc = h2[lo:lo + chunk], sv[lo:lo + chunk]
-        out[lo:lo + chunk] = torch.where(
-            hc[:, :, None] == iota, svc[:, :, None], 0.0).sum(dim=1)
-    return out
+def _flat_layout(X):
+    """The flat route's host layout of one CSR batch: each token's row,
+    feature index and value, ``(nnz,)`` int32, int32 and float32 (the
+    reference's ``_flat_mesh_layout(X, 1)`` without its row padding)."""
+    rows = np.repeat(np.arange(X.shape[0], dtype=np.int32), np.diff(X.indptr))
+    return (rows, X.indices.astype(np.int32, copy=False),
+            X.data.astype(np.float32, copy=False))
 
 
 class CountSketch(ParamsMixin):
@@ -1140,9 +1075,11 @@ class CountSketch(ParamsMixin):
       while the mask fits ``_MXU_MASK_BYTES_CAP``, else a scatter-add
       (``index_add_``; ``use_mxu=False`` forces it, ``use_mxu=True``
       refuses anything else);
-    - CSR float32: gather the resident tables and sketch on the device,
-      doc-major compare-reduce for low-skew batches, else a flat
-      gather + scatter-add (``_csr_route``);
+    - CSR float32: gather the resident tables at the tokens and
+      scatter-add into the ``(n·k)`` output (``index_add_``, the flat
+      route; the reference's doc-major compare-reduce took 18-34x its
+      time on an H100 at 10, 100 and 1,000 tokens a doc,
+      ``torch_experiments/countsketch_routes.py``);
     - float64 (dense or CSR) and every ``'numpy'`` batch: the host scatter,
       exact.
 
@@ -1215,7 +1152,7 @@ class CountSketch(ParamsMixin):
             self._device = None
         else:
             self._device = resolve_device(opts.get("device"))
-        for key in ("_dev_tables", "_dev_packed", "_dev_mask"):
+        for key in ("_dev_tables", "_dev_mask"):
             self.__dict__.pop(key, None)
 
     @property
@@ -1295,16 +1232,6 @@ class CountSketch(ParamsMixin):
             self.__dict__["_dev_tables"] = t
         return t
 
-    def _device_packed_table(self):
-        """The packed table ``hs = 2·h + (s<0)`` (int32) on the device: the
-        doc-major route gathers one word a token, not two."""
-        t = self.__dict__.get("_dev_packed")
-        if t is None:
-            hs = (self.h_.astype(np.int64) * 2 + (self.s_ < 0)).astype(np.int32)
-            t = self._upload(hs)
-            self.__dict__["_dev_packed"] = t
-        return t
-
     def _mxu_route(self) -> bool:
         """True when the dense float32 route is the one-hot product."""
         k, d = self.n_components_, self.n_features_in_
@@ -1364,90 +1291,30 @@ class CountSketch(ParamsMixin):
 
     def _csr_on_device(self, X) -> bool:
         """Device CSR eligibility: the torch backend, float32 data (float64
-        stays on the host, exact) and a flat scatter index ``n_pad·k`` that
-        fits int32."""
-        from randomprojection_tpu_torch.parallel.sharded import row_bucket
-
-        n_pad = row_bucket(max(X.shape[0], 1))
+        stays on the host, exact) and a flat output index ``n·k`` that fits
+        int32, as the reference's gate."""
         return (self._use_device and X.dtype == np.float32
-                and n_pad * self.n_components_ < 2**31)
+                and X.shape[0] * self.n_components_ < 2**31)
 
-    # doc-major eligibility: the padded token matrix's inflation over the
-    # real token count, and a per-row width cap (one huge document must
-    # not widen every row)
-    _DOCMAJOR_MAX_INFLATION = 4.0
-    _DOCMAJOR_MAX_WIDTH = 2048
-
-    def _csr_route(self, X):
-        """The doc-major/flat rule for one CSR batch, shared by the dispatch
-        and ``prepare_batch``: ``(kind, n_pad, t_pad)``, ``t_pad`` the
-        bucketed widest row for ``'docmajor'`` and None for ``'flat'``."""
-        from randomprojection_tpu_torch.parallel.sharded import row_bucket
-
-        n = X.shape[0]
-        n_pad = row_bucket(max(n, 1))
-        t_max = int(np.diff(X.indptr).max()) if n else 0
-        if t_max:
-            t_row = row_bucket(t_max)
-            if (t_row <= self._DOCMAJOR_MAX_WIDTH
-                    and n_pad * t_row
-                    <= self._DOCMAJOR_MAX_INFLATION * max(X.nnz, 1)):
-                return "docmajor", n_pad, t_row
-        return "flat", n_pad, None
-
-    @staticmethod
-    def _docmajor_host_layout(X, n_pad: int, t_pad: int):
-        """CSR → padded doc-major ``(idxm, valm)`` host arrays; pad tokens
-        carry value 0."""
-        n = X.shape[0]
-        counts = np.diff(X.indptr)
-        row_ids = np.repeat(np.arange(n, dtype=np.int64), counts)
-        pos = np.arange(X.nnz, dtype=np.int64) - np.repeat(
-            X.indptr[:-1].astype(np.int64), counts)
-        idxm = np.zeros((n_pad, t_pad), np.int32)
-        valm = np.zeros((n_pad, t_pad), np.float32)
-        idxm[row_ids, pos] = X.indices
-        valm[row_ids, pos] = X.data
-        return idxm, valm
-
-    def _docmajor_dispatch(self, idxm_dev, valm_dev, n: int, n_pad: int,
-                           t_pad: int):
-        k = self.n_components_
-        y = _docmajor_kernel(idxm_dev, valm_dev, self._device_packed_table(),
-                             k, _docmajor_chunk(n_pad, t_pad, k))
-        return y[:n]
-
-    def _flat_dispatch(self, rows_dev, idx_dev, vals_dev, n: int, n_pad: int,
-                       t_pad: int):
+    def _flat_dispatch(self, rows_dev, idx_dev, vals_dev, n: int):
         """Gather the resident tables at the tokens, scatter-add into the
-        flat ``(n_pad·k)`` accumulator (``index_add_``)."""
+        flat ``(n·k)`` accumulator (``index_add_``)."""
         import torch
 
         k = self.n_components_
         h, s = self._device_tables()
         flat = rows_dev.long() * k + h.index_select(0, idx_dev)
-        y = torch.zeros(n_pad * k, dtype=torch.float32, device=self._device)
+        y = torch.zeros(n * k, dtype=torch.float32, device=self._device)
         y.index_add_(0, flat, vals_dev * s.index_select(0, idx_dev))
-        return y.reshape(n_pad, k)[:n]
-
-    def _flat_layout(self, X):
-        rows_l, idx, vals, rows_blk, t_pad, _ = _flat_mesh_layout(X, 1)
-        return rows_l[0], idx[0], vals[0], rows_blk, t_pad
+        return y.reshape(n, k)
 
     def _transform_csr_device(self, X):
         """Sketch a float32 CSR batch on the device (config 5's hot loop):
-        per batch only the tokens' ``(idx, val)`` (doc-major) or ``(row,
-        idx, val)`` (flat) cross, the 2^20-wide input never materializes,
-        and the tables stay resident.  Returns a device tensor."""
-        n = X.shape[0]
-        kind, n_pad, t_row = self._csr_route(X)
-        if kind == "docmajor":
-            idxm, valm = self._docmajor_host_layout(X, n_pad, t_row)
-            return self._docmajor_dispatch(self._upload(idxm),
-                                           self._upload(valm), n, n_pad, t_row)
-        rows, idx, vals, n_pad, t_pad = self._flat_layout(X)
-        return self._flat_dispatch(self._upload(rows), self._upload(idx),
-                                   self._upload(vals), n, n_pad, t_pad)
+        per batch only the tokens' ``(row, idx, val)`` cross, the
+        2^20-wide input never materializes, and the tables stay resident.
+        Returns a device tensor."""
+        return self._flat_dispatch(*map(self._upload, _flat_layout(X)),
+                                   X.shape[0])
 
     def _transform_csr(self, X):
         """The host scatter (float64 and the numpy backend): exact."""
@@ -1481,17 +1348,9 @@ class CountSketch(ParamsMixin):
         self._check_width(X)
         if not self._csr_on_device(X):
             return X
-        n = X.shape[0]
         nbytes = int(X.data.nbytes + X.indices.nbytes + X.indptr.nbytes)
-        kind, n_pad, t_row = self._csr_route(X)
-        if kind == "docmajor":
-            idxm, valm = self._docmajor_host_layout(X, n_pad, t_row)
-            return DeviceBatch("docmajor", (self._upload(idxm), self._upload(valm)),
-                               n, n_pad, t_row, X.shape, nbytes)
-        rows, idx, vals, n_pad, t_pad = self._flat_layout(X)
-        return DeviceBatch(
-            "flat", (self._upload(rows), self._upload(idx), self._upload(vals)),
-            n, n_pad, t_pad, X.shape, nbytes)
+        return DeviceBatch(tuple(map(self._upload, _flat_layout(X))),
+                           X.shape[0], X.shape, nbytes)
 
     def _transform_async(self, X):
         """The stream's transform: a device tensor still being computed on
@@ -1500,9 +1359,7 @@ class CountSketch(ParamsMixin):
         ``DeviceBatch``es from ``prepare_batch``."""
         self._check_is_fitted()
         if isinstance(X, DeviceBatch):
-            if X.kind == "docmajor":
-                return self._docmajor_dispatch(*X.arrays, X.n, X.n_pad, X.t_pad)
-            return self._flat_dispatch(*X.arrays, X.n, X.n_pad, X.t_pad)
+            return self._flat_dispatch(*X.arrays, X.n)
         if sp.issparse(X):
             X = X.tocsr()
             self._check_width(X)

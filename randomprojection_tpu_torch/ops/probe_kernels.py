@@ -420,25 +420,47 @@ def device_probe_topk(q, masks, active, indptr, ids, dead_full, chunks, m: int,
     stats (8,), counts (tq,))``, ``stats = [gathered, overflow,
     live_candidates, 0, ...]``; the caller applies the fallback ladder
     (overflow, starved, dense) before trusting the tile."""
+    s, sc, dead_c, stat, cnt = device_probe_slots(
+        q, masks, active, indptr, ids, dead_full, cap=cap, band_bits=band_bits)
+    # each live id lies in exactly one chunk's rows; dead slots keep any row
+    d, gid = rerank_slots(q, gather_rows(chunks, sc), s, dead_c, m)
+    return d, gid, stat, cnt
+
+
+def device_probe_slots(q, masks, active, indptr, ids, dead_full, *, cap: int,
+                       band_bits: int):
+    """The probe and dedup half of ``device_probe_topk``: band keys, K5 and
+    the slot sort.  Returns ``(s, sc, dead, stats, counts)``: the sorted
+    slots ``s`` (``cap``, int32; ascending slot order is ascending global
+    id, the tie rule), ``sc`` the same as int64 clamped to the index, the
+    dead plane (every duplicate, sentinel or tombstoned slot) and ``stats
+    = [gathered, overflow, live_candidates, 0, ...]``."""
     import torch
 
     n_total = int(dead_full.shape[0])
     qkeys = device_band_keys(q, int(indptr.shape[0]), band_bits)
     slots, cnt, stat = probe_gather(qkeys, masks, active, indptr, ids, cap=cap)
-    # ascending slot order is ascending global id (the tie rule); every
-    # duplicate, sentinel or tombstoned slot goes dead
     s = torch.sort(slots).values
     dup = torch.zeros_like(s, dtype=torch.bool)
     dup[1:] = s[1:] == s[:-1]
     sc = s.clamp(0, max(n_total - 1, 0)).long()
     dead_c = (s >= n_total) | dup | (dead_full[sc] != 0)
     n_live = (~dead_c).sum(dtype=torch.int32)
-    # each live id lies in exactly one chunk's rows; dead slots keep any row
-    g = gather_rows(chunks, sc)
-    d, idx = topk_kernels.fused_topk(q, g, cap, m, dead=dead_c.to(torch.uint8))
-    gid = torch.where(idx >= cap, _INT32_MAX, s[idx.long().clamp(0, cap - 1)])
     stat = torch.cat([stat[:2], n_live.reshape(1), stat[3:]])
-    return d, gid, stat, cnt
+    return s, sc, dead_c, stat, cnt
+
+
+def rerank_slots(q, rows, s, dead, m: int):
+    """K4 over gathered slot rows (``rows`` ``(cap, n_bytes)``, ``dead``
+    the slots that may not win) and the winners' global ids from the
+    sorted slots ``s``: ``(dist (tq, m), gid (tq, m))``, empty slots
+    ``(n_bits + 1, 2³¹−1)``."""
+    import torch
+
+    cap = int(s.shape[0])
+    d, idx = topk_kernels.fused_topk(q, rows, cap, m, dead=dead.to(torch.uint8))
+    gid = torch.where(idx >= cap, _INT32_MAX, s[idx.long().clamp(0, cap - 1)])
+    return d, gid
 
 
 # -- the tile as one CUDA graph ------------------------------------------------------

@@ -9,7 +9,7 @@ than pinning one per shape.
 
 from __future__ import annotations
 
-__all__ = ["row_bucket", "token_balanced_bounds"]
+__all__ = ["row_bucket"]
 
 
 def row_bucket(n: int) -> int:
@@ -30,21 +30,3 @@ def row_bucket(n: int) -> int:
             break
     return pad_to
 
-
-def token_balanced_bounds(indptr, p: int):
-    """Row cut points ``(p + 1,)`` int64 splitting one CSR batch into ``p``
-    contiguous row ranges whose token counts balance: cut ``s`` is the
-    first row whose token prefix reaches ``s·nnz/p``, so each range holds
-    whole rows and is within one row's tokens of ``nnz/p``; cuts are
-    monotone and empty ranges are legal."""
-    import numpy as np
-
-    if p < 1:
-        raise ValueError(f"p must be >= 1, got {p}")
-    indptr = np.asarray(indptr, dtype=np.int64)
-    n = indptr.shape[0] - 1
-    total = int(indptr[-1])
-    targets = (np.arange(1, p, dtype=np.int64) * total) // p
-    cuts = np.searchsorted(indptr, targets, side="left")
-    bounds = np.concatenate([[0], np.minimum(cuts, n), [n]]).astype(np.int64)
-    return np.maximum.accumulate(bounds)

@@ -3,8 +3,8 @@
 - ``h_``/``s_`` equal the reference's bit for bit (the same
   ``SeedSequence([0x43534B31, seed])`` draw on the host).
 - Every route on the torch backend (run here on the CPU: the one-hot
-  product, the scatter with ``use_mxu=False`` and past the mask cap, CSR
-  doc-major and flat, a prepared ``DeviceBatch``) is within
+  product, the scatter with ``use_mxu=False`` and past the mask cap, the
+  flat CSR scatter, a prepared ``DeviceBatch``) is within
   ``rtol = atol = 2e-5`` of the reference's ``CountSketch(backend='numpy')``;
   float64 input and the numpy backend equal it exactly.
 - ``use_mxu`` semantics, validation, ``TokenSource`` batches equal to the
@@ -20,13 +20,11 @@ from randomprojection_tpu import serialize as ref_ser
 from randomprojection_tpu import streaming as ref_stream
 from randomprojection_tpu.models import sketch as ref_sk
 from randomprojection_tpu.ops import hashing as ref_h
-from randomprojection_tpu.parallel import sharded as ref_sharded
 from randomprojection_tpu_torch import serialize as ser
 from randomprojection_tpu_torch import streaming
 from randomprojection_tpu_torch.models import sketch as sk
 from randomprojection_tpu_torch.models.sketch import CountSketch
 from randomprojection_tpu_torch.ops import hashing as h
-from randomprojection_tpu_torch.parallel import sharded
 from randomprojection_tpu_torch.utils.validation import NotFittedError
 
 CPU = {"device": "cpu"}
@@ -87,19 +85,24 @@ def test_float64_and_numpy_backend_are_exact():
     np.testing.assert_array_equal(cs.transform(X32), _ref(32, X32).transform(X32))
 
 
+# the port's one CSR route on the batch shapes the reference sends down
+# each of its two: low skew (doc-major) and one row 10x the others (flat)
 @pytest.mark.parametrize("route", ["docmajor", "flat"])
-def test_csr_routes_match_the_reference(route, monkeypatch):
-    if route == "flat":
-        monkeypatch.setattr(CountSketch, "_DOCMAJOR_MAX_INFLATION", 0.0)
+def test_csr_routes_match_the_reference(route):
     Xs = _sparse()
+    if route == "flat":
+        X = Xs.toarray()
+        X[7] = np.random.default_rng(8).normal(size=X.shape[1])
+        Xs = sp.csr_array(X)
     cs = CountSketch(32, random_state=0, backend_options=CPU).fit(Xs)
-    assert cs._csr_route(Xs)[0] == route
+    assert cs._csr_on_device(Xs)
+    assert _ref(32, Xs)._csr_route(Xs)[0] == route
     want = _ref(32, Xs).transform(Xs)
     y = cs.transform(Xs)
     assert y.dtype == np.float32
     np.testing.assert_allclose(y, want, **TOL)
     b = cs.prepare_batch(Xs)
-    assert isinstance(b, sk.DeviceBatch) and b.kind == route
+    assert isinstance(b, sk.DeviceBatch) and len(b.arrays[0]) == Xs.nnz
     assert b.shape == Xs.shape
     np.testing.assert_allclose(cs._transform_async(b).numpy(), want, **TOL)
     empty = sp.csr_array(np.zeros((4, 400), np.float32))
@@ -114,21 +117,32 @@ def test_csr_at_the_hash_space_width():
          rng.integers(0, d, size=n * per).astype(np.int32),
          np.arange(0, n * per + 1, per)), shape=(n, d))
     cs = CountSketch(256, random_state=0, backend_options=CPU).fit_schema(n, d)
-    assert cs._csr_on_device(Xs) and cs._csr_route(Xs)[0] == "docmajor"
+    assert cs._csr_on_device(Xs)
     np.testing.assert_allclose(cs.transform(Xs), _ref(256, Xs).transform(Xs),
                                **TOL)
 
 
 @pytest.mark.parametrize("p", [1, 3, 8])
 def test_flat_layout_equals_the_reference(p):
+    """The port's layout is the reference's over ``p`` token-balanced row
+    ranges, each range's tokens in order with its row offset added back."""
     Xs = _sparse(n=50, seed=9, cut=0.5)
-    got = sk._flat_mesh_layout(Xs, p)
-    want = ref_sk._flat_mesh_layout(Xs, p)
+    got = sk._flat_layout(Xs)
+    rows, idx, vals, rows_blk, _, perm = ref_sk._flat_mesh_layout(Xs, p)
+    rng_of = perm // rows_blk
+    want = ([], [], [])
+    for r in range(p):
+        members = np.flatnonzero(rng_of == r)
+        if members.size == 0:
+            continue
+        r0, r1 = members[0], members[-1] + 1
+        c = int(Xs.indptr[r1] - Xs.indptr[r0])
+        want[0].append(rows[r, :c] + r0)
+        want[1].append(idx[r, :c])
+        want[2].append(vals[r, :c])
+        assert not vals[r, c:].any()  # the reference's padding
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
-    np.testing.assert_array_equal(
-        sharded.token_balanced_bounds(Xs.indptr, p),
-        ref_sharded.token_balanced_bounds(Xs.indptr, p))
+        np.testing.assert_array_equal(g, np.concatenate(w).astype(g.dtype))
 
 
 def test_use_mxu_semantics():

@@ -877,12 +877,18 @@ def test_tier_promotion_then_device_rung_is_bit_exact(cuda):
         assert len(idx._lsh_graphs) > 0  # the device rung captured its tiles
         assert idx._tier.demote(3000)
         assert len(idx._lsh_graphs) == 0  # the demotion dropped them
-        assert not idx._lsh_probe_device(None)  # a cold chunk: the host rung
+        # a cold chunk: the device rung runs eager, K5 on the card and the
+        # cold candidate rows staged
+        pk.reset_launches()
         got = idx.query_topk(A, 7, tile=32)
+        assert pk.LAUNCHES["rp_probe"] > 0 and pk.GRAPH_CAPTURES == 0
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
+        for p in (1, 1 << 8):
+            np.testing.assert_array_equal(
+                idx.query_topk(A, 7, tile=32, probes=p, adaptive=True)[1],
+                resident.query_topk(A, 7, tile=32, probes=p, adaptive=True)[1])
         idx._tier._promote(idx._tier._entries[1])
-        assert idx._lsh_probe_device(None)
         pk.reset_launches()
         got = idx.query_topk(A, 7, tile=32)
         assert pk.GRAPH_CAPTURES >= 1 and pk.GRAPH_REPLAYS == 2
@@ -898,6 +904,8 @@ def test_tier_smoke_on_the_card(cuda):
     assert tier_smoke.main("cuda")["fallbacks"] > 0
 
 
+# "docmajor" and "flat": CSR batches the reference sends down its two
+# routes; the port serves both with its one flat route
 @pytest.mark.parametrize("route", ["docmajor", "flat", "dense", "scatter"])
 def test_countsketch_routes_on_the_card_match_the_cpu(cuda, route):
     import scipy.sparse as sp
@@ -908,20 +916,18 @@ def test_countsketch_routes_on_the_card_match_the_cpu(cuda, route):
     X = rng.normal(size=(300, 5000)).astype(np.float32)
     X[np.abs(X) < 1.5] = 0.0
     if route == "flat":
-        X[7, :] = rng.normal(size=5000)  # one wide row: no doc-major
+        X[7, :] = rng.normal(size=5000)  # one wide row: the reference's flat
     Xin = X if route in ("dense", "scatter") else sp.csr_array(X)
     mxu = False if route == "scatter" else None
     card = CountSketch(64, random_state=3, use_mxu=mxu).fit(Xin)
     cpu = CountSketch(64, random_state=3, use_mxu=mxu,
                       backend_options={"device": "cpu"}).fit(Xin)
     host = CountSketch(64, random_state=3, backend="numpy").fit(Xin)
-    if route in ("docmajor", "flat"):
-        assert card._csr_route(Xin)[0] == route
     y = card.transform(Xin)
     np.testing.assert_allclose(y, cpu.transform(Xin), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(y, host.transform(Xin), rtol=2e-5, atol=2e-5)
     if route in ("docmajor", "flat"):
         b = card.prepare_batch(Xin)
-        assert b.kind == route and b.arrays[0].is_cuda
+        assert b.arrays[0].is_cuda and b.arrays[0].numel() == Xin.nnz
         np.testing.assert_allclose(card._transform_async(b).cpu().numpy(), y,
                                    rtol=2e-5, atol=2e-5)

@@ -226,34 +226,68 @@ def test_upload_failure_degrades_to_sync_fetch(monkeypatch):
         _same(tiered.query_topk(q, M, probes=2), want_lsh)
         fb1 = reg.counter("index.tier.fallbacks")
         assert fb1 > fb0
+        # the device rung's cold side takes the same degraded rung
+        _same(tiered.query_topk(q, M, probes=2, probe_path="device"),
+              resident.query_topk(q, M, probes=2, probe_path="device"))
+        assert reg.counter("index.tier.fallbacks") > fb1
+        fb1 = reg.counter("index.tier.fallbacks")
         _same(tiered.query_topk(q, M, probes=0), want_exact)
         assert reg.counter("index.tier.fallbacks") > fb1
     finally:
         tiered.close()
 
 
+@pytest.mark.parametrize("probe_path", ["host", "device"])
 @pytest.mark.parametrize("probes", [2, 1 << 8])  # partial and full coverage
-def test_lsh_parity_tiered_partial_and_full_probes(probes):
+def test_lsh_parity_tiered_partial_and_full_probes(probes, probe_path):
     codes, q = _codes(), _queries()
-    resident = _ingest(LSHSimHashIndex(codes[:0], **LSH_KW), codes)
+    kw = dict(LSH_KW, probe_path=probe_path)
+    resident = _ingest(LSHSimHashIndex(codes[:0], **kw), codes)
     tiered = _ingest(
-        LSHSimHashIndex(codes[:0], hbm_budget_bytes=BUDGET, **LSH_KW), codes)
+        LSHSimHashIndex(codes[:0], hbm_budget_bytes=BUDGET, **kw), codes)
+    reg = telemetry.registry()
     try:
         want = resident.query_topk(q, M, probes=probes)
+        cold0 = reg.counter("index.tier.cold_rows")
         _same(tiered.query_topk(q, M, probes=probes), want)
+        # the candidates' cold side was gathered and staged, not skipped
+        assert reg.counter("index.tier.cold_rows") > cold0
         if probes == 1 << 8:  # full coverage is the exact answer
             _same(want, ref_sk.topk_bruteforce(q, codes, M))
-        # the device rung (its plain version) is refused with cold chunks
-        assert not tiered._lsh_probe_device("device")
+        # the device rung (its plain version) serves with cold chunks
+        assert tiered._lsh_probe_device(None) == (probe_path == "device")
     finally:
         tiered.close()
 
 
-def test_lsh_tiered_seam_tombstones_equal_masked_brute_force():
+def test_lsh_tiered_device_rung_adaptive_and_disk_tier(tmp_path):
+    codes, q = _codes(), _queries()
+    kw = dict(LSH_KW, probe_path="device")
+    resident = _ingest(LSHSimHashIndex(codes[:0], **kw), codes)
+    tiered = _ingest(
+        LSHSimHashIndex(codes[:0], hbm_budget_bytes=BUDGET, **kw), codes)
+    disk = _ingest(
+        LSHSimHashIndex(codes[:0], hbm_budget_bytes=BUDGET, cold_tier="disk",
+                        cold_dir=str(tmp_path / "cold"), **kw), codes)
+    try:
+        for p in (1, 4, 1 << 8):
+            want = resident.query_topk(q, M, probes=p, adaptive=True)
+            _same(tiered.query_topk(q, M, probes=p, adaptive=True), want)
+            _same(disk.query_topk(q, M, probes=p), resident.query_topk(
+                q, M, probes=p))
+        assert disk._tier.any_cold()
+    finally:
+        tiered.close()
+        disk.close()
+
+
+@pytest.mark.parametrize("probe_path", ["host", "device"])
+def test_lsh_tiered_seam_tombstones_equal_masked_brute_force(probe_path):
     codes, q = _codes(), _queries()
     dead = np.arange(CHUNK - 30, CHUNK + 30)
     tiered = _ingest(
-        LSHSimHashIndex(codes[:0], hbm_budget_bytes=BUDGET, **LSH_KW), codes)
+        LSHSimHashIndex(codes[:0], hbm_budget_bytes=BUDGET,
+                        **dict(LSH_KW, probe_path=probe_path)), codes)
     try:
         tiered.delete(dead)
         d, i = tiered.query_topk(q, M, probes=1 << 8)
