@@ -50,9 +50,26 @@ Phases (any failure exits non-zero and prints no result):
    timed by CUDA events beside its bound; then the same fit on the dense
    route (the threefry matrix, SHA-256 held again) and with
    ``precision='split2'`` (distortion only), and a Gaussian model;
-6. ``transform_stream`` over a host source for 8 batches with a
-   checkpoint, cut after 3 batches and resumed: bit-identical to an
-   uninterrupted run;
+6. the streamed main path: ``transform_stream`` over a host source (one
+   65,536 x 4096 template rolled a row a batch, the reader of the CLI's
+   ``stream-bench``) for 8 batches with a checkpoint, cut after 3 batches
+   and resumed: bit-identical to an uninterrupted run; then phase 4's
+   model over 2^20 host rows in 65,536-row batches serial, through
+   ``PrefetchSource(depth=2, prepare=est.prepare_batch)`` and through
+   ``StagedIngestSource(workers=4, depth=2, prepare=est.prepare_batch)``,
+   in turns (s p t t p s), each with its launches read around it (one
+   ``rp_mask_cache`` and one ``rp_fused_project`` a batch), its rows/s,
+   ``StreamStats`` stage walls, overlap ratio and queue depth, and the
+   host's resident set at peak; the outputs equal bit for bit (SHA-256)
+   and batch 0 within ``1e-5·max|Y|`` of the plain version on the card;
+   one prefetch turn from a pinned source under ``torch.profiler``, in a
+   process of its own: every launch and copy seen, the host-to-device
+   copies on a stream other than the projection's, overlapping its
+   launches; the three streams broken mid-run and failed
+   by a ``FaultInjectionSource`` with telemetry on (every worker joined,
+   every span closed, the fault after the serial prefix); and
+   ``stream_to_memmap`` through the staged pool cut by a fault and
+   resumed, equal to the stream bit for bit;
 7. each kernel's time at the main path's shape beside its bound, its plain
    version's time and one PyTorch call's time; ``rp_fused_project`` in all
    three modes (f32 and split2 against ``torch.matmul`` in float32, bf16
@@ -145,7 +162,14 @@ Phases (any failure exits non-zero and prints no result):
    ``transform_stream`` on the card in 65,536-doc batches, the first batch
    within rtol = atol = 2e-5 of the host float64 transform; ingest tokens/s,
    the device sketch's docs/s (per-batch dispatches, tokens resident) and
-   end-to-end docs/s (the serial pipeline: the staged ingest is ROADMAP A4).
+   end-to-end docs/s of the serial pipeline and of ``StagedIngestSource``
+   (one hash worker a core, each hashing with one thread), every staged
+   batch within rtol = atol = 2e-5 of the serial one;
+13. the CLI as a subprocess: ``python -m randomprojection_tpu_torch
+   stream-bench`` at the streamed main path's shape with 4 ingest workers
+   (its JSON line parsed), and ``project`` of a 524,288 x 512 ``.npy``
+   killed (SIGKILL) once its cursor holds a batch, resumed through its
+   fingerprint sidecar, equal to a one-shot run bit for bit.
 
 The kernels' timings are printed as one JSON line.
 
@@ -254,6 +278,18 @@ TIER_CRASH_ROWS, TIER_CRASH_BATCH = 1 << 16, 1 << 13
 # doc, 65,536-doc batches; the one cut is depth, 100M -> 2^20 docs
 C5_FEATURES, C5_K, C5_VOCAB, C5_TOKENS, C5_DOCS = 1 << 20, 256, 50_000, 100, 1 << 20
 C5_TOL = 2e-5  # the card against the host float64 transform (rtol = atol)
+# the streamed main path (config 2 fed from the host): 2^20 rows in
+# 65,536-row batches of one template rolled a row a batch (the reader of
+# the CLI's stream-bench), serial, prefetched and staged, in turns
+STREAM_ROWS, STREAM_DEPTH, STREAM_WORKERS = 1 << 20, 2, 4
+STREAM_WAYS = ("serial", "prefetch", "staged", "staged", "prefetch", "serial")
+STREAM_POOL = 3  # pinned batches of the profiled turn's source
+PROFILE_BATCHES = 8
+PROFILE_TURN_FLAG = "--profile-stream-turn"  # profile_stream's child
+FAULT_AT, MEMMAP_FAULT_AT = 3, 6  # the global batch a fault fires before
+# the CLI's project leg: a .npy of 524,288 x 512 float32 rows (1 GiB) in
+# 8,192-row batches, killed once its cursor has committed a batch
+CLI_ROWS, CLI_D, CLI_K, CLI_BATCH = 1 << 19, 512, 64, 8192
 
 CARD = ""
 
@@ -817,16 +853,28 @@ def phase_threefry(torch):
     log(f"threefry draws {json.dumps(rows)}")
 
 
-def phase_stream(est, streaming, scratch: Path):
+def stream_template():
+    """The streamed phases' template: one 65,536 x 4096 batch of standard
+    normals from seed 0 (the CLI's stream-bench template), 1 GiB."""
+    t0 = time.perf_counter()
+    t = np.random.default_rng(0).standard_normal((BATCH, N_FEATURES),
+                                                 dtype=np.float32)
+    log(f"stream template {BATCH}x{N_FEATURES} float32 drawn in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return t
+
+
+def template_source(streaming, template, n_rows):
+    from randomprojection_tpu_torch.cli import template_roll_reader
+
+    return streaming.CallableSource(template_roll_reader(template, BATCH),
+                                    n_rows, N_FEATURES, np.float32,
+                                    batch_rows=BATCH)
+
+
+def phase_stream(est, streaming, scratch: Path, template):
     n = STREAM_BATCHES * BATCH
-
-    def read(lo, hi):
-        # uniform draws: the cheapest deterministic host rows
-        rng = np.random.default_rng([7, lo])
-        return rng.random((hi - lo, N_FEATURES), dtype=np.float32)
-
-    src = streaming.CallableSource(read, n, N_FEATURES, np.float32,
-                                   batch_rows=BATCH)
+    src = template_source(streaming, template, n)
     t0 = time.perf_counter()
     full = streaming.stream_to_array(est, src)
     full_s = time.perf_counter() - t0
@@ -846,6 +894,390 @@ def phase_stream(est, streaming, scratch: Path):
     log(f"stream: {STREAM_BATCHES} host batches of {BATCH}x{N_FEATURES}, cut "
         f"after 3, resumed bit-identical; uninterrupted run {full_s:.3f} s "
         f"({n / full_s:.1f} rows/s host source included)")
+
+
+def _rss() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+class RssPeak:
+    """This process's resident set while the block runs: VmRSS sampled
+    every 5 ms (pinned host memory counts)."""
+
+    def __enter__(self):
+        self.base = self.peak = _rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True,
+                                        name="chip-smoke-rss")
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, _rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss())
+
+
+def _ingest_threads():
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(("rp-torch-prefetch", "rp-torch-staged"))]
+
+
+def _ingest(streaming, way, src, est, stats=None):
+    if way == "prefetch":
+        return streaming.PrefetchSource(src, depth=STREAM_DEPTH,
+                                        prepare=est.prepare_batch, stats=stats)
+    if way == "staged":
+        return streaming.StagedIngestSource(
+            src, workers=STREAM_WORKERS, depth=STREAM_DEPTH,
+            prepare=est.prepare_batch, stats=stats)
+    return src
+
+
+def _stream_once(fk, streaming, est, src, way, keep_first=False):
+    """One streamed turn through ``stream_transform``: the SHA-256 of the
+    output, rows/s, the StreamStats summary, the host's resident set and
+    the launches read around the run."""
+    from randomprojection_tpu_torch.utils.observability import StreamStats
+
+    stats = StreamStats()
+    src.stats = stats  # the reader's wall is the 'read' stage
+    h = hashlib.sha256()
+    first = None
+    fk.reset_launches()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        for lo, y in est.transform_stream(_ingest(streaming, way, src, est,
+                                                  stats), stats=stats):
+            check(y.shape == (BATCH, N_COMPONENTS) and y.dtype == np.float32
+                  and bool(np.isfinite(y).all()),
+                  f"{way}: batch at row {lo} is {y.shape} {y.dtype} or not "
+                  f"finite")
+            h.update(y)
+            if keep_first and lo == 0:
+                first = y.copy()
+        wall = time.perf_counter() - t0
+    src.stats = None
+    launched = dict(fk.LAUNCHES)
+    check(not _ingest_threads(), f"{way}: threads left {_ingest_threads()}")
+    n_batches = src.n_rows // BATCH
+    check(launched["rp_fused_project"] == n_batches == launched["rp_mask_cache"],
+          f"{way}: launches {launched} for {n_batches} batches")
+    return {"way": way, "sha": h.hexdigest(), "rows_per_s": src.n_rows / wall,
+            "wall_s": wall, "summary": stats.summary(), "launches": launched,
+            "rss_base_gib": rss.base / 2**30, "rss_peak_gib": rss.peak / 2**30,
+            "first": first}
+
+
+def phase_stream_main(torch, fk, streaming, est, template):
+    """The streamed main path at config 2's width: 2^20 host rows through
+    ``stream_transform`` serial, through ``PrefetchSource(depth=2,
+    prepare=est.prepare_batch)`` and through ``StagedIngestSource(
+    workers=4, depth=2, prepare=est.prepare_batch)`` in turns, each with
+    the launches read around it; the outputs equal bit for bit (SHA-256),
+    the first batch held to the plain version on the card."""
+    src = template_source(streaming, template, STREAM_ROWS)
+    runs = []
+    for i, way in enumerate(STREAM_WAYS):
+        r = _stream_once(fk, streaming, est, src, way, keep_first=i == 0)
+        runs.append(r)
+        sm = r["summary"]
+        log(f"streamed main path, {way}: {STREAM_ROWS} rows of {N_FEATURES} "
+            f"-> {N_COMPONENTS} in {STREAM_ROWS // BATCH} batches of {BATCH}: "
+            f"{r['rows_per_s']:.1f} rows/s ({r['wall_s']:.3f} s); stage walls "
+            f"{json.dumps(sm.get('stage_wall_s'))}, overlap ratio "
+            f"{sm.get('pipeline_overlap_ratio')}, queue depth max "
+            f"{sm.get('queue_depth_max', '-')}; host RSS {r['rss_base_gib']:.2f} "
+            f"-> peak {r['rss_peak_gib']:.2f} GiB; launches "
+            f"{json.dumps(r['launches'])}; sha256 {r['sha'][:16]}")
+    check(len({r["sha"] for r in runs}) == 1,
+          "the streamed outputs differ: " + ", ".join(
+              f"{r['way']} {r['sha'][:16]}" for r in runs))
+    ref = fk.fused_project(torch.from_numpy(template).cuda(), est.spec_.seed,
+                           N_COMPONENTS, est.spec_.density, mxu_mode="split2")
+    want = ref.cpu().numpy()
+    err = float(np.abs(runs[0]["first"] - want).max())
+    scale = float(np.abs(want).max())
+    check(err <= TOL * scale, f"streamed batch 0 off the plain version: {err}")
+    log(f"streamed main path: serial, prefetch and staged equal bit for bit "
+        f"(sha256 {runs[0]['sha']}); batch 0 vs the plain version on the "
+        f"card max|d|={err:.3e} max|Y|={scale:.3e} (tol {TOL})")
+    launches = {r["way"]: r["launches"] for r in runs[:3]}
+    return runs[0]["sha"], runs[0]["first"], launches
+
+
+def profile_stream(first):
+    """One prefetch turn under ``torch.profiler``, in a process of its own
+    (``chip_smoke.py --profile-stream-turn``, ``profile_stream_turn``):
+    in this process, after the earlier phases and their profiler windows,
+    the profiler lost some device records of the turn (7 of 8 launches and
+    4 of 8 copies in one run, 6 of 8 copies in another), where a fresh
+    process saw every one in 6 turns of 6
+    (``torch_experiments/stream_profile_events.py``).  The turn's batch 0
+    must equal the stream's."""
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        PROFILE_TURN_FLAG], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"the profiled turn failed (rc {r.returncode}):"
+          f"\n{r.stdout[-4000:]}\n{r.stderr[-4000:]}")
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)  # the child's log, the card beside it
+    res = json.loads(lines[-1])
+    check(res["first_sha"] == hashlib.sha256(first).hexdigest(),
+          "the pinned source's batch 0 differs from the stream's")
+    return res
+
+
+def profile_stream_turn() -> int:
+    """The child of ``profile_stream``: the phase-4 model over
+    ``PROFILE_BATCHES`` batches from a source that hands out pinned batches
+    (a pool of rolls of the template, so the worker issues its copies
+    ahead of the consumer) through ``PrefetchSource(depth=2,
+    prepare=est.prepare_batch)`` under the profiler.  Every launch and
+    every copy must be seen, the copies on a stream other than the
+    projection's, overlapping its launches.  Prints its log line, then
+    one JSON line."""
+    global CARD
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT))
+    import randomprojection_tpu_torch as rpt
+    from randomprojection_tpu_torch import streaming
+    from randomprojection_tpu_torch.ops import fused_kernels as fk
+
+    CARD = card_line()
+    template = stream_template()
+    est = rpt.SparseRandomProjection(
+        N_COMPONENTS, density=DENSITY, random_state=0,
+        backend_options={"materialization": "lazy"},
+    ).fit(template)
+    est.transform(np.negative(template[:BATCH]))  # load the kernels
+    pool = [torch.from_numpy(np.roll(template, -i, axis=0)).pin_memory()
+            for i in range(STREAM_POOL)]
+
+    def read(lo, hi):
+        return pool[(lo // BATCH) % STREAM_POOL][: hi - lo]
+
+    n_rows = PROFILE_BATCHES * BATCH
+    src = streaming.CallableSource(read, n_rows, N_FEATURES, np.float32,
+                                   batch_rows=BATCH)
+    first_sha = None
+    fk.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for lo, y in est.transform_stream(_ingest(streaming, "prefetch", src,
+                                                  est)):
+            if lo == 0:
+                first_sha = hashlib.sha256(y).hexdigest()
+        wall = time.perf_counter() - t0
+    check(fk.LAUNCHES["rp_fused_project"] == PROFILE_BATCHES,
+          f"profiled turn launched {fk.LAUNCHES}")
+    check(not _ingest_threads(), "profiled turn left threads")
+    del pool
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    # the batches' copies (65,536 x 4096 float32 each, milliseconds),
+    # not a scalar's
+    h2d = [(e.start_ns(), e.end_ns(), e.device_resource_id()) for e in dev
+           if "HtoD" in e.name() and e.duration_ns() > 1_000_000]
+    k1 = [(e.start_ns(), e.end_ns(), e.device_resource_id()) for e in dev
+          if "fused_project_kernel" in e.name()]
+    check(len(k1) == PROFILE_BATCHES == len(h2d),
+          f"the profiler saw {len(k1)} projection kernels and {len(h2d)} "
+          f"host-to-device copies of {PROFILE_BATCHES}")
+    copy_streams = {c[2] for c in h2d}
+    k1_streams = {k[2] for k in k1}
+    check(not copy_streams & k1_streams,
+          f"copies on streams {copy_streams}, the projection on {k1_streams}")
+    overlapped = [k for k in k1 if any(c[0] < k[1] and k[0] < c[1]
+                                       for c in h2d)]
+    overlap_ns = sum(max(0, min(c[1], k[1]) - max(c[0], k[0]))
+                     for k in k1 for c in h2d)
+    k1_ns = sum(k[1] - k[0] for k in k1)
+    h2d_ns = sum(c[1] - c[0] for c in h2d)
+    check(overlapped, "no projection launch overlapped a host-to-device copy")
+    log(f"stream profile (a process of its own): a prefetch turn of "
+        f"{PROFILE_BATCHES} pinned batches, {wall:.3f} s under the profiler; "
+        f"{len(h2d)} host-to-device copies on stream(s) "
+        f"{sorted(copy_streams)} ({h2d_ns / 1e6:.3f} ms, "
+        f"{BATCH * N_FEATURES * 4 * len(h2d) / h2d_ns:.3f} "
+        f"GB/s), {len(k1)} rp_fused_project launches on stream(s) "
+        f"{sorted(k1_streams)} ({k1_ns / 1e6:.3f} ms); {len(overlapped)} of "
+        f"them overlapped a copy, {overlap_ns / 1e6:.3f} ms of kernel time "
+        f"under copies")
+    print(json.dumps({"first_sha": first_sha,
+                      "copy_streams": sorted(copy_streams),
+                      "k1_streams": sorted(k1_streams),
+                      "overlapped_launches": len(overlapped)}), flush=True)
+    return 0
+
+
+def phase_stream_faults(fk, streaming, est, template, scratch: Path,
+                        want_sha: str):
+    """Break and fault the three streams with telemetry on: every worker
+    joined, every span closed, a fault reaching the consumer after the
+    serial prefix; then ``stream_to_memmap`` through the staged pool cut by
+    a fault and resumed, equal to the uninterrupted stream bit for bit."""
+    from randomprojection_tpu_torch.utils import telemetry
+
+    src = template_source(streaming, template, STREAM_ROWS)
+    log_path = scratch / "stream_events.jsonl"
+    telemetry.configure(str(log_path))
+    prefix = None
+    try:
+        for way in ("serial", "prefetch", "staged"):
+            for i, _ in enumerate(est.transform_stream(
+                    _ingest(streaming, way, src, est))):
+                if i == 2:
+                    break
+            check(not _ingest_threads(), f"{way} break left threads")
+            faulty = streaming.FaultInjectionSource(src, FAULT_AT)
+            got = []
+            try:
+                for lo, _ in est.transform_stream(
+                        _ingest(streaming, way, faulty, est)):
+                    got.append(lo)
+            except streaming.FaultInjectionSource.InjectedFault:
+                pass
+            else:
+                check(False, f"{way}: the injected fault did not arrive")
+            check(not _ingest_threads(), f"{way} fault left threads")
+            prefix = got if prefix is None else prefix
+            check(got == prefix and got,
+                  f"{way}: batches {got} before the fault, serial {prefix}")
+    finally:
+        telemetry.shutdown()
+    starts, ends, roots, abandoned = set(), set(), 0, 0
+    with open(log_path) as f:
+        for line in f:
+            e = telemetry.parse_event(line)
+            if e["event"] == "span_start":
+                starts.add(e["span_id"])
+                roots += e["parent_id"] is None
+            elif e["event"] == "span_end":
+                ends.add(e["span_id"])
+                abandoned += bool(e.get("abandoned"))
+    check(starts == ends, f"{len(starts - ends)} span(s) never ended, "
+          f"{len(ends - starts)} ended unopened")
+    log(f"stream break and fault: serial, prefetch and staged each broken "
+        f"after 3 batches and failed before batch {FAULT_AT} (rows {prefix} "
+        f"reached the consumer first, in every way); every worker joined; "
+        f"{len(starts)} spans opened and closed, {roots} batch traces, "
+        f"{abandoned} closed as abandoned")
+
+    out, ckpt = scratch / "stream.npy", scratch / "stream.cursor"
+    ckpt.unlink(missing_ok=True)
+    faulty = streaming.FaultInjectionSource(src, MEMMAP_FAULT_AT)
+    pool = _ingest(streaming, "staged", faulty, est)
+    t0 = time.perf_counter()
+    try:
+        streaming.stream_to_memmap(est, pool, str(out),
+                                   checkpoint_path=str(ckpt))
+    except streaming.FaultInjectionSource.InjectedFault:
+        pass
+    else:
+        check(False, "stream_to_memmap: the injected fault did not arrive")
+    cut = streaming.StreamCursor.load(str(ckpt)).rows_done
+    check(0 < cut < STREAM_ROWS, f"memmap cursor after the cut: {cut}")
+    faulty.disarm()
+    mm = streaming.stream_to_memmap(est, pool, str(out),
+                                    checkpoint_path=str(ckpt))
+    wall = time.perf_counter() - t0
+    sha = hashlib.sha256(np.ascontiguousarray(mm)).hexdigest()
+    del mm
+    check(sha == want_sha, "stream_to_memmap resumed differs from the stream")
+    out.unlink()
+    log(f"stream_to_memmap through the staged pool: cut at row {cut}, "
+        f"resumed, {STREAM_ROWS} rows equal to the uninterrupted stream bit "
+        f"for bit ({wall:.3f} s with the cut)")
+
+
+def phase_cli(scratch: Path):
+    """The CLI as a subprocess: ``stream-bench`` at the streamed main
+    path's shape, and ``project`` of a ``.npy`` killed mid-run (SIGKILL
+    once its cursor holds a batch) and resumed through its sidecar, equal
+    to a one-shot run bit for bit."""
+    import signal
+
+    cmd = [sys.executable, "-m", "randomprojection_tpu_torch"]
+    bench = [*cmd, "stream-bench", "--rows", str(STREAM_ROWS), "--batch-rows",
+             str(BATCH), "--d", str(N_FEATURES), "--k", str(N_COMPONENTS),
+             "--kind", "sparse", "--density", "0.3333333",
+             "--materialization", "lazy", "--precision", "split2",
+             "--ingest-workers", str(STREAM_WORKERS)]
+    r = subprocess.run(bench, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f"stream-bench exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    check(out["rows"] == STREAM_ROWS and out["value"] > 0
+          and out["ingest_workers"] == STREAM_WORKERS,
+          f"stream-bench printed {out}")
+    log(f"cli stream-bench (subprocess, {out['device']}): {out['value']} "
+        f"rows/s, stage walls {json.dumps(out.get('stage_wall_s'))}, overlap "
+        f"{out.get('pipeline_overlap_ratio')}, queue depth max "
+        f"{out.get('queue_depth_max')}")
+
+    x = scratch / "cli_x.npy"
+    np.save(x, np.random.default_rng(3).normal(
+        size=(CLI_ROWS, CLI_D)).astype(np.float32))
+    common = ["--input", str(x), "--kind", "sparse", "--n-components",
+              str(CLI_K), "--density", "0.3333333", "--materialization",
+              "lazy", "--precision", "split2", "--batch-rows", str(CLI_BATCH),
+              "--ingest-workers", "2"]
+    one = scratch / "cli_one.npy"
+    r = subprocess.run([*cmd, "project", "--output", str(one), *common],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"project exited {r.returncode}: {r.stderr[-2000:]}")
+    cut_out, ckpt = scratch / "cli_cut.npy", scratch / "cli_cut.cursor"
+    ckpt.unlink(missing_ok=True)
+    argv = [*cmd, "project", "--output", str(cut_out), "--checkpoint",
+            str(ckpt), *common]
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    done = 0
+    try:
+        deadline = time.perf_counter() + 300
+        while proc.poll() is None and time.perf_counter() < deadline:
+            try:
+                done = json.loads(ckpt.read_text())["rows_done"]
+            except (FileNotFoundError, ValueError):
+                done = 0
+            if done > 0:
+                proc.send_signal(signal.SIGSTOP)
+                break
+            time.sleep(0.002)
+    finally:
+        proc.kill()
+        proc.wait()
+    done = json.loads(ckpt.read_text())["rows_done"]
+    check(0 < done < CLI_ROWS, f"project was not cut mid-run (cursor {done}, "
+          f"rc {proc.returncode})")
+    r = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f"resumed project exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    resumed = json.loads(r.stdout.strip().splitlines()[-1])
+    check(resumed["rows"] == CLI_ROWS - done, f"resume streamed {resumed}")
+    check(np.array_equal(np.load(cut_out), np.load(one)),
+          "project killed and resumed differs from the one-shot run")
+    for f in (x, one, cut_out):
+        f.unlink()
+    log(f"cli project: {CLI_ROWS}x{CLI_D} -> {CLI_K} killed (SIGKILL) with "
+        f"{done} rows committed, resumed through the sidecar "
+        f"({resumed['rows']} rows), equal to the one-shot run bit for bit")
 
 
 def _chain_designs(torch, fk, X, seed, density):
@@ -2257,12 +2689,36 @@ def phase_config5(torch):
                         reps=3)
     del prepared
     t0 = time.perf_counter()
-    rows = 0
+    serial = []
     for _, yb in cs.transform_stream(src):
         check(np.isfinite(yb).all(), "a streamed batch is not finite")
-        rows += yb.shape[0]
+        serial.append(yb)
     e2e_s = time.perf_counter() - t0
+    rows = sum(y.shape[0] for y in serial)
     check(rows == C5_DOCS, f"the stream gave {rows} rows")
+    # the staged ingest: a pool of one hash worker a core (each hashing
+    # with one thread), the uploads from the uploader thread
+    from randomprojection_tpu_torch.streaming import StagedIngestSource
+    from randomprojection_tpu_torch.utils.observability import StreamStats
+
+    workers = os.cpu_count() or 1
+    stats = StreamStats()
+    staged_src = StagedIngestSource(
+        TokenSource(read_tokens, C5_DOCS, fh, batch_rows=BATCH,
+                    hash_threads=1, stats=stats),
+        workers=workers, prepare=cs.prepare_batch, stats=stats)
+    t0 = time.perf_counter()
+    staged_err = 0.0
+    for lo, yb in cs.transform_stream(staged_src, stats=stats):
+        want_b = serial[lo // BATCH]
+        check(np.allclose(yb, want_b, rtol=C5_TOL, atol=C5_TOL),
+              f"staged batch at doc {lo} off the serial one")
+        staged_err = max(staged_err, float(np.abs(yb - want_b).max()))
+    staged_s = time.perf_counter() - t0
+    check(stats.rows == C5_DOCS, f"the staged stream gave {stats.rows} rows")
+    check(not _ingest_threads(), "the staged config-5 stream left threads")
+    del serial
+    sm = stats.summary()
     log(f"config5: {C5_DOCS} docs x {C5_TOKENS} tokens from {C5_VOCAB} words "
         f"(drawn in {gen_s:.3f} s) -> FeatureHasher(2^20) -> CountSketch({C5_K}) "
         f"on the card, {BATCH}-doc batches on the flat route; first batch "
@@ -2273,7 +2729,13 @@ def phase_config5(torch):
         f"sketch {C5_DOCS / (sketch_ms / 1e3):.1f} docs/s ({C5_DOCS // BATCH} "
         f"per-batch dispatches, tokens resident, {sketch_ms:.3f} ms); end to end "
         f"{C5_DOCS / e2e_s:.1f} docs/s (serial TokenSource -> transform_stream, "
-        f"{e2e_s:.3f} s)")
+        f"{e2e_s:.3f} s); staged {C5_DOCS / staged_s:.1f} docs/s "
+        f"(StagedIngestSource, {workers} hash workers of one thread, "
+        f"{staged_s:.3f} s; every batch within rtol=atol={C5_TOL} of the "
+        f"serial one, max|d| {staged_err:.3e}; stage walls "
+        f"{json.dumps(sm.get('stage_wall_s'))}, overlap ratio "
+        f"{sm.get('pipeline_overlap_ratio')}, queue depth max "
+        f"{sm.get('queue_depth_max')})")
 
 
 def _bound(bytes_s: float, ops_s: float) -> dict:
@@ -2310,6 +2772,8 @@ def main() -> int:
         print(f"chip_smoke: imported the port from {rpt.__file__}, not from "
               f"{ROOT}", file=sys.stderr)
         return 2
+    if sys.argv[1:] == [PROFILE_TURN_FLAG]:
+        return profile_stream_turn()
     scratch = ROOT / "build" / "chip_smoke"
     try:
         CARD = card_line()
@@ -2327,8 +2791,18 @@ def main() -> int:
         phase_threefry(torch)
         phase_other_routes(torch, rpt, X)
         scratch.mkdir(parents=True, exist_ok=True)
-        phase_stream(est, streaming, scratch)
+        template = stream_template()
+        phase_stream(est, streaming, scratch, template)
+        stream_sha, first, stream_launches = phase_stream_main(
+            torch, fk, streaming, est, template)
+        profile_stream(first)
+        phase_stream_faults(fk, streaming, est, template, scratch, stream_sha)
+        del template, first
         kernels = phase_timing(torch, fk, est, X, counts, errs, old)
+        # the streamed main path's launches, apart from the resident one's
+        for row in kernels[:2]:
+            row["stream_launches"] = {
+                way: c[row["name"]] for way, c in stream_launches.items()}
         del X, est
         torch.cuda.empty_cache()
         codes, queries, topk_launches = phase_serving(torch, rpt, tk, errs)
@@ -2357,6 +2831,7 @@ def main() -> int:
         del lsh_codes, codes, index
         torch.cuda.empty_cache()
         phase_config5(torch)
+        phase_cli(scratch)
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

@@ -684,6 +684,7 @@ class LSHSimHashIndex(SimHashIndex):
                 EVENTS.INDEX_LSH_FALLBACK, reason=reason, queries=nq,
                 probes=int(masks.size), candidates=n_cand,
                 n_live=int(self.n_live), threshold=self.fallback_density,
+                **telemetry.trace_fields(),
             )
             return "exact", self._topk_dispatch_tile(a, m_eff)
         frac = n_cand / max(self.n_live, 1)
@@ -698,6 +699,7 @@ class LSHSimHashIndex(SimHashIndex):
                 probes=int(masks.size), bands=self.band_plan.bands,
                 candidates=n_cand, gathered=int(gathered),
                 candidate_fraction=round(frac, 6),
+                **telemetry.trace_fields(),
             )
         t1 = time.perf_counter()
         payload = self._lsh_rerank_dispatch(a, cand, m_eff)
@@ -884,6 +886,7 @@ class LSHSimHashIndex(SimHashIndex):
                 bands=self.band_plan.bands, band_bits=self.band_plan.band_bits,
                 bytes=int(indptr.nbytes + ids.nbytes),
                 wall_s=round(time.perf_counter() - t0, 6),
+                **telemetry.trace_fields(),
             )
         return indptr_dev, ids_dev
 
@@ -1115,6 +1118,7 @@ class LSHSimHashIndex(SimHashIndex):
                 EVENTS.INDEX_LSH_FALLBACK, reason="device_budget", queries=nq,
                 probes=int(p), n_live=int(self.n_live),
                 threshold=self.fallback_density,
+                **telemetry.trace_fields(),
             )
             return "exact", self._topk_dispatch_tile(a, m_eff)
         masks_dev = self._lsh_device_masks(masks)
@@ -1154,6 +1158,7 @@ class LSHSimHashIndex(SimHashIndex):
                 EVENTS.INDEX_LSH_FALLBACK, reason=reason, queries=nq,
                 probes=int(p), candidates=n_cand, n_live=int(self.n_live),
                 threshold=self.fallback_density,
+                **telemetry.trace_fields(),
             )
             return SimHashIndex.query_topk(self, a, m_eff, tile=tile)
         frac = n_cand / max(self.n_live, 1)
@@ -1168,6 +1173,7 @@ class LSHSimHashIndex(SimHashIndex):
                 EVENTS.INDEX_LSH_DEVICE_DISPATCH, queries=nq, m=int(m_eff),
                 probes=int(p), bands=self.band_plan.bands, candidates=n_cand,
                 gathered=int(stat[0]), candidate_fraction=round(frac, 6),
+                **telemetry.trace_fields(),
             )
         return d.result(None), gid.result(None)
 
@@ -1231,6 +1237,7 @@ class LSHSimHashIndex(SimHashIndex):
                 EVENTS.INDEX_LSH_FALLBACK, reason="device_budget",
                 queries=nq, probes=int(p), n_live=int(self.n_live),
                 adaptive=True,
+                **telemetry.trace_fields(),
             )
             return None
         sent_d = np.int32(self.n_bits + 1)
@@ -1274,6 +1281,7 @@ class LSHSimHashIndex(SimHashIndex):
                     EVENTS.INDEX_LSH_FALLBACK, reason="device_budget",
                     queries=nq, probes=int(hi - lo), n_live=int(self.n_live),
                     adaptive=True,
+                    **telemetry.trace_fields(),
                 )
                 return None
             # merge ACTIVE rows only: retired rows stay frozen, which is
@@ -1302,6 +1310,7 @@ class LSHSimHashIndex(SimHashIndex):
                 EVENTS.INDEX_LSH_FALLBACK, reason="starved",
                 queries=int(starved.sum()), probes=int(p),
                 n_live=int(self.n_live), adaptive=True,
+                **telemetry.trace_fields(),
             )
             sd, si = SimHashIndex.query_topk(
                 self, np.ascontiguousarray(_host_rows(a)[starved]), m_eff,
@@ -1325,6 +1334,7 @@ class LSHSimHashIndex(SimHashIndex):
                 probes_used_max=int(used.max()), early_exits=early_exits,
                 budget_stops=budget_stops, starved=int(starved.sum()),
                 candidates=live_cands, candidate_fraction=round(frac, 6),
+                **telemetry.trace_fields(),
             )
         return "done", (best_d, best_g)
 

@@ -26,9 +26,19 @@ lazy models off the TPU.
 Devices.  ``device=None`` (the default) means the card: with no card the
 backend raises rather than run on the CPU.  The CPU runs only when asked
 (``backend_options={'device': 'cpu'}``), and the fused wrappers then take
-their plain versions.  Host batches go through a pinned staging buffer
-with a ``non_blocking`` copy; tensors already on the card stay there, and
-so does their output.
+their plain versions.  Host batches go up through ``ops.staging``: a
+pinned staging block and a ``non_blocking`` copy on the card's copy
+stream, never behind the kernels on the current stream; tensors already
+on the card stay there, and so does their output.
+
+Uploads from a producer thread.  ``prepare_batch`` (the ingest sources'
+``prepare`` step, called from a worker thread) starts that copy and
+returns the ``StagedBatch`` (the device tensor and the event recorded
+after its copy) without waiting.  The transform makes the consumer's
+stream wait for that event before its kernel and records the tensor's use
+on that stream, so the caching allocator does not hand the block to the
+next upload while the kernel still reads it.  A direct ``transform``
+waits at once (``_upload``).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from randomprojection_tpu_torch.backends.base import (
     ProjectionBackend,
     ProjectionSpec,
 )
+from randomprojection_tpu_torch.ops.staging import StagedBatch, stage_upload
 from randomprojection_tpu_torch.utils import telemetry
 from randomprojection_tpu_torch.utils.validation import bfloat16_dtype
 
@@ -323,47 +334,61 @@ class TorchBackend(ProjectionBackend):
         return torch.from_numpy(np.ascontiguousarray(X, dtype=np.float32))
 
     def _upload(self, t):
-        """Host tensor → device: through a pinned staging buffer and a
-        ``non_blocking`` copy on the card (the staging block is held by
-        torch's pinned allocator until the copy has run); as is on the CPU."""
-        import torch
-
-        from randomprojection_tpu_torch.parallel.sharded import row_bucket
-
+        """Host tensor → device, ready on the current stream: staged on the
+        card's copy stream (``ops.staging``), which the current stream then
+        waits for; as is on the CPU."""
         if self.device.type == "cpu":
             return t
-        n = t.shape[0]
-        staging = torch.empty(
-            (row_bucket(n) if n else 0,) + tuple(t.shape[1:]), dtype=t.dtype,
-            pin_memory=True,
-        )[:n]
-        staging.copy_(t)
-        return staging.to(self.device, non_blocking=True)
+        return stage_upload(t, self.device).wait()
 
     def _prepare_rows(self, X, *, allow_bf16: bool = False):
         """Batch preamble: densify, apply the dtype policy, place on the
-        device.  Returns ``(x_on_device, device_resident)``."""
+        device.  Returns ``(x_on_device, device_resident)``; a
+        ``StagedBatch`` counts as device-resident once the current stream
+        has waited for its copy."""
         import torch
 
-        device_resident = isinstance(X, torch.Tensor)
-        if device_resident:
-            keep_bf16 = allow_bf16 and X.dtype == torch.bfloat16
-            x = X.to(self.device)
-        else:
-            x = self._upload(self._host_tensor(X, allow_bf16=allow_bf16))
-            keep_bf16 = x.dtype == torch.bfloat16
-        if x.dim() != 2:
-            raise ValueError(f"Expected a 2D batch, got shape {tuple(x.shape)}")
-        if not keep_bf16:
-            x = x.to(self._dtype)
+        from randomprojection_tpu_torch.utils.observability import annotate
+
+        with annotate("rp:backend/prepare"):
+            if isinstance(X, StagedBatch):
+                X = X.wait()
+            device_resident = isinstance(X, torch.Tensor)
+            if device_resident:
+                keep_bf16 = allow_bf16 and X.dtype == torch.bfloat16
+                x = X.to(self.device)
+            else:
+                x = self._upload(self._host_tensor(X, allow_bf16=allow_bf16))
+                keep_bf16 = x.dtype == torch.bfloat16
+            if x.dim() != 2:
+                raise ValueError(
+                    f"Expected a 2D batch, got shape {tuple(x.shape)}")
+            if not keep_bf16:
+                x = x.to(self._dtype)
         return x, device_resident
 
     def prepare_batch(self, X, spec: ProjectionSpec):
-        """Start a batch's host→device copy ahead of its transform: returns
-        the device tensor, which ``transform`` then treats as
-        device-resident (no further host work)."""
-        x, _ = self._prepare_rows(X, allow_bf16=spec.dtype == "bfloat16")
-        return x
+        """Start a batch's host→device copy ahead of its transform, from
+        any thread.  On a card: host rows (an array, a CSR, a CPU tensor)
+        go up on the card's copy stream and come back as a
+        ``StagedBatch``, which ``transform_async`` takes; a tensor already
+        on the card is returned as it is.  On the CPU the rows are placed
+        as ``transform`` would place them."""
+        import torch
+
+        from randomprojection_tpu_torch.utils.observability import annotate
+
+        allow_bf16 = spec.dtype == "bfloat16"
+        if self.device.type == "cpu":
+            return self._prepare_rows(X, allow_bf16=allow_bf16)[0]
+        with annotate("rp:stream/h2d_prefetch"):
+            if isinstance(X, torch.Tensor):
+                if X.is_cuda:
+                    return X  # on a card already: the transform places it
+                t = X
+            else:
+                t = self._host_tensor(X, allow_bf16=allow_bf16)
+            return stage_upload(t, self.device)
 
     def _project(self, x, state, spec: ProjectionSpec):
         import torch
@@ -395,6 +420,7 @@ class TorchBackend(ProjectionBackend):
                         n_components=spec.n_components,
                         # the JAX backend's field: the card donates no buffer
                         donated=False,
+                        **telemetry.trace_fields(),
                     )
             else:
                 y = fk.fused_sparse_project(
@@ -411,18 +437,27 @@ class TorchBackend(ProjectionBackend):
         )
         telemetry.registry().counter_inc("backend.dispatches")
         if telemetry.enabled():
+            # inside a streamed transform the dispatch stage span is
+            # active on this thread, so the record joins its batch trace
             telemetry.emit(
                 telemetry.EVENTS.BACKEND_DISPATCH, kind=spec.kind,
                 rows=int(x.shape[0]), n_features=spec.n_features,
                 n_components=spec.n_components,
                 device_resident=bool(device_resident),
+                **telemetry.trace_fields(),
             )
-        return self._project(x, state, spec), device_resident
+        from randomprojection_tpu_torch.utils.observability import annotate
+
+        with annotate("rp:backend/project"):
+            return self._project(x, state, spec), device_resident
 
     def transform(self, X, state, spec: ProjectionSpec, *, dense_output: bool = True):
-        """A tensor in gives a tensor out, on the input's device; a host
-        array gives a host array in the spec's dtype."""
+        """A tensor in gives a tensor out, on the input's device (a
+        ``StagedBatch`` one on the card); a host array gives a host array
+        in the spec's dtype."""
         y, device_resident = self._transform_impl(X, state, spec)
+        if isinstance(X, StagedBatch):
+            return y
         if device_resident:
             return y.to(X.device)
         return _to_numpy(y, spec.np_dtype)
@@ -456,6 +491,8 @@ class TorchBackend(ProjectionBackend):
             )
             y = matmul_nt(x, state, self._einsum_precision())
         codes = pack_signs(y)
+        if isinstance(X, StagedBatch):
+            return codes
         if device_resident:
             return codes.to(X.device)
         if not materialize:

@@ -540,6 +540,7 @@ class SimHashIndex:
                 telemetry.emit(
                     EVENTS.SIMHASH_QUERY_TILE, queries=int(hi - lo),
                     chunks=len(self._chunks), n_codes=self.n_codes,
+                    **telemetry.trace_fields(),
                 )
             if len(pending) >= 2:
                 finish(pending.pop(0))
@@ -633,6 +634,7 @@ class SimHashIndex:
             telemetry.emit(
                 EVENTS.SIMHASH_TOPK_TILE, queries=int(a_np.shape[0]),
                 m=int(m_eff), chunks=len(self._chunks), n_codes=self.n_codes,
+                **telemetry.trace_fields(),
             )
         return handles
 
@@ -684,6 +686,7 @@ class SimHashIndex:
             telemetry.emit(
                 EVENTS.TOPK_KERNEL_DISPATCH, queries=int(a.shape[0]),
                 m=int(m_c), rows=int(chunk.n), masked=dead is not None,
+                **telemetry.trace_fields(),
             )
         return d, i
 
@@ -1037,8 +1040,10 @@ class TopKServer:
 class DeviceBatch:
     """A streaming CSR batch already laid out for the flat route and on its
     way to the device (``CountSketch.prepare_batch``): ``arrays`` are the
-    tokens' ``(row, idx, val)`` device operands, ``shape``/``nbytes``
-    mirror the source batch so the stream's bookkeeping is unchanged."""
+    tokens' ``(row, idx, val)`` device operands (on a card, each a
+    ``StagedBatch`` still in flight on the copy stream), ``shape``/
+    ``nbytes`` mirror the source batch so the stream's bookkeeping is
+    unchanged."""
 
     __slots__ = ("arrays", "n", "shape", "nbytes")
 
@@ -1216,13 +1221,16 @@ class CountSketch(ParamsMixin):
     _MXU_MASK_BYTES_CAP = 64 << 20
 
     def _upload(self, a):
-        """A host array on the device (pinned, ``non_blocking`` on a card)."""
+        """A host array on the device, ready on the current stream (staged
+        on the card's copy stream, ``ops.staging``)."""
         import torch
+
+        from randomprojection_tpu_torch.ops.staging import stage_upload
 
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self._device.type == "cpu":
             return t
-        return t.pin_memory().to(self._device, non_blocking=True)
+        return stage_upload(t, self._device).wait()
 
     def _device_tables(self):
         """``h_`` and ``s_`` (as float32) on the device, uploaded once a fit."""
@@ -1338,9 +1346,12 @@ class CountSketch(ParamsMixin):
         return stream_transform(self, source, **kwargs)
 
     def prepare_batch(self, X):
-        """Lay a CSR batch out for its device route and start its upload
-        (pinned, ``non_blocking``), so the dispatch only launches.  Batches
-        the device CSR routes do not serve are returned unchanged."""
+        """Lay a CSR batch out for its device route and start its upload,
+        so the dispatch only launches.  Safe from a worker thread: on a
+        card each operand goes up on the card's copy stream with an event
+        behind it (``ops.staging.stage_upload``), and the
+        dispatch makes its stream wait for them.  Batches the device CSR
+        routes do not serve are returned unchanged."""
         self._check_is_fitted()
         if not sp.issparse(X) or self.use_mxu:
             return X
@@ -1349,8 +1360,21 @@ class CountSketch(ParamsMixin):
         if not self._csr_on_device(X):
             return X
         nbytes = int(X.data.nbytes + X.indices.nbytes + X.indptr.nbytes)
-        return DeviceBatch(tuple(map(self._upload, _flat_layout(X))),
-                           X.shape[0], X.shape, nbytes)
+        layout = _flat_layout(X)
+        if self._device.type == "cpu":
+            arrays = tuple(map(self._upload, layout))
+        else:
+            import torch
+
+            from randomprojection_tpu_torch.ops.staging import stage_upload
+            from randomprojection_tpu_torch.utils.observability import (
+                annotate,
+            )
+
+            with annotate("rp:stream/h2d_prefetch"):
+                arrays = tuple(stage_upload(torch.from_numpy(a), self._device)
+                               for a in layout)
+        return DeviceBatch(arrays, X.shape[0], X.shape, nbytes)
 
     def _transform_async(self, X):
         """The stream's transform: a device tensor still being computed on
@@ -1359,7 +1383,9 @@ class CountSketch(ParamsMixin):
         ``DeviceBatch``es from ``prepare_batch``."""
         self._check_is_fitted()
         if isinstance(X, DeviceBatch):
-            return self._flat_dispatch(*X.arrays, X.n)
+            arrays = tuple(a if self._device.type == "cpu" else a.wait()
+                           for a in X.arrays)
+            return self._flat_dispatch(*arrays, X.n)
         if sp.issparse(X):
             X = X.tocsr()
             self._check_width(X)

@@ -635,6 +635,7 @@ def _emit_kernel_dispatch(shape, n_components: int, mxu_mode: str, path: str,
         telemetry.EVENTS.KERNEL_DMA_DISPATCH,
         rows=int(shape[0]), d=int(shape[1]), n_components=int(n_components),
         mxu_mode=mxu_mode, path=path, steps=int(steps),
+        **telemetry.trace_fields(),
     )
 
 

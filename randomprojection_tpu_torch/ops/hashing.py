@@ -67,7 +67,8 @@ def _emit_hash_batch(path: str, n_tokens: int,
             except ValueError:
                 threads = 0
         telemetry.emit(telemetry.EVENTS.HASH_BATCH, path=path,
-                       tokens=int(n_tokens), threads=threads, native=True)
+                       tokens=int(n_tokens), threads=threads, native=True,
+                       **telemetry.trace_fields())
 
 
 @contextlib.contextmanager

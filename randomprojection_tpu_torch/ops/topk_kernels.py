@@ -420,19 +420,6 @@ def fused_topk(q, codes, n_real: int, m: int, *, dead=None):
 
 # -- tier-boundary staging ------------------------------------------------------------
 
-_SIDE_STREAMS: dict = {}
-
-
-def _side_stream(device):
-    """The upload stream of ``device``'s staged cold rows: one per card and
-    process, so staged copies queue behind each other, not behind kernels."""
-    import torch
-
-    s = _SIDE_STREAMS.get(device)
-    if s is None:
-        s = _SIDE_STREAMS.setdefault(device, torch.cuda.Stream(device=device))
-    return s
-
 
 def stage_rows(rows, *, device, pad_to: Optional[int] = None):
     """Start the upload of host code rows to ``device`` and return ``(tensor,
@@ -444,9 +431,9 @@ def stage_rows(rows, *, device, pad_to: Optional[int] = None):
     covers) or a CPU tensor.  On a card the rows go through a pinned bounce
     buffer (a pinned tensor without padding goes up as it is), zero-padded
     there to ``pad_to`` rows, and the copy is queued ``non_blocking`` on
-    the device's side stream with an event behind it; the consumer calls
+    the device's copy stream with an event behind it; the consumer calls
     ``wait_staged`` before the kernel that reads the tensor.  The tensor
-    is allocated on the side stream, and ``wait_staged`` records its use
+    is allocated on the copy stream, and ``wait_staged`` records its use
     on the consuming stream, so the allocator reuses its memory only after
     that stream's kernels.  On the CPU the rows are copied and the event
     is None."""
@@ -473,13 +460,10 @@ def stage_rows(rows, *, device, pad_to: Optional[int] = None):
         view = bounce.numpy()
         view[:n] = host_t.numpy() if host_t is not None else rows
         view[n:] = 0
-    stream = _side_stream(device)
-    with torch.cuda.stream(stream):
-        dev = torch.empty((total, nb), dtype=torch.uint8, device=device)
-        dev.copy_(bounce, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    return dev, done
+    from randomprojection_tpu_torch.ops.staging import stage_upload
+
+    staged = stage_upload(bounce, device)
+    return staged.tensor, staged.event
 
 
 def wait_staged(tensor, event) -> None:
@@ -487,8 +471,6 @@ def wait_staged(tensor, event) -> None:
     and record the tensor's use there (no-op for a CPU stage)."""
     if event is None:
         return
-    import torch
+    from randomprojection_tpu_torch.ops.staging import StagedBatch
 
-    cur = torch.cuda.current_stream(tensor.device)
-    cur.wait_event(event)
-    tensor.record_stream(cur)
+    StagedBatch(tensor, event).wait()

@@ -299,7 +299,8 @@ class TieredResidency:
         reg.counter_inc("index.tier.cold_rows", int(cold_rows))
         if telemetry.enabled():
             telemetry.emit(EVENTS.INDEX_TIER_HIT, hot_rows=int(hot_rows),
-                           cold_rows=int(cold_rows))
+                           cold_rows=int(cold_rows),
+                           **telemetry.trace_fields())
         self._maybe_rebalance()
 
     def note_fetch(self, *, rows: int, nbytes: int, wall_s: float,
@@ -318,6 +319,7 @@ class TieredResidency:
                 wall_s=round(float(wall_s), 6),
                 overlap_s=round(float(overlap_s), 6), source=source,
                 sync=bool(sync), promote=bool(promote),
+                **telemetry.trace_fields(),
             )
 
     def note_fallback(self, reason: str, *, rows: int = 0) -> None:
@@ -325,7 +327,8 @@ class TieredResidency:
         turned cold under a dispatch, served by a synchronous upload."""
         telemetry.registry().counter_inc("index.tier.fallbacks")
         telemetry.emit(EVENTS.INDEX_TIER_FALLBACK, reason=reason,
-                       rows=int(rows))
+                       rows=int(rows),
+                       **telemetry.trace_fields())
 
     def demote(self, row0: int) -> bool:
         """Synchronously demote the chunk whose first global id is ``row0``
@@ -490,7 +493,8 @@ class TieredResidency:
         reg.gauge_set("index.tier.hot_fraction", frac)
         telemetry.emit(EVENTS.INDEX_TIER_EVICT, rows=int(chunk.n),
                        bytes=entry.nbytes, tier=self.cold_tier,
-                       wall_s=round(time.perf_counter() - t0, 6))
+                       wall_s=round(time.perf_counter() - t0, 6),
+                       **telemetry.trace_fields())
 
     def _spill_to_disk(self, codes: np.ndarray):
         """Write one cold chunk in the spill format (atomic, checksummed,

@@ -1,0 +1,276 @@
+"""Observability: per-batch stream counters and profiler hooks.
+
+The counterpart of ``randomprojection_tpu/utils/observability.py``:
+``StreamStats`` (commit counters, per-stage wall histograms, the
+queue-occupancy gauge, the overlap ratio) on a
+``telemetry.MetricsRegistry``, double-writing to the process-wide JSONL
+event log when one is configured, ``batch_nbytes``, ``stage``, and the
+profiler hooks on ``torch.profiler``: ``profile_trace`` writes a
+Chrome/Perfetto trace, ``annotate`` names a region in its timeline.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import sys
+import time
+from typing import Optional
+
+from randomprojection_tpu_torch.utils import telemetry
+from randomprojection_tpu_torch.utils.telemetry import EVENTS, MetricsRegistry
+
+#: the port's logger (the JAX package logs to "randomprojection_tpu")
+logger = logging.getLogger("randomprojection_tpu_torch")
+
+__all__ = [
+    "StreamStats", "batch_nbytes", "profile_trace", "annotate", "logger",
+    "stage",
+]
+
+
+def batch_nbytes(batch) -> int:
+    """Payload bytes of one (dense, tensor or scipy-sparse) batch.
+
+    scipy sparse carries its payload in per-format component arrays and
+    exposes no ``.nbytes`` itself.  CSR/CSC/BSR count
+    data+indices+indptr, COO data+coords (or row/col on pre-array scipy),
+    DIA data+offsets.  Formats without flat numeric component arrays
+    (LIL's object-dtype row lists, DOK's dict) are *estimated* as
+    ``nnz · (itemsize + index bytes)``, so no sparse stream records 0."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    if not sp.issparse(batch):
+        return int(getattr(batch, "nbytes", 0))
+    data = getattr(batch, "data", None)
+    if not isinstance(data, np.ndarray) or data.dtype == object:
+        # LIL/DOK: no flat payload arrays to count — estimate the
+        # COO-equivalent payload, one value + a (row, col) intp pair per
+        # stored element
+        return int(batch.nnz) * (
+            np.dtype(batch.dtype).itemsize + 2 * np.dtype(np.intp).itemsize
+        )
+    total = int(data.nbytes)
+    coords = getattr(batch, "coords", None)
+    if isinstance(coords, tuple):  # COO; .row/.col are views of .coords
+        return total + sum(int(c.nbytes) for c in coords)
+    for a in ("indices", "indptr", "row", "col", "offsets"):
+        v = getattr(batch, a, None)
+        if isinstance(v, np.ndarray):
+            total += int(v.nbytes)
+    return total
+
+
+def stage(stats: Optional["StreamStats"], name: str):
+    """``stats.stage(name)`` when stats is given, else a span-only
+    context — so pipeline stages can be instrumented unconditionally.
+    Either way the region emits a tracing span when a batch trace is
+    active on this thread (``require_parent``: stray stage timings
+    outside any trace never start orphan traces)."""
+    if stats is None:
+        return telemetry.span(name, require_parent=True)
+    return stats.stage(name)
+
+
+class StreamStats:
+    """Running counters for a streamed transform.
+
+    Pass to ``stream_transform(..., stats=...)``; updated at every commit
+    (host materialization), so throughput includes the full h2d →
+    kernel → d2h pipeline, not just dispatch.
+
+    Storage is a ``telemetry.MetricsRegistry`` (one per StreamStats, or a
+    shared one passed as ``registry=``): commit counters are registry
+    counters, stage walls are log2 wall-clock histograms (their exact
+    ``sum`` is the ``stage_wall`` value), the queue-occupancy samples are a
+    gauge.  ``batches``/``rows``/``bytes_in``/``bytes_out``/``stage_wall``/
+    ``queue_depth_max`` are read-only views of the registry.
+
+    Per-stage wall attribution: pipeline stages (``read`` in
+    ``CallableSource`` and ``TokenSource`` given ``stats``, ``hash`` in
+    ``TokenSource``, ``h2d`` in the ingest sources' prepare step,
+    ``dispatch``/``d2h`` in ``stream_transform``) wrap themselves in
+    ``stage(name)``, accumulating wall-clock — the producer stages run on
+    worker threads, the consumer stages on the caller's, so with an
+    overlapped pipeline the stage walls can legitimately sum to MORE than
+    the end-to-end elapsed time.  That excess is the measured overlap:
+    ``overlap_ratio() = 1 - elapsed / Σ stage_wall`` (clamped at 0) — 0 for
+    a fully serial pipeline, → 0.5 when two equal stages fully overlap.
+    ``on_queue_depth`` is the ingest queue-occupancy gauge, sampled by the
+    producer at each delivery: a max that sits at 0 means the consumer
+    always had the queue drained (producer-bound stream); the queue
+    capacity means the producer had to wait for space (consumer-bound).
+    """
+
+    def __init__(self, log_every: int = 0,
+                 registry: Optional[MetricsRegistry] = None):
+        self.log_every = log_every
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._t0: Optional[float] = None
+        self._t_last: Optional[float] = None
+
+    # -- registry-backed views ------------------------------------------------
+
+    @property
+    def batches(self) -> int:
+        return int(self.registry.counter("stream.batches"))
+
+    @property
+    def rows(self) -> int:
+        return int(self.registry.counter("stream.rows"))
+
+    @property
+    def bytes_in(self) -> int:
+        return int(self.registry.counter("stream.bytes_in"))
+
+    @property
+    def bytes_out(self) -> int:
+        return int(self.registry.counter("stream.bytes_out"))
+
+    @property
+    def stage_wall(self) -> dict:
+        return self.registry.hist_sums("stage.")
+
+    @property
+    def queue_depth_max(self) -> int:
+        return int(self.registry.gauge_max("stream.queue_depth"))
+
+    def queue_depth_mean(self) -> float:
+        return self.registry.gauge_mean("stream.queue_depth")
+
+    # -- recording ----------------------------------------------------------
+
+    def start(self) -> None:
+        """Start the clock — called by ``stream_transform`` before the first
+        batch is dispatched, so throughput includes the first batch's full
+        h2d → kernel → d2h time (not just inter-commit gaps)."""
+        self._t0 = time.perf_counter()
+
+    def on_commit(self, start_row: int, bytes_in: int, batch_out) -> None:
+        now = time.perf_counter()
+        if self._t0 is None:  # standalone use without start(): degrade
+            self._t0 = now
+        self._t_last = now
+        n = getattr(batch_out, "shape", (0,))[0]
+        out_bytes = batch_nbytes(batch_out)
+        r = self.registry
+        r.counter_inc("stream.batches")
+        r.counter_inc("stream.rows", n)
+        r.counter_inc("stream.bytes_in", bytes_in)
+        r.counter_inc("stream.bytes_out", out_bytes)
+        telemetry.emit(
+            EVENTS.STREAM_COMMIT, row=int(start_row), rows=int(n),
+            bytes_in=int(bytes_in), bytes_out=int(out_bytes),
+            **telemetry.trace_fields(),
+        )
+        if self.log_every and self.batches % self.log_every == 0:
+            logger.info(
+                "stream: %d batches, %d rows, %.0f rows/s",
+                self.batches, self.rows, self.rows_per_s(),
+            )
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        """Attribute the wrapped region's wall-clock to pipeline stage
+        ``name``.  Thread-safe: producer stages record from worker threads
+        concurrently with the consumer's dispatch/d2h stages.  When a
+        batch trace is active on this thread the region also emits a
+        child span, so the per-batch critical path is reconstructable —
+        ``require_parent`` keeps standalone stage timings from opening
+        orphan traces."""
+        t0 = time.perf_counter()
+        with telemetry.span(name, require_parent=True):
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self.registry.observe("stage." + name, dt)
+                telemetry.emit(
+                    EVENTS.STAGE_WALL, stage=name, wall_s=round(dt, 6)
+                )
+
+    def on_queue_depth(self, depth: int) -> None:
+        """Record one ingest-queue occupancy sample (taken by the producer
+        at each delivery)."""
+        self.registry.gauge_set("stream.queue_depth", depth)
+
+    def overlap_ratio(self) -> float:
+        """Fraction of attributed stage wall hidden by overlap:
+        ``1 - elapsed / Σ stage_wall``, clamped at 0.  Exactly 0 when the
+        stages ran back-to-back on one thread; approaches ``1 - 1/n`` when
+        ``n`` equal stages run fully concurrently.  Only attributed stages
+        count, so unattributed host work outside any ``stage()`` region
+        biases the ratio DOWN (never fakes overlap)."""
+        total = sum(self.stage_wall.values())
+        elapsed = self.elapsed_s()
+        if total <= 0.0 or elapsed <= 0.0:
+            return 0.0
+        return max(0.0, 1.0 - elapsed / total)
+
+    def elapsed_s(self) -> float:
+        if self._t0 is None or self._t_last is None:
+            return 0.0
+        return max(self._t_last - self._t0, 1e-9)
+
+    def rows_per_s(self) -> float:
+        return self.rows / self.elapsed_s() if self.rows else 0.0
+
+    def summary(self) -> dict:
+        out = {
+            "batches": self.batches,
+            "rows": self.rows,
+            "bytes_in": self.bytes_in,
+            "bytes_out": self.bytes_out,
+            "elapsed_s": round(self.elapsed_s(), 4),
+            "rows_per_s": round(self.rows_per_s(), 1),
+        }
+        stage_wall = self.stage_wall
+        if stage_wall:
+            out["stage_wall_s"] = {
+                k: round(v, 4) for k, v in sorted(stage_wall.items())
+            }
+            out["pipeline_overlap_ratio"] = round(self.overlap_ratio(), 3)
+        if self.registry.gauge("stream.queue_depth")["n"]:
+            out["queue_depth_max"] = self.queue_depth_max
+            out["queue_depth_mean"] = round(self.queue_depth_mean(), 2)
+        return out
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """Record the region with ``torch.profiler`` (the host and, where a
+    card is present, its kernels and copies) and write the timeline to
+    ``log_dir/trace.json`` in the Chrome trace format Perfetto opens.
+    A no-op when ``log_dir`` is falsy, so callers can thread a
+    ``--profile-dir`` flag unconditionally."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named region visible in profiler timelines
+    (``torch.profiler.record_function``).
+
+    A shared null context unless a profiler is recording: with none
+    active the hot path pays one attribute read, and a numpy-only run
+    never imports torch for it."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+_NULL = contextlib.nullcontext()

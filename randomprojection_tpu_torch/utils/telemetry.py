@@ -5,8 +5,11 @@ port imports nothing of that package): the ``EVENTS`` registry with the
 same names, ``MetricsRegistry`` (counters, gauges, log2 histograms and
 their quantiles), the process-wide ``registry()``, the versioned JSONL
 sink (``TelemetryLog``, ``configure``/``shutdown``/``enabled``/``emit``)
-and ``parse_event``.  Files it writes parse with the reference's
-``read_events``.  Tracing spans, live subscribers, ``LiveAggregator``,
+``parse_event`` and the tracing spans (``Span``, ``start_span``,
+``end_span``, ``activate_span``, ``span``, ``current_span``,
+``trace_fields``: one trace per streamed batch, its child spans across
+threads).  Files it writes parse with the reference's ``read_events`` and
+its ``trace_report.build_report``.  Live subscribers, ``LiveAggregator``,
 ``FlightRecorder`` and the OpenMetrics exposition are a later slice
 (ROADMAP A13); until then ``emit`` writes to the JSONL sink alone and is
 a no-op without one.
@@ -14,6 +17,7 @@ a no-op without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -36,6 +40,13 @@ __all__ = [
     "enabled",
     "emit",
     "parse_event",
+    "Span",
+    "current_span",
+    "trace_fields",
+    "start_span",
+    "end_span",
+    "activate_span",
+    "span",
 ]
 
 SCHEMA_VERSION = 2
@@ -55,7 +66,7 @@ class EVENTS:
     a family.
     """
 
-    # tracing span pair (schema v2); the port opens no span yet (A13)
+    # tracing span pair (schema v2)
     SPAN_START = "span_start"
     SPAN_END = "span_end"
     # streaming pipeline
@@ -233,6 +244,13 @@ class MetricsRegistry:
             g = self._gauges.get(name)
             return dict(g) if g else {"last": 0, "max": 0, "sum": 0.0, "n": 0}
 
+    def gauge_max(self, name: str):
+        return self.gauge(name)["max"]
+
+    def gauge_mean(self, name: str) -> float:
+        g = self.gauge(name)
+        return g["sum"] / g["n"] if g["n"] else 0.0
+
     # -- histograms ---------------------------------------------------------
 
     @staticmethod
@@ -258,6 +276,17 @@ class MetricsRegistry:
         with self._lock:
             h = self._hists.get(name)
             return h["sum"] if h else 0.0
+
+    def hist_sums(self, prefix: str = "") -> dict:
+        """``{name_without_prefix: total_seconds}`` for every histogram
+        whose name starts with ``prefix`` (the ``StreamStats.stage_wall``
+        view is ``hist_sums('stage.')``)."""
+        with self._lock:
+            return {
+                k[len(prefix):]: h["sum"]
+                for k, h in self._hists.items()
+                if k.startswith(prefix)
+            }
 
     def hist_quantiles(self, name: str,
                        qs=(0.5, 0.9, 0.99, 0.999)) -> Optional[dict]:
@@ -449,10 +478,17 @@ _ACTIVE_LOG: Optional[TelemetryLog] = None
 def configure(path: str) -> TelemetryLog:
     """Install the process-wide JSONL sink (replacing any previous one).
     Instrumented call sites all over the package start emitting into it
-    immediately; ``shutdown()`` uninstalls and closes."""
-    global _ACTIVE_LOG
+    immediately; ``shutdown()`` uninstalls and closes.  Each configure
+    draws a fresh run token for span ids, so the runs appended to one
+    file can never collide trace ids."""
+    global _ACTIVE_LOG, _RUN_TOKEN
     if _ACTIVE_LOG is not None:
         _ACTIVE_LOG.close()
+    with _SPAN_LOCK:
+        # the token pairs with the span sequence under the same lock: a
+        # span id drawn concurrently with configure() carries either the
+        # old token or the new one, never a torn read
+        _RUN_TOKEN = os.urandom(4).hex()
     _ACTIVE_LOG = TelemetryLog(path)
     return _ACTIVE_LOG
 
@@ -495,6 +531,154 @@ def emit(event: str, **fields) -> None:
         if _finalizing():
             return
         raise
+
+
+
+# -- tracing spans (schema v2) ------------------------------------------------
+
+
+class Span:
+    """One in-flight span: identity + start time.  Create with
+    ``start_span``/``span``; ids are run-unique strings (run token from
+    ``configure()`` + a process-wide sequence)."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "t0")
+
+    def __init__(self, name, trace_id, span_id, parent_id, t0):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.t0 = t0
+
+    def __repr__(self):  # pragma: no cover — debugging aid
+        return (
+            f"Span({self.name!r}, trace={self.trace_id}, "
+            f"span={self.span_id}, parent={self.parent_id})"
+        )
+
+
+_SPAN_TLS = threading.local()  # .current: the active Span of this thread
+_SPAN_LOCK = threading.Lock()
+_SPAN_SEQ = 0
+# run token: regenerated by configure() so ids stay unique across the
+# multiple runs that may append to one telemetry file
+_RUN_TOKEN = "0"
+
+
+def _new_span_id() -> str:
+    global _SPAN_SEQ
+    with _SPAN_LOCK:
+        _SPAN_SEQ += 1
+        return f"{_RUN_TOKEN}-{_SPAN_SEQ:x}"
+
+
+def current_span() -> Optional[Span]:
+    """This thread's innermost active span (set by ``span()`` /
+    ``activate_span``), or None."""
+    return getattr(_SPAN_TLS, "current", None)
+
+
+def trace_fields() -> dict:
+    """``{"trace_id", "span_id"}`` of the thread's active span — splice
+    into flat events (``emit(..., **trace_fields())``) so dispatches,
+    hash batches and tier fetches correlate with their batch trace.
+    Empty when no span is active (the event stays v1-shaped)."""
+    cur = current_span()
+    if cur is None:
+        return {}
+    return {"trace_id": cur.trace_id, "span_id": cur.span_id}
+
+
+def start_span(name: str, *, parent: Optional[Span] = None,
+               new_trace: bool = False, require_parent: bool = False,
+               **attrs) -> Optional[Span]:
+    """Open a span and emit its ``span_start``; returns None (a no-op
+    handle) when no sink is installed.
+
+    Parenting: explicit ``parent=`` wins; otherwise the thread's active
+    span; ``new_trace=True`` forces a fresh trace root (``parent_id``
+    null).  ``require_parent=True`` skips the span entirely when there
+    is no parent in scope — used by instrumented stages that only make
+    sense inside a batch trace.  Close with ``end_span`` (any thread).
+    """
+    if not enabled():
+        return None
+    try:
+        if parent is None and not new_trace:
+            parent = current_span()
+        if parent is None and require_parent and not new_trace:
+            return None
+        span_id = _new_span_id()
+        if new_trace or parent is None:
+            trace_id, parent_id = span_id, None
+        else:
+            trace_id, parent_id = parent.trace_id, parent.span_id
+        s = Span(name, trace_id, span_id, parent_id, time.perf_counter())
+        emit(
+            EVENTS.SPAN_START, name=name, trace_id=trace_id,
+            span_id=span_id, parent_id=parent_id, **attrs,
+        )
+        return s
+    except Exception:
+        if _finalizing():
+            return None
+        raise
+
+
+def end_span(span_: Optional[Span], **attrs) -> None:
+    """Emit the ``span_end`` for a span returned by ``start_span`` (from
+    any thread).  None (disabled-telemetry handle) is a no-op; safe at
+    interpreter teardown."""
+    if span_ is None:
+        return
+    try:
+        emit(
+            EVENTS.SPAN_END, name=span_.name, trace_id=span_.trace_id,
+            span_id=span_.span_id,
+            dur_s=round(time.perf_counter() - span_.t0, 9), **attrs,
+        )
+    except Exception:
+        if _finalizing():
+            return
+        raise
+
+
+@contextlib.contextmanager
+def activate_span(span_: Optional[Span]):
+    """Make ``span_`` this thread's active span for the block — the
+    explicit cross-thread propagation primitive: a consumer adopting a
+    trace root the producer created re-activates it around its own
+    stages so their spans parent correctly.  Does NOT end the span.
+    None (telemetry disabled) is a cheap no-op."""
+    if span_ is None:
+        yield None
+        return
+    prev = getattr(_SPAN_TLS, "current", None)
+    _SPAN_TLS.current = span_
+    try:
+        yield span_
+    finally:
+        _SPAN_TLS.current = prev
+
+
+@contextlib.contextmanager
+def span(name: str, *, parent: Optional[Span] = None,
+         new_trace: bool = False, require_parent: bool = False, **attrs):
+    """Context manager: ``start_span`` + thread-local activation +
+    ``end_span``.  Yields the ``Span`` (None when telemetry is off)."""
+    s = start_span(
+        name, parent=parent, new_trace=new_trace,
+        require_parent=require_parent, **attrs,
+    )
+    if s is None:
+        yield None
+        return
+    try:
+        with activate_span(s):
+            yield s
+    finally:
+        end_span(s)
 
 
 def parse_event(line: str) -> dict:

@@ -13,6 +13,7 @@ import numpy as np
 import scipy.sparse as sp
 
 __all__ = [
+    "restore_void_dtype",
     "DataDimensionalityWarning",
     "bfloat16_dtype",
     "check_density",
@@ -44,6 +45,27 @@ class DataDimensionalityWarning(UserWarning):
 
 class NotFittedError(ValueError, AttributeError):
     """Estimator used before ``fit`` (contract: sklearn ``NotFittedError``)."""
+
+
+def restore_void_dtype(arr, want=None):
+    """Undo ``.npy``'s label degradation for ml_dtypes arrays.
+
+    ``np.save`` of a bfloat16 array writes a raw-void header (``|V2``) —
+    the format cannot express the name — so ``np.load`` returns unusable
+    void data.  When the array is unstructured 2-byte void and bfloat16 is
+    either the expected dtype (``want``) or the only plausible producer,
+    restore the typed view; anything else passes through for the caller's
+    validation to reject loudly.
+    """
+    dtype = getattr(arr, "dtype", None)
+    if dtype is None or dtype.kind != "V" or dtype.names is not None:
+        return arr
+    bf16 = bfloat16_dtype()
+    if bf16 is None or dtype.itemsize != 2:
+        return arr
+    if want is not None and np.dtype(want) != bf16:
+        return arr
+    return arr.view(bf16)
 
 
 def check_density(density, n_features: int) -> float:

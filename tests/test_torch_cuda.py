@@ -928,6 +928,133 @@ def test_countsketch_routes_on_the_card_match_the_cpu(cuda, route):
     np.testing.assert_allclose(y, host.transform(Xin), rtol=2e-5, atol=2e-5)
     if route in ("docmajor", "flat"):
         b = card.prepare_batch(Xin)
-        assert b.arrays[0].is_cuda and b.arrays[0].numel() == Xin.nnz
+        # each operand in flight on the copy stream, with its event
+        t = b.arrays[0].tensor
+        assert t.is_cuda and t.numel() == Xin.nnz
         np.testing.assert_allclose(card._transform_async(b).cpu().numpy(), y,
                                    rtol=2e-5, atol=2e-5)
+
+
+# -- uploads from a producer thread (streaming) ----------------------------------
+
+
+def _serial_and(ingest, est, X, batch, consume=None):
+    """The serial stream's output and the stream through ``ingest`` (a
+    function of the inner source), the latter consumed by ``consume``."""
+    from randomprojection_tpu_torch.streaming import ArraySource
+
+    serial = np.concatenate([y for _, y in est.transform_stream(
+        ArraySource(X, batch))])
+    out = []
+    for lo, y in est.transform_stream(ingest(ArraySource(X, batch))):
+        if consume is not None:
+            consume(lo)
+        out.append(y)
+    return serial, np.concatenate(out)
+
+
+@pytest.mark.parametrize("ingest", ["prefetch", "staged"])
+def test_streamed_uploads_under_allocator_churn_equal_serial(cuda, ingest):
+    """Many small batches uploaded on the copy stream from worker threads,
+    a consumer that stalls between batches while the card's allocator
+    recycles blocks (a churn tensor allocated and freed a batch): every
+    batch equals the serial stream bit for bit.  Without the event wait
+    and ``record_stream`` a block still read by the projection could be
+    handed to the next upload."""
+    import time
+
+    from randomprojection_tpu_torch import SparseRandomProjection
+    from randomprojection_tpu_torch.streaming import (
+        PrefetchSource,
+        StagedIngestSource,
+    )
+
+    X = np.random.default_rng(4).normal(size=(96 * 257, 1024)).astype(
+        np.float32)
+    est = SparseRandomProjection(256, density=1 / 3, random_state=1,
+                                 backend_options={"materialization": "lazy"}
+                                 ).fit(X)
+    wrap = {
+        "prefetch": lambda s: PrefetchSource(s, depth=4,
+                                             prepare=est.prepare_batch),
+        "staged": lambda s: StagedIngestSource(s, workers=4, depth=4,
+                                               prepare=est.prepare_batch),
+    }[ingest]
+
+    def consume(lo):
+        churn = torch.empty(257 * 1024, device=cuda)
+        churn.fill_(float(lo))
+        del churn
+        if (lo // 257) % 7 == 3:
+            time.sleep(0.01)
+
+    serial, got = _serial_and(wrap, est, X, 257, consume)
+    np.testing.assert_array_equal(got, serial)
+
+
+def test_prepare_batch_from_a_worker_copies_on_a_side_stream(cuda):
+    """A worker thread's ``prepare_batch`` queues its copy on the card's
+    copy stream, not on the default stream: with the default stream held
+    busy by a long kernel, the copy lands and reads back on the copy stream
+    before that kernel ends, which a copy queued behind it could not do;
+    the batch then projects as the direct transform does."""
+    import threading
+
+    from randomprojection_tpu_torch import GaussianRandomProjection
+    from randomprojection_tpu_torch.ops.staging import StagedBatch, copy_stream
+
+    X = np.random.default_rng(5).normal(size=(4096, 512)).astype(np.float32)
+    est = GaussianRandomProjection(64, random_state=0).fit(X)
+    default = torch.cuda.default_stream(cuda)
+    side = copy_stream(cuda)
+    assert side != default
+    # warm the pinned host cache and the copy stream's device pool, so the
+    # timed upload allocates nothing
+    warm = est.prepare_batch(-X)
+    torch.cuda.synchronize(cuda)
+    del warm
+    got = {}
+
+    def worker():
+        got["stream"] = torch.cuda.current_stream(cuda)
+        got["batch"] = est.prepare_batch(X)
+
+    with torch.cuda.stream(default):
+        torch.cuda._sleep(int(2e9))  # about a second of the default stream
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    assert got["stream"] == default
+    b = got["batch"]
+    assert isinstance(b, StagedBatch) and b.tensor.is_cuda
+    b.event.synchronize()
+    with torch.cuda.stream(side):
+        back = b.tensor.cpu().numpy()
+    assert not default.query(), "the upload waited for the default stream"
+    np.testing.assert_array_equal(back, X)
+    torch.cuda.synchronize(cuda)
+    y = est._transform_async(b)
+    np.testing.assert_array_equal(y.cpu().numpy(), est.transform(X))
+
+
+def test_countsketch_staged_batches_match_serial(cuda):
+    import scipy.sparse as sp
+
+    from randomprojection_tpu_torch.models.sketch import CountSketch
+    from randomprojection_tpu_torch.streaming import (
+        ArraySource,
+        StagedIngestSource,
+    )
+
+    rng = np.random.default_rng(26)
+    X = rng.normal(size=(4096, 1 << 14)).astype(np.float32)
+    X[np.abs(X) < 2.5] = 0.0
+    Xs = sp.csr_array(X)
+    cs = CountSketch(256, random_state=0).fit(Xs)
+    serial = np.concatenate([y for _, y in cs.transform_stream(
+        ArraySource(Xs, 512))])
+    staged = np.concatenate([y for _, y in cs.transform_stream(
+        StagedIngestSource(ArraySource(Xs, 512), workers=3,
+                           prepare=cs.prepare_batch))])
+    np.testing.assert_allclose(staged, serial, rtol=2e-5, atol=2e-5)

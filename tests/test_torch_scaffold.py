@@ -70,7 +70,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 15 and all(f.exists() for f in files)
     names = {str(f.relative_to(REPO)) for f in files}
     for module in ("models/sketch.py", "ops/topk_kernels.py",
-                   "utils/telemetry.py", "backends/torch_backend.py"):
+                   "utils/telemetry.py", "backends/torch_backend.py",
+                   "streaming.py", "utils/observability.py", "cli.py",
+                   "__main__.py", "ops/staging.py"):
         assert f"randomprojection_tpu_torch/{module}" in names
     bad = {str(f.relative_to(REPO)): _banned_imports(f) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
