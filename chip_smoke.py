@@ -73,7 +73,9 @@ Phases (any failure exits non-zero and prints no result):
 7. each kernel's time at the main path's shape beside its bound, its plain
    version's time and one PyTorch call's time; ``rp_fused_project`` in all
    three modes (f32 and split2 against ``torch.matmul`` in float32, bf16
-   against ``torch.matmul`` of bf16 x and the bf16 mask) and, beside
+   against ``torch.matmul`` of bf16 x and the bf16 mask), split2 at config
+   3's shape (one 16,384 x 16,384 -> 512 batch at density 1/128, held to
+   its plain version) and, beside
    split2, the port's dense split2 route (``split2_project`` against a
    materialized bf16 mask); split2 with the old and the new mask writer in
    turns; the mask writer's device time in both instantiations beside the
@@ -169,7 +171,18 @@ Phases (any failure exits non-zero and prints no result):
    stream-bench`` at the streamed main path's shape with 4 ingest workers
    (its JSON line parsed), and ``project`` of a 524,288 x 512 ``.npy``
    killed (SIGKILL) once its cursor holds a batch, resumed through its
-   fingerprint sidecar, equal to a one-shot run bit for bit.
+   fingerprint sidecar, equal to a one-shot run bit for bit;
+14. the bench as a subprocess: ``python -m randomprojection_tpu_torch bench
+   --preset full`` (``benchmark.py``: config 2's seven modes through the
+   anti-cache harness, configs 1, 3 and 4 with serving, the LSH curve and
+   the tiered index, and config 5), its last line read with the bench's
+   ``find_compact_line`` (at most 2 KB) and its full record held to the
+   limits: the headline mode believable and within the 1e-3 distortion
+   budget, no executed rate past the H100 peak of its unit, config 3's
+   distortion, config 4's sign mismatch (<= 1e-4), the LSH recall gate and
+   the tiered index's parity with zero fallbacks, config 5's first batch
+   within 2e-5 of float64; each config's rate printed, config 2's headline
+   beside phase 4's main-path rate.
 
 The kernels' timings are printed as one JSON line.
 
@@ -194,6 +207,30 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+try:
+    # the H100's published peaks (NVIDIA's data sheet, at 700 W), the
+    # distortion metric, its budget, the LSH tripwire, config 5's
+    # tolerance and the planted-neighbour generator: the bench's own, so
+    # the two cannot drift
+    from randomprojection_tpu_torch.benchmark import (
+        BF16_FLOP_PER_S,
+        C5_TOL,
+        DISTORTION_BUDGET,
+        FP32_FLOP_PER_S,
+        HBM_BYTES_PER_S,
+        INT8_OPS_PER_S,
+        LSH_CANDIDATE_FRACTION_GATE,
+        LSH_RECALL_GATE,
+        PRESETS,
+        TIER_BENCH_SHAPES,
+        _lsh_flip_bits,
+        pdist2,
+    )
+except ImportError as e:  # reported by main(): this script alone is not the port
+    _PORT_MISSING = e
+else:
+    _PORT_MISSING = None
 N_ROWS, N_FEATURES, N_COMPONENTS, DENSITY = 1_000_000, 4096, 256, 1 / 3
 BATCH = 65_536
 SAMPLE = 2_000
@@ -207,7 +244,6 @@ FUSED_SHAPES = ((8192, 4096, 256, 0), (2048, 16384, 512, 0),
                 (1, 4097, 512, 0), (3, 4097, 64, 2), (1000, 1100, 64, 0),
                 (130, 1100, 8, 2), (8517, 1024, 256, 0),
                 (20_000, 520, 512, 1))
-DISTORTION_BUDGET = 1e-3
 # the mask writer's trouble shapes: one column, a ragged run, float32 rows
 # of odd width (single stores), even width (pairs) and d % 4 == 0 (16
 # bytes); k of one block row and of 512; seeds past 2^32; block offsets
@@ -215,15 +251,10 @@ WRITER_DS, WRITER_KS = (1, 3, 4097, 4099, 4100), (8, 512)
 WRITER_SEEDS, WRITER_OFFSETS = (0, 2**32 - 5, 12345678901), (0, 3)
 WRITER_TALL = (600_000, 3)  # more rows than the writer's grid: its row loop
 CHAIN_STEPS = 16  # TorchBackend(dispatch_steps=16): the 16-batch split
-# published H100 SXM peaks (NVIDIA H100 datasheet), at 700 W
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-FP32_FLOP_PER_S = 67e12
 # 32-bit integer ops of one mask entry (3 multiplies by the constants, 3
 # xors to combine, the 6-op finalizer, the shift to 24 bits, 2 compares, 2
 # selects, the scale), counted on the CUDA cores at their float32 rate
 HASH_OPS_PER_ENTRY = 17
-INT8_OPS_PER_S = 1979e12
 # config-4 serving (benchmark.py TOPK_BENCH_SHAPES["full"]): 2^24 codes of
 # 256 bits from 768-wide rows, m = 16, query tile 2048, 16 clients x 4
 # requests x 128 rows, max_batch 8192.  The cut from config 4's 1B codes
@@ -240,7 +271,6 @@ SIGN_MISMATCH_BUDGET = 1e-4
 LSH_N, LSH_BYTES, LSH_CLUSTER, LSH_NOISE = 1 << 20, 32, 16, 6
 LSH_NQ, LSH_M, LSH_BANDS, LSH_BAND_BITS = 256, 10, 8, 16
 LSH_PROBES, LSH_CALLS, LSH_TILE = (1, 2, 4, 8, 16), 3, 64
-LSH_RECALL_GATE, LSH_FRACTION_GATE = 0.95, 0.10
 # full coverage: 4 bands x 8 bits over 2^16 codes in two chunks
 FULL_N, FULL_BANDS, FULL_BAND_BITS, FULL_NQ = 1 << 16, 4, 8, 64
 REPEATS = 50  # the probe kernel's repeats at its largest trouble shape
@@ -277,7 +307,6 @@ TIER_CRASH_ROWS, TIER_CRASH_BATCH = 1 << 16, 1 << 13
 # 2^20, a 50,000-word vocabulary drawn uniformly with seed 0, 100 tokens a
 # doc, 65,536-doc batches; the one cut is depth, 100M -> 2^20 docs
 C5_FEATURES, C5_K, C5_VOCAB, C5_TOKENS, C5_DOCS = 1 << 20, 256, 50_000, 100, 1 << 20
-C5_TOL = 2e-5  # the card against the host float64 transform (rtol = atol)
 # the streamed main path (config 2 fed from the host): 2^20 rows in
 # 65,536-row batches of one template rolled a row a batch (the reader of
 # the CLI's stream-bench), serial, prefetched and staged, in turns
@@ -287,6 +316,11 @@ STREAM_POOL = 3  # pinned batches of the profiled turn's source
 PROFILE_BATCHES = 8
 PROFILE_TURN_FLAG = "--profile-stream-turn"  # profile_stream's child
 FAULT_AT, MEMMAP_FAULT_AT = 3, 6  # the global batch a fault fires before
+# config 3 (very-sparse Li, 16384 -> 512 at density 1/128): K1's batch of
+# the bench's harness (benchmark.py CONFIG3_SHAPES["full"])
+C3_ROWS, C3_FEATURES, C3_COMPONENTS = 16_384, 16_384, 512
+# the bench as a subprocess (benchmark.py run, preset full)
+BENCH_TIMEOUT = 600
 # the CLI's project leg: a .npy of 524,288 x 512 float32 rows (1 GiB) in
 # 8,192-row batches, killed once its cursor has committed a batch
 CLI_ROWS, CLI_D, CLI_K, CLI_BATCH = 1 << 19, 512, 64, 8192
@@ -344,16 +378,6 @@ def graph_ms(torch, fn, per_graph: int = 20, replays: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * per_graph)
-
-
-def pdist2(a):
-    """Squared pairwise distances, upper triangle (the repo's distortion
-    metric: randomprojection_tpu/benchmark.py)."""
-    a = np.asarray(a, dtype=np.float64)
-    sq = (a * a).sum(1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (a @ a.T)
-    iu = np.triu_indices(a.shape[0], k=1)
-    return np.maximum(d2[iu], 1e-30)
 
 
 def distortion(est, x_sample) -> float:
@@ -539,8 +563,8 @@ def phase_kernels(torch, fk, errs, old):
 def phase_main_path(torch, rpt, fk, errs):
     """Fit and transform at full width, then read the model's matrix, each
     with the launch counts set to 0 just before and read just after.
-    Returns the model, its input and the launch count of each kernel in
-    its own run."""
+    Returns the model, its input, the launch count of each kernel in its
+    own run and the transform's rows/s."""
     g = torch.Generator(device="cuda").manual_seed(0)
     X = torch.empty((N_ROWS, N_FEATURES), dtype=torch.float32, device="cuda")
     X.normal_(generator=g)
@@ -609,7 +633,7 @@ def phase_main_path(torch, rpt, fk, errs):
     log(f"main path: distortion {eps:.3e} on {SAMPLE} rows vs float64 "
         f"(budget {DISTORTION_BUDGET})")
     check(eps <= DISTORTION_BUDGET, "main path distortion over budget")
-    return est, X, launched
+    return est, X, launched, N_ROWS / (ms / 1e3)
 
 
 def _segments(torch) -> int:
@@ -1051,7 +1075,6 @@ def profile_stream_turn() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sys.path.insert(0, str(ROOT))
     import randomprojection_tpu_torch as rpt
     from randomprojection_tpu_torch import streaming
     from randomprojection_tpu_torch.ops import fused_kernels as fk
@@ -1280,6 +1303,211 @@ def phase_cli(scratch: Path):
         f"({resumed['rows']} rows), equal to the one-shot run bit for bit")
 
 
+def phase_bench_shapes(torch, fk, tk, errs) -> None:
+    """The kernels at the bench's own shapes, against their plain
+    versions: K1 at config 2's 131,072 x 4096 -> 256 harness batch in each
+    mode its ``lazy*`` modes run (``lazy_f32_bf16data`` is the f32 mode on
+    bf16-rounded values), within ``TOL·max|Y|``; K4 at a tiered chunk (256
+    queries x 2^16 codes x 32 B, m = 10), bit for bit."""
+    n = PRESETS["full"]["batch"]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.empty((n, N_FEATURES), dtype=torch.float32, device="cuda")
+    x.normal_(generator=g)
+    for what, mode, xin in (
+            ("lazy", "f32", x), ("lazy_split2", "split2", x),
+            ("lazy_bf16", "bf16", x.to(torch.bfloat16)),
+            ("lazy_f32_bf16data", "f32", x.to(torch.bfloat16).float())):
+        y = fk.rp_fused_project(xin, 0, N_COMPONENTS, DENSITY, mxu_mode=mode)
+        want = fk.fused_project(xin, 0, N_COMPONENTS, DENSITY, mxu_mode=mode)
+        err = (y - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs["rp_fused_project"] = max(errs["rp_fused_project"], err)
+        check(bool(torch.isfinite(y).all()) and err <= TOL * scale,
+              f"rp_fused_project at the bench's {what} shape off its plain "
+              f"version by {err:.3e} (max|Y| {scale:.3e})")
+        log(f"rp_fused_project at the bench's {what} shape {n}x{N_FEATURES}"
+            f"->{N_COMPONENTS} {mode}: max|d|={err:.3e} max|Y|={scale:.3e} "
+            f"ratio={err / scale:.3e} (tol {TOL})")
+        del y, want, xin
+    del x
+    torch.cuda.empty_cache()
+    shape = TIER_BENCH_SHAPES["full"]
+    rng = np.random.default_rng(19)
+    rows, nb, nq, m = (shape["chunk_rows"], shape["n_bytes"], shape["q_tile"],
+                       shape["m"])
+    c = torch.from_numpy(rng.integers(0, 256, size=(rows, nb),
+                                      dtype=np.uint8)).cuda()
+    q = torch.from_numpy(rng.integers(0, 256, size=(nq, nb),
+                                      dtype=np.uint8)).cuda()
+    _hold(torch, tk, errs, tk.rp_fused_topk(q, c, rows, m),
+          tk.topk_plain(q, c, rows, m),
+          f"rp_fused_topk at the bench's tiered chunk ({nq}x{rows}x{nb}B "
+          f"m={m})")
+
+
+# the bench's legs that launch kernels, by the record's path to each
+# leg's ``launches``
+BENCH_LEGS = {
+    "lazy_matrix": ("lazy_matrix_launches",),
+    "config3": ("config3", "launches"),
+    "config4_encode": ("config4", "launches"),
+    "serving": ("config4", "topk_serving", "launches"),
+    "lsh": ("config4", "topk_serving", "lsh", "launches"),
+    "tiered": ("config4", "topk_serving", "tiered", "launches"),
+    "tiered_resident": ("config4", "topk_serving", "tiered",
+                        "resident_launches"),
+}
+
+
+def _bench_launches(rec, bm) -> dict:
+    """Each leg's launches from the bench's record (each set to 0 just
+    before its leg and read just after, in the bench's process), checked:
+    a ``lazy*`` mode launches the mask cache and K1 once a harness step and
+    once for its distortion sample, the dense modes and config 4's encode
+    none, K3 once for the lazy modes' reference and once in config 3,
+    and every serving leg K4 (a merge a scan), the LSH curve K5 too."""
+    legs = {}
+    steps, calls = rec["dispatch_steps"], PRESETS["full"]["calls"]
+    for name, mode in rec["all_modes"].items():
+        n = steps * (calls + 1) + 1
+        want = ({"rp_fused_project": n, "rp_mask_cache": n}
+                if name.startswith("lazy") else {})
+        check(mode["launches"] == want,
+              f"bench mode {name} launched {mode['launches']}, not {want}")
+        legs[name] = mode["launches"]
+    for leg, path in BENCH_LEGS.items():
+        got = rec
+        for key in path:
+            got = got[key]
+        legs[leg] = got
+    c3 = bm.CONFIG3_SHAPES["full"]
+    n3 = c3["steps"] * (c3["calls"] + 1) + 1
+    for leg, want in (("lazy_matrix", {"rp_lazy_matrix": 1}),
+                      ("config3", {"rp_fused_project": n3,
+                                   "rp_mask_cache": n3, "rp_lazy_matrix": 1}),
+                      ("config4_encode", {})):
+        check(legs[leg] == want,
+              f"bench {leg} launched {legs[leg]}, not {want}")
+    for leg in ("serving", "lsh", "tiered", "tiered_resident"):
+        got = legs[leg]
+        scans = (got.get("rp_fused_topk_wgmma", 0)
+                 + got.get("rp_fused_topk_popc", 0))
+        check(got.get("rp_fused_topk_wgmma", 0) > 0
+              and got.get("rp_topk_merge", 0) == scans,
+              f"bench {leg} launched {got}")
+    check(legs["lsh"].get("rp_probe", 0) > 0,
+          f"bench LSH curve launched no rp_probe: {legs['lsh']}")
+    return legs
+
+
+def phase_bench(kind: str, main_rate: float) -> dict:
+    """The bench as a subprocess: ``python -m randomprojection_tpu_torch
+    bench --preset full``, its last line read with the bench's own
+    ``find_compact_line`` and its full record (the line before) held to
+    the limits: the headline mode believable and within the distortion
+    budget, no executed rate past its unit's peak, config 3's distortion,
+    config 4's sign mismatch, the LSH recall gate and the tiered index's
+    parity with zero fallbacks, and config 5's first batch; and each leg's
+    kernel launches (``_bench_launches``), which it returns."""
+    from randomprojection_tpu_torch import benchmark as bm
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "randomprojection_tpu_torch", "bench",
+         "--preset", "full"],
+        cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"bench exited {r.returncode}: {r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    compact = bm.find_compact_line(lines[-1])
+    size = len(lines[-1].encode())
+    check(compact is not None and size <= bm.COMPACT_MAX_BYTES,
+          f"bench's last line is not a compact line of <= "
+          f"{bm.COMPACT_MAX_BYTES} bytes ({size} bytes)")
+    rec = json.loads(lines[-2])
+    head = rec["all_modes"][rec["mode"]]
+    check(compact["mode"] == rec["mode"] and compact["timing_suspect"]
+          is head["timing_suspect"], "compact line and record disagree")
+    check(head["distortion"] <= DISTORTION_BUDGET
+          and not head["timing_suspect"],
+          f"bench headline {rec['mode']} distortion {head['distortion']} "
+          f"suspect {head['timing_suspect']}")
+
+    def within_peak(what, row):
+        peak = bm.PEAKS[row["executed_on"]] / 1e12
+        check(row["executed_tflops"] <= peak,
+              f"{what} executed {row['executed_tflops']} TFLOP/s past the "
+              f"{row['executed_on']} peak {peak}")
+
+    for name, mode in rec["all_modes"].items():
+        within_peak(f"mode {name}", mode)
+    c3, c4, c5 = rec["config3"], rec["config4"], rec["config5"]
+    tk = c4["topk_serving"]
+    for what, row in (("config3", c3), ("config4", c4), ("serving", tk)):
+        within_peak(what, row)
+    within_peak("single-stream serving", dict(
+        tk, executed_tflops=tk["single_stream_executed_tflops"]))
+    check(c3["distortion"] <= DISTORTION_BUDGET,
+          f"config 3 distortion {c3['distortion']}")
+    check(c4["sign_mismatch_rate_vs_cpu"] <= SIGN_MISMATCH_BUDGET,
+          f"config 4 sign mismatch {c4['sign_mismatch_rate_vs_cpu']}")
+    lsh, tier = tk["lsh"], tk["tiered"]
+    check(lsh["recall_gate_ok"] and all(p["fallbacks"] == 0
+                                        for p in lsh["curve"]),
+          f"bench LSH curve {json.dumps(lsh['curve'])}")
+    check(tier["parity_ok"] and tier["fallbacks"] == 0,
+          f"bench tiered parity {tier['parity_ok']} fallbacks "
+          f"{tier['fallbacks']}")
+    check(c5["first_batch_ok"], f"config 5 first batch off float64 by "
+          f"{c5['first_batch_max_abs_err']}")
+    check(rec["device"] == kind, f"bench ran on {rec['device']}, not {kind}")
+    legs = _bench_launches(rec, bm)
+    log(f"bench launches by leg (each set to 0 just before the leg and read "
+        f"just after, in the bench's process): {json.dumps(legs)}")
+    modes = ", ".join(
+        f"{n} {m['rows_per_s']} rows/s (distortion {m['distortion']:.3e}, "
+        f"{m['executed_tflops']} TFLOP/s on {m['executed_on']}, "
+        f"{m['mxu_utilization']:.1%} of peak, suspect {m['timing_suspect']})"
+        for n, m in rec["all_modes"].items())
+    log(f"bench --preset full (subprocess, {wall:.1f} s, device "
+        f"{rec['device']}); compact line {size} bytes")
+    log(f"bench config 2 modes: {modes}")
+    log(f"bench config 2 headline {rec['mode']}: {rec['value']} rows/s "
+        f"(distortion {rec['distortion_eps_vs_cpu']:.3e}); phase 4's main "
+        f"path (1M rows in 65,536-row batches through the estimator): "
+        f"{main_rate:.1f} rows/s")
+    log(f"bench config 1 (numpy, host): {rec['config1']['rows_per_s']} rows/s")
+    log(f"bench config 3: {c3['rows_per_s']} rows/s (distortion "
+        f"{c3['distortion']:.3e}, {c3['executed_tflops']} TFLOP/s, "
+        f"{c3['mxu_utilization']:.1%} of the bf16 peak)")
+    log(f"bench config 4: estimator {c4['rows_per_s']} rows/s, raw "
+        f"{c4['raw_kernel_rows_per_s']} rows/s, sign mismatch "
+        f"{c4['sign_mismatch_rate_vs_cpu']:.3e}")
+    log(f"bench serving: server {tk['queries_per_s']} q/s, single stream "
+        f"{tk['single_stream_queries_per_s']} q/s ({tk['topk_impl']}; "
+        f"{tk['single_stream_executed_tflops']} TOPS single stream, "
+        f"{tk['single_stream_executed_tflops'] / (INT8_OPS_PER_S / 1e12):.1%} "
+        f"of the int8 peak, int8 flags server "
+        f"{tk['int8_timing_suspect']} single stream "
+        f"{tk['single_stream_int8_timing_suspect']}); LSH "
+        + ", ".join(f"p{p['probes']} {p['queries_per_s']} q/s recall "
+                    f"{p['recall_at_m']} fraction {p['candidate_fraction']}"
+                    for p in lsh["curve"])
+        + f" (exact {lsh['exact_queries_per_s']} q/s, host reference "
+        f"{lsh['exact_ref_s']} s); tiered {tier['queries_per_s']} q/s vs "
+        f"resident {tier['resident_queries_per_s']} ({tier['hot_chunks']} hot, "
+        f"{tier['cold_chunks']} cold)")
+    log(f"bench config 5: ingest {c5['ingest_tokens_per_s']} tokens/s, device "
+        f"sketch {c5['device_sketch_docs_per_s']} docs/s (gather floor "
+        f"{c5['sketch_bakeoff_docs_per_s']['packed_gather_floor']}), serial "
+        f"{c5['end_to_end_serial_docs_per_s']}, prefetch "
+        f"{c5['end_to_end_prefetch_docs_per_s']}, staged "
+        f"{c5['end_to_end_docs_per_s']} docs/s, bubble "
+        f"{c5['pipeline_bubble_pct']}%, stages "
+        f"{json.dumps(c5['pipeline_stage_pct'])}")
+    return legs
+
+
 def _chain_designs(torch, fk, X, seed, density):
     """The chain at config-2 width (all of ``X`` at ``CHAIN_STEPS``), three
     ways: (a) one mask cache and one persistent launch over every row (the
@@ -1398,6 +1626,7 @@ def phase_timing(torch, fk, est, X, counts, errs, old):
         + ", ".join(f"{key} {v[0]:.3f} {v[1]:.3f}" for key, v in chain.items())
         + f" (16 single batches of the kernel: {16 * timed['split2']['ms']:.3f})")
 
+    config3 = _k1_config3(torch, fk)
     fused = {
         "name": "rp_fused_project",
         "route": "cuda",
@@ -1411,6 +1640,7 @@ def phase_timing(torch, fk, est, X, counts, errs, old):
         "dense_split2_ms": dense_ms,
         "split2_ms_by_mask_writer": turns,
         "chain_1M_rows_16_steps": chain,
+        "config3": config3,
     }
 
     dp = -(-d // fk.STEP_D) * fk.STEP_D
@@ -1479,6 +1709,62 @@ def phase_timing(torch, fk, est, X, counts, errs, old):
     for row in (fused, cache, lazy):
         row["card"] = CARD
     return [fused, cache, lazy]
+
+
+def _k1_config3(torch, fk) -> dict:
+    """K1 at config 3's shape: one 16,384 x 16,384 -> 512 split2 batch at
+    density 1/128, against its plain version (within ``TOL·max|Y|``), by
+    CUDA events beside its bound, the plain version's time and a float32
+    ``torch.matmul`` (TF32 off) against the materialized matrix.  The
+    bound is the function's: x read once and y written once, and 2 flops a
+    row for each nonzero of this run's mask at the float32 rate (the
+    product needs no more); the kernel's own dense work, 2 bf16 passes of
+    2ndk, stands beside it as ``bound_dense_split2_ms``."""
+    from randomprojection_tpu_torch.ops.precision import fp32_matmul
+
+    n, d, k = C3_ROWS, C3_FEATURES, C3_COMPONENTS
+    density = 1.0 / np.sqrt(d)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.empty((n, d), dtype=torch.float32, device="cuda")
+    x.normal_(generator=g)
+    y = fk.rp_fused_project(x, 0, k, density, mxu_mode="split2")
+    want = fk.fused_project(x, 0, k, density, mxu_mode="split2")
+    err = (y - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= TOL * scale, f"K1 at config 3's shape off its plain version "
+          f"by {err:.3e} (max|Y| {scale:.3e})")
+    m = fk.rp_lazy_matrix(0, k, d, density)
+    nnz = int(torch.count_nonzero(m).item())
+
+    def library():
+        with fp32_matmul():
+            return torch.matmul(x, m.t())
+
+    row = {
+        "shape": f"{n}x{d}->{k} split2, density 1/{int(np.sqrt(d))}",
+        "ms": cuda_ms(lambda: fk.rp_fused_project(
+            x, 0, k, density, mxu_mode="split2"), reps=20, warmup=2),
+        "plain_ms": cuda_ms(lambda: fk.fused_project(
+            x, 0, k, density, mxu_mode="split2"), reps=3),
+        "library_ms": cuda_ms(library, reps=20, warmup=2),
+        "max_abs_err": err,
+    }
+    row.update(_bound((4 * n * d + 4 * n * k) / HBM_BYTES_PER_S,
+                      2 * n * nnz / FP32_FLOP_PER_S))
+    row["mask_nonzeros"] = nnz
+    row["bound_dense_split2_ms"] = 2 * 2 * n * d * k / BF16_FLOP_PER_S * 1e3
+    log(f"rp_fused_project at config 3's shape {row['shape']}: "
+        f"{row['ms']:.3f} ms (mask cache included), bound "
+        f"{row['bound_ms']:.3f} ms by {row['bound_by']} "
+        f"({row['bound_ms'] / row['ms']:.1%} of it; {nnz} nonzeros; the "
+        f"dense 2-pass split2 work alone "
+        f"{row['bound_dense_split2_ms']:.3f} ms), plain "
+        f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+        f"(torch.matmul fp32, TF32 off); vs plain max|d|={err:.3e} "
+        f"max|Y|={scale:.3e}")
+    del x, y, want, m
+    torch.cuda.empty_cache()
+    return row
 
 
 def _hold(torch, tk, errs, got, want, what: str) -> None:
@@ -1784,18 +2070,6 @@ def timing_topk(torch, tk, codes, queries, launches, errs):
 # -- the LSH tier --------------------------------------------------------------------
 
 
-def _lsh_flip_bits(rng, codes, flips: int, n_bits: int):
-    """XOR ``flips`` random bit positions into every row (duplicate
-    positions cancel); the reference bench's generator
-    (randomprojection_tpu/benchmark.py ``_lsh_flip_bits``)."""
-    out = codes.copy()
-    rows = np.repeat(np.arange(out.shape[0], dtype=np.int64), flips)
-    pos = rng.integers(0, n_bits, size=rows.size)
-    np.bitwise_xor.at(out, (rows, pos >> 3),
-                      np.left_shift(np.uint8(1), (pos & 7).astype(np.uint8)))
-    return out
-
-
 def _lsh_data():
     """The reference bench's planted-neighbour corpus and 4 query sets,
     seed 15, drawn in the reference's order (benchmark.py
@@ -1929,9 +2203,9 @@ def phase_lsh(torch, pk, tk, errs):
         _hold_probe(torch, pk, errs, _tile_planes(torch, pk, index, q0[:LSH_TILE], p),
                     pplan.cap, f"rp_probe_gather bench tile, probes={p}")
     gate = [c for c in curve if c["recall_at_m"] >= LSH_RECALL_GATE
-            and c["candidate_fraction"] <= LSH_FRACTION_GATE]
+            and c["candidate_fraction"] <= LSH_CANDIDATE_FRACTION_GATE]
     check(bool(gate), f"no probe count reaches recall >= {LSH_RECALL_GATE} at "
-          f"candidate fraction <= {LSH_FRACTION_GATE}")
+          f"candidate fraction <= {LSH_CANDIDATE_FRACTION_GATE}")
     log(f"lsh: tripwire holds at probes={gate[0]['probes']} (recall "
         f"{gate[0]['recall_at_m']:.4f}, fraction "
         f"{gate[0]['candidate_fraction']:.6f}); curve "
@@ -2756,8 +3030,9 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     try:
+        if _PORT_MISSING is not None:
+            raise _PORT_MISSING
         import randomprojection_tpu_torch as rpt
         from randomprojection_tpu_torch import streaming
         from randomprojection_tpu_torch.ops import _build as build_mod
@@ -2784,7 +3059,7 @@ def main() -> int:
         errs = {"rp_fused_project": 0.0, "rp_lazy_matrix": 0.0,
                 "rp_mask_cache": 0.0, "rp_fused_topk": 0, "rp_probe": 0}
         phase_kernels(torch, fk, errs, old)
-        est, X, counts = phase_main_path(torch, rpt, fk, errs)
+        est, X, counts, main_rate = phase_main_path(torch, rpt, fk, errs)
         phase_host_split(torch, rpt, fk, est, X,
                          [(lo, min(lo + BATCH, N_ROWS))
                           for lo in range(0, N_ROWS, BATCH)])
@@ -2832,6 +3107,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_config5(torch)
         phase_cli(scratch)
+        phase_bench_shapes(torch, fk, tk, errs)
+        for name in ("rp_fused_project", "rp_fused_topk"):
+            rows[name]["max_abs_err"] = errs[name]
+        legs = phase_bench(torch.cuda.get_device_name(0), main_rate)
+        # the bench's path, apart from the main path's launches
+        for name, keys in (
+                ("rp_fused_project", ("rp_fused_project",)),
+                ("rp_mask_cache", ("rp_mask_cache",)),
+                ("rp_lazy_matrix", ("rp_lazy_matrix",)),
+                ("rp_fused_topk", ("rp_fused_topk_wgmma", "rp_fused_topk_popc",
+                                   "rp_topk_merge")),
+                ("rp_probe", ("rp_probe",))):
+            rows[name]["bench_launches"] = {
+                leg: {key: got[key] for key in keys if got.get(key)}
+                for leg, got in legs.items()
+                if any(got.get(key) for key in keys)}
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

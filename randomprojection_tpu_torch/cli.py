@@ -9,16 +9,22 @@ The counterpart of ``randomprojection_tpu/cli.py``'s main path:
                     and a fingerprint sidecar for resume
 - ``stream-bench``  host-streamed throughput (rows/s with the copies to
                     and from the card)
+- ``bench``         the data-resident bench (``benchmark.run``): every
+                    config's rate on the card, the full record then a
+                    compact last line of at most 2 KB
 
 ``--backend auto`` (the default) is the torch backend on ``--device``
 (default ``cuda``): with no card the command exits naming it and never
-carries on on the CPU; ``--device cpu`` asks for the CPU.  The
-reference's other subcommands (``bench``, ``topk-bench``, ``loadgen``,
+carries on on the CPU; ``--device cpu`` asks for the CPU (for ``bench``
+that runs the kernels' plain versions, every timing flagged suspect).  The
+reference's other subcommands (``topk-bench``, ``loadgen``,
 ``recover``, ``doctor``/``report``, ``lint``) and its live-plane flags
 (``--openmetrics``, ``--metrics-port``, ``--health``, ``--flight-dump``)
 are registered and refuse, naming their ROADMAP item; ``--debug-nans``
 and ``--disable-jit`` set JAX options and ``--transform-dma`` picks the TPU
-kernel's DMA route: they have no counterpart here and refuse too.
+kernel's DMA route: they have no counterpart here and refuse too
+(``bench`` takes ``--transform-dma auto``, its default: the kernel's one
+route on the card).
 """
 
 from __future__ import annotations
@@ -32,7 +38,6 @@ import numpy as np
 
 #: later-slice subcommands: registered, they refuse naming their item
 _LATER_COMMANDS = {
-    "bench": "ROADMAP A6 (the bench)",
     "topk-bench": "ROADMAP A13 (ops planes)",
     "loadgen": "ROADMAP A13 (ops planes)",
     "recover": "ROADMAP A13 (ops planes)",
@@ -196,6 +201,28 @@ def build_parser():
                    help="input dtype: bfloat16 halves the h2d bytes "
                         "(bf16 in -> bf16 out policy)")
     _add_common(q)
+
+    q = sub.add_parser("bench", help="data-resident bench on the card")
+    q.add_argument("--preset", default="smoke", choices=["smoke", "full"])
+    q.add_argument("--d", type=int, default=4096,
+                   help="input dimension for the headline modes")
+    q.add_argument("--k", type=int, default=256,
+                   help="output dimension for the headline modes")
+    q.add_argument("--density", type=_density_arg, default=1.0 / 3.0,
+                   help="mask density for the headline modes")
+    q.add_argument("--transform-dma", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="the reference's TPU DMA route switch: only 'auto' "
+                        "runs here (the fused kernel's one route)")
+    q.add_argument("--dispatch-steps", type=_positive_int, default=None,
+                   metavar="K",
+                   help="anti-cache harness steps per call (overrides the "
+                        "preset)")
+    q.add_argument("--device", default="cuda",
+                   help="'cuda' (default; exits with no card) or 'cpu' "
+                        "(the kernels' plain versions, every timing "
+                        "flagged suspect)")
+    _add_observability(q)
 
     for name, item in _LATER_COMMANDS.items():
         # their arguments are not parsed: the command refuses whatever
@@ -539,10 +566,20 @@ def cmd_stream_bench(args):
     print(json.dumps(out))
 
 
+def cmd_bench(args):
+    from randomprojection_tpu_torch.benchmark import emit_bench_output, run
+
+    # the full record first, then the compact digest as the FINAL line
+    emit_bench_output(run(
+        args.preset, k=args.k, d=args.d, density=args.density,
+        dispatch_steps=args.dispatch_steps, device=args.device,
+    ))
+
+
 def _cmd_later(args):
     raise SystemExit(
         f"'{args.cmd}' is not ported yet ({_LATER_COMMANDS[args.cmd]}); the "
-        "port's CLI runs jl-dim, info, project and stream-bench"
+        "port's CLI runs jl-dim, info, project, stream-bench and bench"
     )
 
 
@@ -581,6 +618,8 @@ def main(argv=None):
         return _cmd_later(args)
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.cmd == "bench" and args.transform_dma == "auto":
+        args.transform_dma = None  # the kernel's one route on the card
     _refuse_flags(args)
     if hasattr(args, "log_level"):
         logging.basicConfig(level=getattr(logging, args.log_level.upper()))
@@ -603,7 +642,9 @@ def main(argv=None):
         import os
 
         os.environ["RP_HASH_THREADS"] = str(args.hash_threads)
-    if args.cmd in ("project", "stream-bench") and args.backend != "numpy":
+    if args.cmd == "bench" or (
+        args.cmd in ("project", "stream-bench") and args.backend != "numpy"
+    ):
         _check_device(args)
     telemetry = None
     if getattr(args, "telemetry_jsonl", None):
@@ -618,6 +659,7 @@ def main(argv=None):
             "info": cmd_info,
             "project": cmd_project,
             "stream-bench": cmd_stream_bench,
+            "bench": cmd_bench,
         }[args.cmd](args)
     finally:
         if telemetry is not None:

@@ -36,6 +36,7 @@ traces.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import numbers
@@ -151,6 +152,15 @@ def iter_traced(source, start_row: int = 0):
             close()
 
 
+def _read_stage(stats):
+    """The source's ``'read'`` stage, opened only when the source was given
+    ``stats``: the reference's sources time no read, so a default stream's
+    batch traces carry the same span names as the reference's."""
+    if stats is None:
+        return contextlib.nullcontext()
+    return _stage(stats, "read")
+
+
 def _check_start_row(start_row: int, batch_rows: int, n_rows: int) -> None:
     """Resume offsets must land on a batch boundary — or be the end of the
     stream (a completed run's cursor equals n_rows)."""
@@ -213,7 +223,8 @@ class CallableSource(RowBatchSource):
     store with range reads, database pagination).  It must be deterministic
     in ``(lo, hi)`` for resume to be exact.  ``stats`` (a ``StreamStats``)
     attributes the read's wall to the ``'read'`` stage, so the stream's
-    overlap ratio counts the read among the stages it overlaps.
+    overlap ratio counts the read among the stages it overlaps; without
+    ``stats`` the read is not timed, as in the reference.
     """
 
     def __init__(self, read: Callable[[int, int], np.ndarray], n_rows: int,
@@ -232,7 +243,7 @@ class CallableSource(RowBatchSource):
         _check_start_row(start_row, self.batch_rows, self.n_rows)
         for lo in range(start_row, self.n_rows, self.batch_rows):
             hi = min(lo + self.batch_rows, self.n_rows)
-            with _stage(self.stats, "read"):
+            with _read_stage(self.stats):
                 batch = self._read(lo, hi)
             if tuple(batch.shape) != (hi - lo, self.n_features):
                 raise ValueError(
@@ -258,8 +269,8 @@ class TokenSource(RowBatchSource):
     for each batch's hash (bit-identical at any count; ``None`` keeps the
     ambient default).  ``stats`` (a ``StreamStats``) attributes the token
     read's wall to the ``'read'`` stage and the hash's to the ``'hash'``
-    stage; composed with an ingest source both run on a worker thread,
-    overlapping the card's work.
+    stage (without ``stats`` only the hash is traced); composed with an
+    ingest source both run on a worker thread, overlapping the card's work.
     """
 
     def __init__(self, read_tokens: Callable, n_rows: int, hasher,
@@ -286,7 +297,7 @@ class TokenSource(RowBatchSource):
         _check_start_row(start_row, self.batch_rows, self.n_rows)
         for lo in range(start_row, self.n_rows, self.batch_rows):
             hi = min(lo + self.batch_rows, self.n_rows)
-            with _stage(self.stats, "read"):
+            with _read_stage(self.stats):
                 out = self._read_tokens(lo, hi)
             tokens, indptr = out[0], out[1]
             values = out[2] if len(out) > 2 else None

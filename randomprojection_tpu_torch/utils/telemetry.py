@@ -4,12 +4,13 @@ A copy of the core of ``randomprojection_tpu/utils/telemetry.py`` (the
 port imports nothing of that package): the ``EVENTS`` registry with the
 same names, ``MetricsRegistry`` (counters, gauges, log2 histograms and
 their quantiles), the process-wide ``registry()``, the versioned JSONL
-sink (``TelemetryLog``, ``configure``/``shutdown``/``enabled``/``emit``)
-``parse_event`` and the tracing spans (``Span``, ``start_span``,
+sink (``TelemetryLog``, ``configure``/``shutdown``/``enabled``/
+``active_path``/``emit``), ``parse_event`` and ``read_events``, and the tracing spans (``Span``, ``start_span``,
 ``end_span``, ``activate_span``, ``span``, ``current_span``,
 ``trace_fields``: one trace per streamed batch, its child spans across
 threads).  Files it writes parse with the reference's ``read_events`` and
-its ``trace_report.build_report``.  Live subscribers, ``LiveAggregator``,
+its ``trace_report.build_report``, as with the port's own
+(``utils/trace_report.py``).  Live subscribers, ``LiveAggregator``,
 ``FlightRecorder`` and the OpenMetrics exposition are a later slice
 (ROADMAP A13); until then ``emit`` writes to the JSONL sink alone and is
 a no-op without one.
@@ -24,7 +25,7 @@ import os
 import sys
 import threading
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -38,8 +39,10 @@ __all__ = [
     "configure",
     "shutdown",
     "enabled",
+    "active_path",
     "emit",
     "parse_event",
+    "read_events",
     "Span",
     "current_span",
     "trace_fields",
@@ -506,6 +509,14 @@ def enabled() -> bool:
     return _ACTIVE_LOG is not None
 
 
+def active_path() -> Optional[str]:
+    """Path of the installed sink (None when telemetry is off) — lets a
+    caller that needs a scoped sink (the bench's staged-ingest trace
+    capture) restore the user's sink afterwards."""
+    log = _ACTIVE_LOG
+    return log.path if log is not None else None
+
+
 def _finalizing() -> bool:
     """True when the interpreter is tearing down (or so far gone that we
     cannot even tell).  Emitting from a daemon thread or a ``__del__``
@@ -701,3 +712,24 @@ def parse_event(line: str) -> dict:
     ):
         raise ValueError(f"event line missing 'event'/'ts': {line!r}")
     return rec
+
+
+def read_events(path: str) -> Iterator[dict]:
+    """Iterate the validated events of a JSONL telemetry file.  A torn
+    FINAL line (crash mid-write) is tolerated and skipped; a torn line
+    anywhere else raises — that file is corrupt, not merely truncated.
+    Streams with one line of lookahead (O(1) memory)."""
+    with open(path) as f:
+        pending: Optional[str] = None
+        for line in f:
+            line = line.rstrip("\n")
+            if not line.strip():
+                continue
+            if pending is not None:
+                yield parse_event(pending)  # non-final: torn ⇒ raise
+            pending = line
+        if pending is not None:
+            try:
+                yield parse_event(pending)
+            except ValueError:  # torn final line: tolerated
+                return

@@ -9,7 +9,9 @@ reference's JAX backend (the same threefry matrix); a checkpointed
 one-shot output and refuses a changed fingerprint; ``stream-bench
 --device cpu`` prints the reference's JSON keys; the live-plane flags, the
 JAX-only flags and the later subcommands exit non-zero naming why; with
-no card and no ``--device cpu`` a command exits naming the card.
+no card and no ``--device cpu`` a command exits naming the card; ``bench
+--device cpu`` at toy shapes ends with the compact line the reference
+reads, and refuses ``--transform-dma`` but ``auto``.
 """
 
 import json
@@ -174,7 +176,7 @@ def test_later_and_jax_only_flags_refuse(argv, message):
 
 
 @pytest.mark.parametrize("cmd,item", [
-    ("bench", "A6"), ("topk-bench", "A13"), ("loadgen", "A13"),
+    ("topk-bench", "A13"), ("loadgen", "A13"),
     ("recover", "A13"), ("doctor", "A13"), ("report", "A13"),
     ("lint", "A13"),
 ])
@@ -188,6 +190,7 @@ def test_later_subcommands_refuse_naming_their_item(cmd, item):
     ["stream-bench", "--rows", "8", "--batch-rows", "8", "--d", "8"],
     ["project", "--input", "x.npy", "--output", "y.npy"],
     ["info"],
+    ["bench"],
 ])
 def test_no_card_exits_naming_it(monkeypatch, capsys, argv):
     import torch
@@ -212,3 +215,42 @@ def test_module_entry_point_runs():
         capture_output=True, text=True, cwd=REPO, timeout=120,
     )
     assert r.returncode == 1 and "A13" in r.stderr
+
+
+@pytest.fixture
+def toy_bench(monkeypatch):
+    from randomprojection_tpu_torch import benchmark
+
+    monkeypatch.setitem(benchmark.TOPK_BENCH_SHAPES, "smoke", dict(
+        n_idx=2048, q_tile=128, clients=2, req_rows=16, reqs_per_client=2,
+        max_batch=64, shards=2, replicas=2))
+    monkeypatch.setitem(benchmark.LSH_BENCH_SHAPES, "smoke", dict(
+        n_idx=512, n_bytes=8, cluster=8, nq=8, m=5, bands=4, band_bits=8,
+        noise_bits=2, probe_counts=(1,), calls=1, rerank_tile=8))
+    monkeypatch.setitem(benchmark.TIER_BENCH_SHAPES, "smoke", dict(
+        n_idx=1024, n_bytes=8, nq=8, m=5, calls=1, chunk_rows=256,
+        budget_chunks=1, q_tile=8))
+    monkeypatch.setitem(benchmark.CONFIG3_SHAPES, "smoke",
+                        dict(batch=64, steps=1, calls=1))
+
+
+def test_bench_on_the_cpu_ends_with_the_compact_line(capsys, toy_bench):
+    from randomprojection_tpu import benchmark as ref_bench
+
+    cli.main(["bench", "--device", "cpu", "--d", "512", "--k", "64",
+              "--dispatch-steps", "1"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    record = json.loads(lines[-2])
+    compact = ref_bench.find_compact_line(lines[-1])
+    assert compact is not None and len(lines[-1].encode()) <= 2048
+    assert compact["mode"] == record["mode"] and compact["preset"] == "smoke"
+    assert compact["dispatch_steps"] == 1 == record["dispatch_steps"]
+    assert record["device"] == "cpu" and record["timing_suspect"] is True
+    assert compact["transform_dma"] == "auto"
+
+
+@pytest.mark.parametrize("value", ["on", "off"])
+def test_bench_refuses_transform_dma_but_auto(value):
+    with pytest.raises(SystemExit) as info:
+        cli.main(["bench", "--device", "cpu", "--transform-dma", value])
+    assert "TPU kernel route" in str(info.value.code)

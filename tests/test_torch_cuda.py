@@ -1058,3 +1058,32 @@ def test_countsketch_staged_batches_match_serial(cuda):
         StagedIngestSource(ArraySource(Xs, 512), workers=3,
                            prepare=cs.prepare_batch))])
     np.testing.assert_allclose(staged, serial, rtol=2e-5, atol=2e-5)
+
+
+def test_bench_smoke_on_the_card(cuda):
+    """``bench --preset smoke`` on the card ends with the compact line; the
+    headline mode is believable and within the distortion budget."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from randomprojection_tpu_torch import benchmark
+
+    r = subprocess.run(
+        [sys.executable, "-m", "randomprojection_tpu_torch", "bench",
+         "--preset", "smoke"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=900,
+    )
+    assert r.returncode == 0, r.stderr[-4000:]
+    lines = r.stdout.strip().splitlines()
+    compact = benchmark.find_compact_line(lines[-1])
+    assert compact is not None
+    assert len(lines[-1].encode()) <= benchmark.COMPACT_MAX_BYTES
+    record = json.loads(lines[-2])
+    head = record["all_modes"][record["mode"]]
+    assert compact["mode"] == record["mode"]
+    assert head["timing_suspect"] is False and compact["timing_suspect"] is False
+    assert head["distortion"] <= benchmark.DISTORTION_BUDGET
+    assert record["device"] == torch.cuda.get_device_name(0)

@@ -228,3 +228,143 @@ def test_stage_walls_reach_the_event_log(X, sink):
     assert len(walls) == 3 * (N // BATCH)
     summary = json.loads(json.dumps(stats.summary()))
     assert summary["rows"] == N and summary["queue_depth_max"] <= 2
+
+
+# -- a default stream's span names, and the port's build_report ----------------
+
+TOKENS_PER_DOC, N_DOCS, DOC_BATCH = 5, 96, 32
+
+
+def _span_names(path):
+    return sorted(e["name"] for e in read_events(path)
+                  if e["event"] == "span_start")
+
+
+def _callable_stream(pkg, X, path):
+    """A default ``CallableSource`` (no ``stats``) through the numpy
+    backend of ``pkg``, traced into ``path``."""
+    pkg.utils.telemetry.configure(path)
+    try:
+        est = pkg.GaussianRandomProjection(8, random_state=0,
+                                           backend="numpy").fit(X)
+        src = pkg.streaming.CallableSource(lambda lo, hi: X[lo:hi], N, D,
+                                           batch_rows=BATCH)
+        list(est.transform_stream(src))
+    finally:
+        pkg.utils.telemetry.shutdown()
+
+
+def _token_stream(pkg, path):
+    """A default ``TokenSource`` (no ``stats``) into a numpy-backend
+    ``CountSketch`` of ``pkg``, traced into ``path``."""
+    words = np.asarray([f"w{i}" for i in range(50)])
+    toks = words[np.random.default_rng(2).integers(
+        0, 50, size=N_DOCS * TOKENS_PER_DOC)]
+
+    def read_tokens(lo, hi):
+        return (toks[lo * TOKENS_PER_DOC: hi * TOKENS_PER_DOC],
+                np.arange(0, (hi - lo) * TOKENS_PER_DOC + 1, TOKENS_PER_DOC,
+                          dtype=np.int64))
+
+    fh = pkg.ops.hashing.FeatureHasher(n_features=1 << 10,
+                                       input_type="string", dtype=np.float32)
+    src = pkg.streaming.TokenSource(read_tokens, N_DOCS, fh,
+                                    batch_rows=DOC_BATCH)
+    pkg.utils.telemetry.configure(path)
+    try:
+        cs = pkg.CountSketch(16, random_state=0, backend="numpy").fit_source(src)
+        list(cs.transform_stream(src))
+    finally:
+        pkg.utils.telemetry.shutdown()
+
+
+def _packages():
+    import randomprojection_tpu as ref
+    import randomprojection_tpu.ops.hashing  # noqa: F401
+    import randomprojection_tpu.streaming  # noqa: F401
+    import randomprojection_tpu.utils.telemetry  # noqa: F401
+    import randomprojection_tpu_torch as port
+    import randomprojection_tpu_torch.ops.hashing  # noqa: F401
+    import randomprojection_tpu_torch.streaming  # noqa: F401
+
+    return ref, port
+
+
+@pytest.mark.parametrize("source", ["callable", "token"])
+def test_default_stream_spans_equal_the_reference(tmp_path, X, source):
+    """Without ``stats`` a source times no read: the batch traces carry the
+    reference's span names, and no ``read`` span."""
+    ref, port = _packages()
+    names = {}
+    for tag, pkg in (("ref", ref), ("port", port)):
+        path = str(tmp_path / f"{tag}.jsonl")
+        if source == "callable":
+            _callable_stream(pkg, X, path)
+        else:
+            _token_stream(pkg, path)
+        names[tag] = _span_names(path)
+    assert "read" not in names["port"]
+    assert names["port"] == names["ref"]
+
+
+def test_stats_opens_the_read_stage(X, sink):
+    """With ``stats`` the source's read is a stage of its own (the opt-in
+    divergence): its wall is counted and its span is traced."""
+    est = GaussianRandomProjection(8, random_state=0,
+                                   backend_options=CPU).fit(X)
+    stats = obs.StreamStats()
+    from randomprojection_tpu_torch.streaming import CallableSource
+
+    src = CallableSource(lambda lo, hi: X[lo:hi], N, D, batch_rows=BATCH,
+                         stats=stats)
+    list(stream_transform(est, src, stats=stats))
+    telemetry.shutdown()
+    assert "read" in stats.stage_wall
+    assert _span_names(sink).count("read") == N // BATCH
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_build_report_equals_the_reference(tmp_path, X, writer):
+    """The port's ``build_report`` returns the reference's dict on the same
+    log: one written by a port stream, one by a reference stream (a
+    prefetched stream with ``stats``, so queue depth and stages are in)."""
+    from randomprojection_tpu_torch.utils.trace_report import (
+        build_report as port_build_report,
+    )
+
+    ref, port = _packages()
+    pkg = port if writer == "port" else ref
+    path = str(tmp_path / "events.jsonl")
+    pkg.utils.telemetry.configure(path)
+    try:
+        est = pkg.GaussianRandomProjection(8, random_state=0,
+                                           backend="numpy").fit(X)
+        stats = pkg.utils.observability.StreamStats()
+        src = pkg.streaming.PrefetchSource(
+            pkg.streaming.ArraySource(X, BATCH), depth=2,
+            prepare=est.prepare_batch, stats=stats)
+        list(est.transform_stream(src, stats=stats))
+        pkg.utils.telemetry.emit("index.lsh.fallback", reason="dense")
+    finally:
+        pkg.utils.telemetry.shutdown()
+    got = port_build_report(path)
+    assert got == build_report(path)
+    assert got["traces"]["batches"] == N // BATCH
+    assert got["degraded"]["index.lsh.fallback"] == 1
+
+
+def test_active_path_and_read_events_follow_the_sink(tmp_path):
+    path = str(tmp_path / "events.jsonl")
+    assert telemetry.active_path() is None
+    telemetry.configure(path)
+    try:
+        assert telemetry.active_path() == path
+        telemetry.emit("stream.commit", row=3)
+    finally:
+        telemetry.shutdown()
+    assert telemetry.active_path() is None
+    with open(path, "a") as f:
+        f.write('{"v": 2, "ts": 1.0, "ev')  # a torn final line
+    got = list(telemetry.read_events(path))
+    assert got == list(read_events(path))
+    assert [e["event"] for e in got] == ["stream.commit"]
