@@ -54,7 +54,7 @@ Phases (any failure exits non-zero and prints no result):
    65,536 x 4096 template rolled a row a batch, the reader of the CLI's
    ``stream-bench``) for 8 batches with a checkpoint, cut after 3 batches
    and resumed: bit-identical to an uninterrupted run; then phase 4's
-   model over 2^20 host rows in 65,536-row batches serial, through
+   model over 2^19 host rows in 65,536-row batches serial, through
    ``PrefetchSource(depth=2, prepare=est.prepare_batch)`` and through
    ``StagedIngestSource(workers=4, depth=2, prepare=est.prepare_batch)``,
    in turns (s p t t p s), each with its launches read around it (one
@@ -157,9 +157,9 @@ Phases (any failure exits non-zero and prints no result):
    answering exactly on the fallback counter; and a crash child on the
    card killed at ``mid-demotion@1`` and resumed to the clean run's codes
    and answers;
-12. config 5: ``CountSketch(256)`` at hash space 2^20 over 2^20 docs of 100
+12. config 5: ``CountSketch(256)`` at hash space 2^20 over 2^19 docs of 100
    tokens drawn from a 50,000-word vocabulary (seed 0, the reference's
-   ``measure_config5`` recipe; the one cut is depth, 100M -> 2^20 docs):
+   ``measure_config5`` recipe; the one cut is depth, 100M -> 2^19 docs):
    ``TokenSource`` -> ``FeatureHasher`` (the port's murmur3 library) ->
    ``transform_stream`` on the card in 65,536-doc batches, the first batch
    within rtol = atol = 2e-5 of the host float64 transform; ingest tokens/s,
@@ -182,7 +182,30 @@ Phases (any failure exits non-zero and prints no result):
    distortion, config 4's sign mismatch (<= 1e-4), the LSH recall gate and
    the tiered index's parity with zero fallbacks, config 5's first batch
    within 2e-5 of float64; each config's rate printed, config 2's headline
-   beside phase 4's main-path rate.
+   beside phase 4's main-path rate;
+15. the ops planes at config 4's serving width (2^24 codes x 32 B, m =
+   16; the one cut is depth, 1B -> 2^24 codes), through the CLI in this
+   process: ``loadgen`` (Poisson arrivals, requests of 16, 64 or 256 rows,
+   labels tenant-a and tenant-b, seed 0, ``--server-batch 8192
+   --server-delay-ms 2``) 3 s at each of 250, 500, 1,000, 2,000 and 4,000
+   requests/s, R the highest with every label's p99 within 100 ms, no
+   reject and no submit lag; then 10 s at R/2 (one schedule) with no
+   live-plane flag (a) and with ``--metrics-port 0 --health 25,tenant-a=10
+   --flight-dump --telemetry-jsonl --openmetrics`` (b), a side thread
+   scraping ``/metrics`` (parsed, the ``sharded`` latency histogram in it)
+   and ``/health`` mid-run, the two legs' per-label p50/p90/p99/p99.9 side
+   by side; bursty arrivals (x8 for 1/8 of each second) at the same mean
+   against a target every request misses (c): ``/health`` 503 mid-run and
+   200 within the 5 s settle, ``health.slo_burn`` firing and cleared in
+   the JSONL; on every leg K4 launched one scan and one merge a coalesced
+   batch (the warm-up's included; its counts read around the leg), and
+   leg (b)'s ``serve.topk.batches`` moved by the same number; ``doctor``
+   on (b)'s file renders the latency table and ``doctor --json``'s
+   per-label p99 lies within a log2 bucket of loadgen's exact one;
+   ``topk-bench`` at 2^24 codes, at 2^20 with ``--probes 4,16`` (device
+   rung) and at 2^20 with 4 of its 8 chunks hot (parity, no fallback);
+   ``utils.health_smoke`` and ``utils.live_smoke`` on the card, and
+   ``recover`` of phase 10's 2^24-code snapshot.
 
 The kernels' timings are printed as one JSON line.
 
@@ -305,12 +328,14 @@ TIER_CHUNKS, TIER_HOT = 16, 4
 TIER_CRASH_ROWS, TIER_CRASH_BATCH = 1 << 16, 1 << 13
 # config 5 (benchmark.py measure_config5): CountSketch(256) at hash space
 # 2^20, a 50,000-word vocabulary drawn uniformly with seed 0, 100 tokens a
-# doc, 65,536-doc batches; the one cut is depth, 100M -> 2^20 docs
-C5_FEATURES, C5_K, C5_VOCAB, C5_TOKENS, C5_DOCS = 1 << 20, 256, 50_000, 100, 1 << 20
-# the streamed main path (config 2 fed from the host): 2^20 rows in
-# 65,536-row batches of one template rolled a row a batch (the reader of
-# the CLI's stream-bench), serial, prefetched and staged, in turns
-STREAM_ROWS, STREAM_DEPTH, STREAM_WORKERS = 1 << 20, 2, 4
+# doc, 65,536-doc batches; the one cut is depth, 100M -> 2^19 docs (2^20
+# until phase 15 came: the script stays within half its time limit)
+C5_FEATURES, C5_K, C5_VOCAB, C5_TOKENS, C5_DOCS = 1 << 20, 256, 50_000, 100, 1 << 19
+# the streamed main path (config 2 fed from the host): 2^19 rows (2^20
+# until phase 15 came) in 65,536-row batches of one template rolled a row a
+# batch (the reader of the CLI's stream-bench), serial, prefetched and
+# staged, in turns
+STREAM_ROWS, STREAM_DEPTH, STREAM_WORKERS = 1 << 19, 2, 4
 STREAM_WAYS = ("serial", "prefetch", "staged", "staged", "prefetch", "serial")
 STREAM_POOL = 3  # pinned batches of the profiled turn's source
 PROFILE_BATCHES = 8
@@ -324,6 +349,12 @@ BENCH_TIMEOUT = 600
 # the CLI's project leg: a .npy of 524,288 x 512 float32 rows (1 GiB) in
 # 8,192-row batches, killed once its cursor has committed a batch
 CLI_ROWS, CLI_D, CLI_K, CLI_BATCH = 1 << 19, 512, 64, 8192
+# the ops planes (phase 15): loadgen's open-loop rate search at config 4's
+# serving width, 3 s a step; the highest rate with every label's p99 within
+# 100 ms, no reject and no submit lag is R, and the measured legs run 10 s
+# at R/2 (the bursty leg's health plane gets 5 s to clear after it)
+OPS_RATES, OPS_STEP_S, OPS_P99_MS = (250, 500, 1000, 2000, 4000), 3, 100
+OPS_LEG_S, OPS_SETTLE_S = 10, 5
 
 CARD = ""
 
@@ -1002,7 +1033,7 @@ def _stream_once(fk, streaming, est, src, way, keep_first=False):
 
 
 def phase_stream_main(torch, fk, streaming, est, template):
-    """The streamed main path at config 2's width: 2^20 host rows through
+    """The streamed main path at config 2's width: 2^19 host rows through
     ``stream_transform`` serial, through ``PrefetchSource(depth=2,
     prepare=est.prepare_batch)`` and through ``StagedIngestSource(
     workers=4, depth=2, prepare=est.prepare_batch)`` in turns, each with
@@ -2491,13 +2522,14 @@ def timing_probe(torch, pk, index, queries, launches, errs):
 
 
 def phase_durable(torch, tk, codes, queries, lsh_index, lsh_queries,
-                  scratch: Path):
+                  scratch: Path) -> str:
     """Durable snapshots and exactly-once ingest at config 4's size: the
     serving phase's 2^24 codes with 1% deleted and the LSH tier's 2^20
     codes each saved, verified and loaded, the restored index answering
     bit for bit; a ``DurableIngest`` of 2^20 rows drawn on the card; and a
     crash child on the card killed mid-batch and resumed to the same codes
-    and checksums as the uninterrupted run."""
+    and checksums as the uninterrupted run.  Returns the 2^24-code
+    snapshot's directory, kept for phase 15's ``recover``."""
     from randomprojection_tpu_torch import durable
     from randomprojection_tpu_torch.ann import load_lsh_index
     from randomprojection_tpu_torch.models.sketch import SimHashIndex
@@ -2597,8 +2629,12 @@ def phase_durable(torch, tk, codes, queries, lsh_index, lsh_queries,
             f"{case['resume_returncode']}): codes, manifest checksums and "
             f"query_topk equal the uninterrupted run's; three children in "
             f"{crash_s:.3f} s")
+        kept = scratch / "snapshot"
+        shutil.rmtree(kept, ignore_errors=True)
+        shutil.move(snap, kept)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return str(kept)
 
 
 def _tier_sums(reg):
@@ -3012,6 +3048,304 @@ def phase_config5(torch):
         f"{sm.get('queue_depth_max')})")
 
 
+def _cli_json(argv, on_side=None):
+    """``cli.main(argv)`` in this process (on the main thread: the flight
+    recorder's signal handlers can only go in there), its stdout captured;
+    ``on_side(port)``, when given, runs on a side thread with the live
+    endpoint's port once it is up, and what it returns comes back.  Every
+    kernel's count is set to 0 just before and read just after.  Returns the last
+    stdout line parsed, the launches and ``on_side``'s result."""
+    import contextlib
+    import io
+
+    from randomprojection_tpu_torch import cli
+    from randomprojection_tpu_torch.benchmark import (
+        _read_launches,
+        _zero_launches,
+    )
+
+    side = {}
+
+    def watch():
+        deadline = time.monotonic() + 600
+        while cli._METRICS_SERVER is None and time.monotonic() < deadline:
+            time.sleep(0.005)
+        server = cli._METRICS_SERVER
+        if server is not None:
+            side["out"] = on_side(server.port)
+
+    t = None
+    if on_side is not None:
+        t = threading.Thread(target=watch, name="rp-torch-smoke-scraper",
+                             daemon=True)
+        t.start()
+    out = io.StringIO()
+    _zero_launches()
+    with contextlib.redirect_stdout(out):
+        cli.main(list(argv))
+    launches = _read_launches()
+    if t is not None:
+        t.join(timeout=60)
+        check(not t.is_alive(), "the scraper thread did not finish")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), launches, \
+        side.get("out")
+
+
+def _http(url):
+    """``(status, body)`` of one GET, error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _labels_line(rec) -> str:
+    return "; ".join(
+        f"{label} p50 {row['p50_ms']} p90 {row['p90_ms']} p99 "
+        f"{row['p99_ms']} p99.9 {row['p99.9_ms']} ms (n {row['count']}, "
+        f"rejects {row['rejects']})"
+        for label, row in sorted(rec["labels"].items()))
+
+
+def _hold_k4(rec, launches, what):
+    """One scan and one merge a coalesced batch: the schedule's batches
+    and the warm-up request's, which the server coalesces like any
+    other."""
+    batches = rec["server"]["batches"]
+    scans = launches.get("rp_fused_topk_wgmma", 0) + launches.get(
+        "rp_fused_topk_popc", 0)
+    check(scans == batches == launches.get("rp_topk_merge", 0),
+          f"{what}: K4 launches {launches} for {batches} server batches")
+    return batches
+
+
+def phase_ops_planes(torch, snapshot: str, scratch: Path) -> dict:
+    """The ops planes at config 4's serving width (see the module
+    docstring, phase 15).  Returns K4's launches on each loadgen leg."""
+    from randomprojection_tpu_torch import cli
+    from randomprojection_tpu_torch.utils import telemetry
+    from randomprojection_tpu_torch.utils.metrics_server import (
+        fetch_metrics,
+        parse_openmetrics,
+    )
+
+    t_phase = time.perf_counter()
+    root = scratch / "ops"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    base = ["loadgen", "--index-codes", str(N_CODES), "--code-bytes",
+            str(SIGN_BITS // 8), "--m", str(TOPK_M), "--request-rows",
+            "16,64,256", "--labels", "tenant-a,tenant-b", "--seed", "0",
+            "--server-batch", str(MAX_BATCH), "--server-delay-ms", "2"]
+    leg_launches = {}
+
+    # 1. the highest open-loop rate within the limits
+    rate = None
+    for step in OPS_RATES:
+        rec, launches, _ = _cli_json([*base, "--rate", str(step),
+                                      "--duration", str(OPS_STEP_S)])
+        batches = _hold_k4(rec, launches, f"loadgen at {step}/s")
+        p99 = max(row["p99_ms"] for row in rec["labels"].values())
+        ok = (p99 <= OPS_P99_MS and rec["rejects"] == 0
+              and not rec["open_loop_suspect"] and rec["errors"] == 0)
+        log(f"ops loadgen {step} req/s x {OPS_STEP_S} s: {_labels_line(rec)}; "
+            f"rejects {rec['rejects']}, max_lag_s {rec['max_lag_s']}, "
+            f"served {rec['served_qps']} req/s, {batches} batches "
+            f"({rec['server']['rows_per_batch_mean']} rows mean) -> "
+            f"{'within' if ok else 'past'} p99 <= {OPS_P99_MS} ms")
+        leg_launches[f"step_{step}"] = launches
+        if ok:
+            rate = step
+    check(rate is not None, f"no rate of {OPS_RATES} met p99 <= "
+          f"{OPS_P99_MS} ms with 0 rejects")
+    half = rate / 2
+    log(f"ops loadgen: R = {rate} req/s; legs at R/2 = {half} req/s")
+
+    # 2a. no live-plane flags
+    leg = [*base, "--rate", str(half), "--duration", str(OPS_LEG_S)]
+    rec_a, launches, _ = _cli_json(leg)
+    _hold_k4(rec_a, launches, "leg (a)")
+    leg_launches["leg_a"] = launches
+
+    # 2b. the live plane on, scraped mid-run
+    jsonl, dump, om = root / "b.jsonl", root / "b.flight.json", root / "b.om"
+
+    def scrape(port):
+        seen = {"health": set()}
+        deadline = time.monotonic() + OPS_LEG_S + 60
+        while time.monotonic() < deadline and cli._METRICS_SERVER is not None:
+            try:
+                text = fetch_metrics("127.0.0.1", port)
+                seen["health"].add(
+                    _http(f"http://127.0.0.1:{port}/health")[0])
+            except OSError:
+                break
+            plain, labeled = parse_openmetrics(text)
+            if "rp_serve_latency_sharded_seconds_bucket" in labeled:
+                seen["scrape"] = (plain, labeled)
+                return seen
+            time.sleep(0.2)
+        return seen
+
+    before = telemetry.registry().counter("serve.topk.batches")
+    rec_b, launches, seen = _cli_json(
+        [*leg, "--metrics-port", "0", "--health", "25,tenant-a=10",
+         "--flight-dump", str(dump), "--telemetry-jsonl", str(jsonl),
+         "--openmetrics", str(om)], on_side=scrape)
+    batches = _hold_k4(rec_b, launches, "leg (b)")
+    leg_launches["leg_b"] = launches
+    check(seen is not None and "scrape" in seen,
+          f"no mid-run scrape carried the sharded latency histogram: {seen}")
+    plain, labeled = seen["scrape"]
+    check(seen["health"] <= {200, 503} and seen["health"],
+          f"/health answered {seen['health']}")
+    final, _ = parse_openmetrics(om.read_text())
+    check(final["rp_serve_topk_batches_total"] - before == batches,
+          f"serve.topk.batches moved {final['rp_serve_topk_batches_total']} - "
+          f"{before}, the server served {batches} batches")
+    log(f"ops leg (b): mid-run scrape parsed ({len(plain)} samples, "
+        f"{len(labeled['rp_serve_latency_sharded_seconds_bucket'])} "
+        f"rp_serve_latency_sharded buckets), /health {sorted(seen['health'])}, "
+        f"serve.topk.batches +{batches} == the server's batches == K4's scans")
+    log("ops legs at R/2, (a) no live plane | (b) metrics endpoint, health, "
+        "flight recorder, JSONL:")
+    for label in sorted(rec_a["labels"]):
+        a, b = rec_a["labels"][label], rec_b["labels"][label]
+        log(f"  {label}: " + "  ".join(
+            f"{k} {a[k]} | {b[k]}" for k in
+            ("p50_ms", "p90_ms", "p99_ms", "p99.9_ms", "count", "rejects")))
+    log(f"  served {rec_a['served_qps']} | {rec_b['served_qps']} req/s, "
+        f"max_lag_s {rec_a['max_lag_s']} | {rec_b['max_lag_s']}, batches "
+        f"{rec_a['server']['batches']} | {rec_b['server']['batches']}")
+
+    # 4. the doctor on (b)'s telemetry file
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli.main(["doctor", str(jsonl)])
+    check("serve latency" in text.getvalue()
+          and "sharded[tenant-a]" in text.getvalue(),
+          "doctor rendered no serving latency table")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli.main(["doctor", "--json", str(jsonl)])
+    report = json.loads(text.getvalue())
+    for label, row in rec_b["labels"].items():
+        got = report["latency"][f"sharded[{label}]"]["p99"]
+        exact = row["p99_ms"] / 1e3
+        # the doctor's quantile is within one log2 bucket of the exact one
+        check(exact / 2 <= got <= exact * 2,
+              f"doctor p99 {got} s for {label}, loadgen's exact {exact} s")
+        log(f"ops doctor: {label} p99 {got * 1e3:.3f} ms (log2 buckets) "
+            f"against loadgen's exact {row['p99_ms']} ms")
+
+    # 2c. bursty arrivals against a target every request misses
+    jsonl_c = root / "c.jsonl"
+
+    def watch_health(port):
+        codes = []
+        deadline = time.monotonic() + OPS_LEG_S + OPS_SETTLE_S + 60
+        while time.monotonic() < deadline and cli._METRICS_SERVER is not None:
+            try:
+                code = _http(f"http://127.0.0.1:{port}/health")[0]
+            except OSError:
+                break
+            if not codes or codes[-1] != code:
+                codes.append(code)
+            if codes[-2:] == [503, 200]:
+                break
+            time.sleep(0.1)
+        return codes
+
+    rec_c, launches, codes = _cli_json(
+        [*base, "--rate", str(half), "--duration", str(OPS_LEG_S),
+         "--arrival", "bursty", "--burst-factor", "8", "--burst-fraction",
+         "0.125", "--burst-period", "1", "--settle", str(OPS_SETTLE_S),
+         "--metrics-port", "0", "--health",
+         "0.001,fast=1,slow=2.5,tick=0.1,stall=30",
+         "--telemetry-jsonl", str(jsonl_c)], on_side=watch_health)
+    _hold_k4(rec_c, launches, "leg (c)")
+    leg_launches["leg_c"] = launches
+    check(rec_c["schedule_sha256"] != rec_a["schedule_sha256"]
+          and rec_b["schedule_sha256"] == rec_a["schedule_sha256"],
+          "legs (a) and (b) must share a schedule, (c) another")
+    check(codes is not None and 503 in codes
+          and codes[codes.index(503):][-1] == 200,
+          f"/health during the bursty leg and its settle: {codes}")
+    statuses = {e.get("status") for e in telemetry.read_events(str(jsonl_c))
+                if e["event"] == telemetry.EVENTS.HEALTH_SLO_BURN}
+    check({"firing", "cleared"} <= statuses,
+          f"health.slo_burn statuses {statuses}")
+    log(f"ops leg (c) bursty (x8 for 1/8 of each second) at R/2: "
+        f"{_labels_line(rec_c)}; rejects {rec_c['rejects']}, max_lag_s "
+        f"{rec_c['max_lag_s']}; /health {codes}; health.slo_burn "
+        f"{sorted(statuses)}")
+
+    # 5. topk-bench on the card
+    tb = ["topk-bench", "--code-bytes", str(SIGN_BITS // 8)]
+    rec, launches, _ = _cli_json([*tb, "--index-codes", str(N_CODES)])
+    check(rec["topk_impl"] == "wgmma" and rec["direct_queries_per_s"] > 0,
+          f"topk-bench at 2^24: {rec}")
+    leg_launches["topk_bench_2p24"] = launches
+    log(f"ops topk-bench at {N_CODES} codes: direct "
+        f"{rec['direct_queries_per_s']} q/s, server "
+        f"{rec['server_queries_per_s']} q/s ({rec['server_batches']} "
+        f"batches, p99 {rec['server_latency']['p99'] * 1e3:.3f} ms), "
+        f"launches {launches}")
+    rec, launches, _ = _cli_json([*tb, "--index-codes", str(LSH_N),
+                                  "--probes", "4,16"])
+    curve = rec["lsh"]["curve"]
+    check(rec["lsh"]["probe_path_resolved"] == "device"
+          and all(0 <= p["recall_at_m"] <= 1 for p in curve),
+          f"topk-bench LSH leg: {rec['lsh']}")
+    leg_launches["topk_bench_lsh"] = launches
+    log(f"ops topk-bench at {LSH_N} codes, probes 4,16: " + "; ".join(
+        f"p{p['probes']} recall@{TOPK_M} {p['recall_at_m']} at "
+        f"{p['queries_per_s']} q/s" for p in curve)
+        + f" (exact {rec['direct_queries_per_s']} q/s); device rung "
+        f"dispatches {rec['lsh']['lsh_device_dispatches']}, fallbacks "
+        f"{rec['lsh']['lsh_fallbacks']}, launches {launches}")
+    chunk = LSH_N // 8 * (SIGN_BITS // 8)
+    rec, launches, _ = _cli_json([*tb, "--index-codes", str(LSH_N),
+                                  "--hbm-budget", str(4 * chunk)])
+    tier = rec["tiered"]
+    check(tier["parity_ok"] and tier["fallbacks"] == 0
+          and tier["hot_chunks"] == 4 and tier["cold_chunks"] == 4,
+          f"topk-bench tiered leg: {tier}")
+    log(f"ops topk-bench tiered at {LSH_N} codes, 4 of 8 chunks hot: "
+        f"{tier['queries_per_s']} q/s (x{tier['slowdown_vs_direct']} of "
+        f"direct), hot-hit {tier['hot_hit_fraction']}, cold fetch p99 "
+        f"{tier['cold_fetch_p99_s']} s, parity ok, 0 fallbacks")
+
+    # 6. the smokes and recover as subprocesses on the card
+    for mod, word in (("health_smoke", "health-smoke OK"),
+                      ("live_smoke", "live-smoke OK")):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"randomprojection_tpu_torch.utils.{mod}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0 and word in r.stdout,
+              f"{mod} exited {r.returncode}: {r.stderr[-3000:]}")
+        log(f"ops {mod} on the card: OK in {time.perf_counter() - t0:.1f} s")
+    r = subprocess.run(
+        [sys.executable, "-m", "randomprojection_tpu_torch", "recover",
+         snapshot], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    status = json.loads(r.stdout.strip().splitlines()[-1])
+    check(r.returncode == 0 and status["ok"], f"recover: {status}")
+    log(f"ops recover {Path(snapshot).name}: ok, {status.get('chunks')} "
+        f"chunk(s), coverage_ok {status.get('coverage_ok')}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"ops planes: {time.perf_counter() - t_phase:.1f} s")
+    return leg_launches
+
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -3094,7 +3428,8 @@ def main() -> int:
         phase_lsh_server(index, lsh_queries)
         kernels.append(timing_probe(torch, pk, index, lsh_queries,
                                     probe_launches, errs))
-        phase_durable(torch, tk, codes, queries, index, lsh_queries, scratch)
+        snapshot = phase_durable(torch, tk, codes, queries, index,
+                                 lsh_queries, scratch)
         # each tiered path's launches apart from the serving path's
         tier_launches, lsh_launches = phase_tier(
             torch, tk, pk, codes, queries, lsh_codes, lsh_queries, index,
@@ -3122,6 +3457,16 @@ def main() -> int:
             rows[name]["bench_launches"] = {
                 leg: {key: got[key] for key in keys if got.get(key)}
                 for leg, got in legs.items()
+                if any(got.get(key) for key in keys)}
+        # the ops planes' legs, each counted from 0
+        ops = phase_ops_planes(torch, snapshot, scratch)
+        for name, keys in (
+                ("rp_fused_topk", ("rp_fused_topk_wgmma", "rp_fused_topk_popc",
+                                   "rp_topk_merge")),
+                ("rp_probe", ("rp_probe",))):
+            rows[name]["ops_launches"] = {
+                leg: {key: got[key] for key in keys if got.get(key)}
+                for leg, got in ops.items()
                 if any(got.get(key) for key in keys)}
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:

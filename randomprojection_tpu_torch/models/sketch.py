@@ -985,7 +985,7 @@ class TopKServer:
             telemetry.emit(
                 EVENTS.SERVE_TOPK_BATCH, rows=int(n), padded=int(pad_to),
                 requests=len(batch), m=int(self.m), wall_s=round(wall, 6),
-                **kw,
+                **({} if probes is None else {"probes": int(probes)}),
             )
         lo = 0
         for codes, fut, label, t_enq in batch:
@@ -1007,6 +1007,7 @@ class TopKServer:
                     label=label, rows=int(hi - lo), m=int(self.m),
                     queue_wait_s=round(queue_wait, 9),
                     serve_s=round(wall, 9), total_s=round(total, 9),
+                    **({} if probes is None else {"probes": int(probes)}),
                 )
             lo = hi
 

@@ -1,15 +1,15 @@
-"""Per-batch critical-path attribution over the telemetry span stream.
+"""Per-batch critical-path attribution over the telemetry span stream, and
+the doctor's text views.
 
-A copy of ``build_report`` from ``randomprojection_tpu/utils/trace_report.py``
-(the port imports nothing of that package), with the degraded-event audit
-and the health-verdict names it counts.  Given the same JSONL file it
-returns the reference's dict.  Within each batch trace (a root span named
+A copy of ``randomprojection_tpu/utils/trace_report.py`` (the port imports
+nothing of that package): ``build_report`` with the degraded-event audit
+and the health-verdict names it counts, ``render_report`` (the doctor's
+text), and ``build_postmortem``/``render_postmortem`` over a flight-recorder
+dump.  Given the same file each returns the reference's dict or text.  Within each batch trace (a root span named
 ``batch`` and its child stages across threads) every instant of the root
 interval is attributed to exactly one covering child stage (ties to the
 earliest-started span) or, uncovered, to the **bubble**; stage fractions
-and the bubble sum to 100% of batch wall by construction.  The text views
-(``render_report``, the postmortem) and the CLI's ``doctor``/``report``
-are a later slice (ROADMAP A13).
+and the bubble sum to 100% of batch wall by construction.
 """
 
 from __future__ import annotations
@@ -24,7 +24,14 @@ from randomprojection_tpu_torch.utils.telemetry import (
     registered_event,
 )
 
-__all__ = ["build_report", "DEGRADED_EVENTS", "HEALTH_VERDICT_EVENTS"]
+__all__ = [
+    "build_report",
+    "render_report",
+    "build_postmortem",
+    "render_postmortem",
+    "DEGRADED_EVENTS",
+    "HEALTH_VERDICT_EVENTS",
+]
 
 # health-plane verdict events: each carries a firing/cleared
 # ``status`` lifecycle; the doctor folds them into a per-detector
@@ -687,3 +694,488 @@ def build_report(path: str) -> dict:
             else None
         ),
     }
+
+
+def _bar(pct: float, width: int = 28) -> str:
+    n = int(round(pct / 100.0 * width))
+    return "#" * n + "." * (width - n)
+
+
+def render_report(report: dict) -> str:
+    """Human-readable doctor view: stage waterfall, bubble, pipeline
+    overlap, queue depth, degraded-event audit, and (when the caller
+    attached one — see ``cli.cmd_doctor``) the regression-tripwire
+    status."""
+    lines = []
+    tr = report["traces"]
+    sp = report["spans"]
+    lines.append(
+        f"run doctor: {report['file']} — {report['events']} events, "
+        f"{tr['batches']} batch traces"
+        + (f" ({tr['incomplete']} incomplete)" if tr["incomplete"] else "")
+        + (
+            f", {sp['orphan_starts']} orphaned span(s)"
+            if sp["orphan_starts"] else ""
+        )
+    )
+    b = report["batch"]
+    if tr["batches"]:
+        lines.append("")
+        lines.append(
+            f"per-batch critical path (% of {b['wall_s']:.4f}s total "
+            "batch wall):"
+        )
+        rows = list(b["stages"].items()) + [("(bubble)", b["bubble"])]
+        for name, d in rows:
+            lines.append(
+                f"  {name:<14} {_bar(d['pct'])} {d['pct']:6.2f}%  "
+                f"{d['wall_s']:.4f}s"
+            )
+        total_pct = sum(d["pct"] for _, d in rows)
+        lines.append(f"  {'':14} stages + bubble = {total_pct:.1f}% of "
+                     "batch wall")
+        p = report["pipeline"]
+        lines.append("")
+        lines.append(
+            f"pipeline: elapsed {p['elapsed_s']:.4f}s over "
+            f"{p['stage_wall_s']:.4f}s summed stage wall -> overlap ratio "
+            f"~{p['overlap_ratio_est']:.3f}"
+        )
+    else:
+        lines.append("")
+        lines.append(
+            "no complete batch traces (flat v1 log, or the run died before "
+            "any batch committed) — audit below still applies"
+        )
+    q = report.get("queue_depth")
+    if q:
+        lines.append(
+            f"prefetch queue: {q['samples']} samples, depth max {q['max']}"
+            f"/mean {q['mean']}"
+            + (f" (capacity {q['capacity']})" if q.get("capacity") else "")
+        )
+    xf = report.get("transform")
+    if xf:
+        kd, kr = xf["kernel_dispatches"], xf["kernel_rows"]
+        lines.append(
+            f"transform kernel: {kd['dma']} DMA dispatch(es) "
+            f"({kr['dma']} rows), {kd['single']} single-buffered "
+            f"({kr['single']} rows)"
+        )
+        if xf.get("fused_dispatch_calls"):
+            lines.append(
+                f"  dispatch fusion: {xf['fused_dispatch_calls']} chained "
+                f"call(s), {xf['fused_dispatch_rows']} rows, mean "
+                f"{xf['fused_dispatch_mean_steps']} steps/call"
+            )
+    sv = report.get("serving")
+    if sv:
+        lines.append(
+            f"serving: {sv['topk_kernel_dispatches']} fused top-k kernel "
+            f"dispatch(es), {sv['topk_kernel_queries']} query rows"
+        )
+        if sv.get("shard_tiles"):
+            lines.append(
+                f"  sharded tier: {sv['shard_tiles']} tile(s) fanned over "
+                f"{sv['shard_dispatches']} shard dispatch(es), "
+                f"{sv['shard_merges']} cross-shard merge(s) "
+                f"({sv['shard_merge_wall_s']:.4f}s merge wall)"
+            )
+        if sv.get("shard_batches"):
+            reps = sv.get("shard_replicas_used") or []
+            lines.append(
+                f"  replica routing: {sv['shard_batches']} coalesced "
+                f"batch(es), {sv['shard_batch_rows']} rows over "
+                f"{len(reps)} replica(s)"
+            )
+    cg = report.get("candidate_generation")
+    if cg:
+        lines.append("")
+        lines.append("candidate generation (multi-probe LSH):")
+        frac = cg.get("candidate_fraction_mean")
+        lines.append(
+            f"  {cg['lsh_tiles']} LSH tile(s), {cg['lsh_queries']} query "
+            f"rows, mean {cg['probed_buckets_per_tile']} probed "
+            f"buckets/tile"
+        )
+        lines.append(
+            f"  candidates re-ranked: {cg['candidates']}"
+            + (
+                f" (mean {100.0 * frac:.2f}% of the live corpus per tile)"
+                if frac is not None else ""
+            )
+        )
+        if cg.get("device_tiles"):
+            lines.append(
+                f"  device-fused probe tiles: {cg['device_tiles']} "
+                f"({cg.get('device_uploads', 0)} CSR upload(s), "
+                f"{cg.get('device_upload_bytes', 0)} bytes)"
+            )
+        ad = cg.get("adaptive")
+        if ad:
+            lines.append(
+                f"  adaptive probing: {ad['tiles']} tile(s), "
+                f"{ad['rounds']} round(s), mean {ad['probes_used_mean']} "
+                f"probes/query, {ad['early_exits']} early exit(s), "
+                f"{ad['budget_stops']} budget stop(s)"
+            )
+        fb = cg.get("fallbacks") or {}
+        if fb:
+            detail = ", ".join(f"{k} {v}" for k, v in fb.items())
+            lines.append(
+                f"  fallbacks to the exact path: {sum(fb.values())} "
+                f"({detail}; rate {cg['fallback_rate']})"
+            )
+        else:
+            lines.append("  fallbacks to the exact path: none")
+        if cg.get("builds"):
+            lines.append(
+                f"  bucket builds: {cg['builds']} fold(s), "
+                f"{cg['build_rows']} rows"
+            )
+    rs = report.get("residency")
+    if rs:
+        lines.append("")
+        lines.append("residency (tiered hot/cold corpus, r21):")
+        ratio = rs.get("hot_hit_ratio")
+        lines.append(
+            f"  {rs['tiles']} tiered tile(s): {rs['hot_rows']} hot row(s) "
+            f"/ {rs['cold_rows']} cold row(s)"
+            + (f" — hot-hit ratio {ratio:.4f}" if ratio is not None else "")
+        )
+        if rs.get("cold_fetches"):
+            p99 = rs.get("cold_fetch_p99_s")
+            lines.append(
+                f"  cold fetches: {rs['cold_fetches']} "
+                f"({rs['cold_fetch_rows']} rows, "
+                f"{rs['cold_fetch_bytes']} bytes) — wall "
+                f"{rs['cold_fetch_wall_s']:.4f}s, overlapped "
+                f"{rs['cold_fetch_overlapped_s']:.4f}s under the hot "
+                f"kernel"
+                + (f", p99 {p99 * 1e3:.2f}ms" if p99 is not None else "")
+                + (
+                    f", {rs['sync_fetches']} synchronous"
+                    if rs.get("sync_fetches") else ""
+                )
+            )
+        if rs.get("promotions") or rs.get("demotions"):
+            lines.append(
+                f"  churn: {rs['promotions']} promotion(s), "
+                f"{rs['demotions']} demotion(s) "
+                f"({rs['demotion_wall_s']:.4f}s demotion wall, all "
+                "background)"
+            )
+        fb = rs.get("fallbacks") or {}
+        if fb:
+            detail = ", ".join(f"{k} {v}" for k, v in fb.items())
+            lines.append(
+                f"  degraded sync fallbacks: {sum(fb.values())} ({detail})"
+            )
+        else:
+            lines.append("  degraded sync fallbacks: none")
+    lat = report.get("latency")
+    if lat:
+        lines.append("")
+        lines.append(
+            "serve latency (enqueue→complete, per server / [label]; "
+            "bucket-estimated quantiles, exact count/mean):"
+        )
+        for key, q in lat.items():
+            qtxt = "  ".join(
+                f"{p}={q[p] * 1e3:.2f}ms" if q[p] is not None else f"{p}=-"
+                for p in ("p50", "p90", "p99", "p99.9")
+            )
+            lines.append(
+                f"  {key:<24} n={q['count']:<7} "
+                f"mean={q['mean'] * 1e3:.2f}ms  {qtxt}"
+            )
+    lg = report.get("loadgen")
+    if lg:
+        lines.append("")
+        lines.append("loadgen (open-loop) runs:")
+        for r in lg:
+            lines.append(
+                f"  {r['requests']} requests / {r['rows']} rows in "
+                f"{r['elapsed_s']}s — rejects {r['rejects']}, errors "
+                f"{r['errors']}, max submit lag {r['max_lag_s']}s, "
+                f"schedule {str(r['schedule_sha256'])[:12]}"
+            )
+    hp = report.get("health")
+    if hp:
+        lines.append("")
+        lines.append("health verdicts (r20 detectors):")
+        for name, c in hp["verdicts"].items():
+            lines.append(
+                f"  {name:<28} fired {c.get('firing', 0)}x, "
+                f"cleared {c.get('cleared', 0)}x"
+            )
+        if hp["still_firing"]:
+            lines.append(
+                "  STILL FIRING at end of log: "
+                + ", ".join(hp["still_firing"])
+            )
+        for d in hp["flight_dumps"]:
+            lines.append(
+                f"  flight dump: {d['path']} ({d['reason']}, "
+                f"{d['events']} ring events)"
+            )
+    lines.append("")
+    lines.append("degraded-event audit:")
+    worst = [(k, v) for k, v in report["degraded"].items() if v]
+    for k, v in report["degraded"].items():
+        lines.append(f"  {k:<36} {v}")
+    subs = report.get("subscriber_drops")
+    if subs:
+        # which observer overran its bounded queue, not just how often
+        # the overflow report fired
+        for sub, n in subs.items():
+            lines.append(f"    subscriber[{sub}] dropped {n}")
+    lines.append(
+        "  -> " + (
+            "DEGRADED paths taken: " + ", ".join(k for k, _ in worst)
+            if worst else "no degraded paths recorded"
+        )
+    )
+    rec = report.get("recovery")
+    if rec:
+        lines.append("")
+        lines.append("crash recovery:")
+        for r in rec["resumes"]:
+            lines.append(
+                f"  resumed at rows_done={r['rows_done']} "
+                f"(replayed {r['replay_rows']} uncommitted rows)"
+            )
+        if rec["orphan_chunks_swept"]:
+            lines.append(
+                f"  {rec['orphan_chunks_swept']} orphan spill file(s) "
+                "swept (uncommitted chunk writes from the crash)"
+            )
+    unreg = report.get("unregistered_events")
+    if unreg:
+        lines.append(
+            "  WARNING: event name(s) not in the telemetry.EVENTS "
+            "registry this report was built against:"
+        )
+        for k, v in sorted(unreg.items()):
+            lines.append(f"    {k:<34} {v}")
+    tw = report.get("tripwire")
+    if tw is not None:
+        lines.append("")
+        if tw.get("error"):
+            lines.append(f"regression tripwire: unavailable ({tw['error']})")
+        else:
+            regs = tw.get("regressions")
+            vs = tw.get("regressions_vs")
+            if regs:
+                lines.append(
+                    f"regression tripwire ({tw['baseline']}): "
+                    f"{len(regs)} recorded vs {vs}:"
+                )
+                for r in regs:
+                    lines.append(
+                        f"  {r['metric']}: {r['previous']} -> {r['current']} "
+                        f"(-{r['drop_pct']}%)"
+                    )
+            elif tw.get("regressions_skipped"):
+                lines.append(
+                    f"regression tripwire ({tw['baseline']}): skipped — "
+                    f"{tw['regressions_skipped']}"
+                )
+            elif regs == [] and vs:
+                # the tripwire actually RAN in that round and compared
+                # clean against a named baseline
+                lines.append(
+                    f"regression tripwire ({tw['baseline']}): no >10% "
+                    f"drops recorded vs {vs}"
+                )
+            else:
+                # record predates the tripwire (no verdict on file): say
+                # so — never report a comparison that was never computed
+                lines.append(
+                    f"regression tripwire ({tw['baseline']}): no verdict "
+                    "recorded in that round's record"
+                )
+    return "\n".join(lines) + "\n"
+
+
+# -- flight-recorder postmortem -----------------------------------------------
+
+
+def build_postmortem(dump: dict) -> dict:
+    """Reconstruct the final seconds from a ``FlightRecorder`` dump
+    (the JSON ``telemetry.FlightRecorder.dump`` writes): last-known
+    per-stage activity, spans in flight at death, the detectors firing
+    at death, and a counter digest.  Raises ``ValueError`` on a file
+    that is not a flight-recorder dump — the doctor must never render
+    a confident postmortem from the wrong artifact."""
+    if dump.get("format") != "rp-flight-recorder":
+        raise ValueError(
+            "not a flight-recorder dump (format="
+            f"{dump.get('format')!r}, want 'rp-flight-recorder')"
+        )
+    death_ts = dump.get("ts")
+    events = dump.get("events") or []
+    stages: dict = {}        # stage -> {"last_ts", "events"}
+    open_spans: dict = {}    # span_id -> span_start record
+    window_t0 = None
+    for e in events:
+        if not isinstance(e, dict):
+            continue
+        ts = e.get("ts")
+        if isinstance(ts, (int, float)):
+            window_t0 = ts if window_t0 is None else min(window_t0, ts)
+        name = e.get("event")
+        if name in (EVENTS.SPAN_START, EVENTS.SPAN_END):
+            stage = str(e.get("name"))
+            st = stages.setdefault(stage, {"last_ts": None, "events": 0})
+            st["events"] += 1
+            if isinstance(ts, (int, float)):
+                st["last_ts"] = ts if st["last_ts"] is None else max(
+                    st["last_ts"], ts
+                )
+            sid = e.get("span_id")
+            if sid is not None:
+                if name == EVENTS.SPAN_START:
+                    open_spans[sid] = e
+                else:
+                    open_spans.pop(sid, None)
+
+    def _age(ts):
+        if ts is None or not isinstance(death_ts, (int, float)):
+            return None
+        return round(death_ts - ts, 3)
+
+    stage_rows = [
+        {
+            "stage": stage,
+            "events": st["events"],
+            "last_ts": st["last_ts"],
+            "age_s": _age(st["last_ts"]),
+        }
+        for stage, st in sorted(
+            stages.items(),
+            key=lambda kv: kv[1]["last_ts"] or 0.0,
+            reverse=True,
+        )
+    ]
+    # "the stage active at death": most-recently-heartbeating stage,
+    # preferring one with a span still OPEN in the ring window
+    last_active = None
+    open_stages = {str(s.get("name")) for s in open_spans.values()}
+    for row in stage_rows:
+        if row["stage"] in open_stages:
+            last_active = row["stage"]
+            break
+    if last_active is None and stage_rows:
+        last_active = stage_rows[0]["stage"]
+    in_flight = [
+        {
+            "name": str(s.get("name")),
+            "trace_id": s.get("trace_id"),
+            "span_id": s.get("span_id"),
+            "age_s": _age(s.get("ts")),
+        }
+        for s in sorted(
+            open_spans.values(), key=lambda s: s.get("ts") or 0.0
+        )
+    ]
+    tail = [
+        {"event": e.get("event"), "age_s": _age(e.get("ts"))}
+        for e in events[-10:]
+        if isinstance(e, dict)
+    ]
+    counters = {}
+    snap = dump.get("counters") or {}
+    for k, v in sorted((snap.get("counters") or {}).items()):
+        if v:
+            counters[k] = v
+    health = dump.get("health")
+    return {
+        "format": dump.get("format"),
+        "v": dump.get("v"),
+        "pid": dump.get("pid"),
+        "reason": dump.get("reason"),
+        "death_ts": death_ts,
+        "ring": {
+            "events": len(events),
+            "capacity": dump.get("capacity"),
+            "window_s": (
+                round(death_ts - window_t0, 3)
+                if (window_t0 is not None
+                    and isinstance(death_ts, (int, float)))
+                else None
+            ),
+        },
+        "last_active_stage": last_active,
+        "stages": stage_rows,
+        "in_flight": in_flight,
+        "firing": health if isinstance(health, list) else [],
+        "health_error": (
+            health.get("error") if isinstance(health, dict) else None
+        ),
+        "tail": tail,
+        "counters": counters,
+    }
+
+
+def render_postmortem(pm: dict) -> str:
+    """Human-readable postmortem (``cli doctor --postmortem``)."""
+    lines = [
+        f"flight-recorder postmortem: pid {pm['pid']}, "
+        f"reason {pm['reason']!r}",
+        f"  ring: {pm['ring']['events']} events"
+        + (
+            f" over the final {pm['ring']['window_s']}s"
+            if pm["ring"]["window_s"] is not None else ""
+        )
+        + f" (capacity {pm['ring']['capacity']})",
+    ]
+    if pm["last_active_stage"]:
+        lines.append(f"  last active stage: {pm['last_active_stage']}")
+    if pm["stages"]:
+        lines.append("")
+        lines.append("last-known per-stage activity (age at death):")
+        for row in pm["stages"]:
+            age = row["age_s"]
+            lines.append(
+                f"  {row['stage']:<18} x{row['events']:<6}"
+                + (f" last {age:.3f}s before death" if age is not None
+                   else " (no timestamp)")
+            )
+    if pm["in_flight"]:
+        lines.append("")
+        lines.append("spans in flight at death:")
+        for s in pm["in_flight"]:
+            lines.append(
+                f"  {s['name']:<18} trace {str(s['trace_id'])[:12]}"
+                + (f"  open {s['age_s']:.3f}s" if s["age_s"] is not None
+                   else "")
+            )
+    if pm["firing"]:
+        lines.append("")
+        lines.append("detectors firing at death:")
+        for v in pm["firing"]:
+            lines.append(
+                f"  {v.get('detector', '?'):<28} key={v.get('key')}"
+                + ("  [critical]" if v.get("critical") else "")
+            )
+    elif pm.get("health_error"):
+        lines.append("")
+        lines.append(
+            f"  (health snapshot failed at dump: {pm['health_error']})"
+        )
+    if pm["tail"]:
+        lines.append("")
+        lines.append("final events:")
+        for e in pm["tail"]:
+            lines.append(
+                f"  {str(e['event']):<34}"
+                + (f" {e['age_s']:.3f}s before death"
+                   if e["age_s"] is not None else "")
+            )
+    if pm["counters"]:
+        lines.append("")
+        lines.append("nonzero counters at death:")
+        for k, v in pm["counters"].items():
+            lines.append(f"  {k:<44} {v:g}")
+    return "\n".join(lines) + "\n"

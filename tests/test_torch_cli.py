@@ -7,9 +7,10 @@ for bit and on the torch backend (CPU) within ``1e-5·max|Y|`` of the
 reference's JAX backend (the same threefry matrix); a checkpointed
 ``project`` cut mid-run resumes through its fingerprint sidecar to the
 one-shot output and refuses a changed fingerprint; ``stream-bench
---device cpu`` prints the reference's JSON keys; the live-plane flags, the
-JAX-only flags and the later subcommands exit non-zero naming why; with
-no card and no ``--device cpu`` a command exits naming the card; ``bench
+--device cpu`` prints the reference's JSON keys and runs under each
+live-plane flag; the ops planes' subcommands run on the CPU; the JAX-only
+flags, ``lint`` and a second shard or replica exit non-zero naming why;
+with no card and no ``--device cpu`` a command exits naming the card; ``bench
 --device cpu`` at toy shapes ends with the compact line the reference
 reads, and refuses ``--transform-dma`` but ``auto``.
 """
@@ -159,10 +160,6 @@ def test_stream_bench_reader_rolls_the_template():
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--openmetrics", "m.txt"], "A13"),
-    (["--metrics-port", "0"], "A13"),
-    (["--health"], "A13"),
-    (["--flight-dump", "f.json"], "A13"),
     (["--debug-nans"], "jax.config"),
     (["--disable-jit"], "jax.config"),
     (["--transform-dma", "on"], "TPU kernel route"),
@@ -175,15 +172,74 @@ def test_later_and_jax_only_flags_refuse(argv, message):
     assert message in str(info.value.code)
 
 
+@pytest.mark.parametrize("flag", [
+    ["--openmetrics", "m.txt"], ["--metrics-port", "0"], ["--health"],
+    ["--flight-dump", "f.json"],
+])
+def test_live_plane_flags_run_on_the_cpu(capsys, tmp_path, monkeypatch, flag):
+    from randomprojection_tpu_torch.utils import telemetry
+
+    monkeypatch.chdir(tmp_path)
+    cli.main(["stream-bench", "--device", "cpu", "--rows", "64",
+              "--batch-rows", "32", "--d", "8", "--k", "4", *flag])
+    assert _json_line(capsys.readouterr().out)["rows"] == 64
+    if flag[0] == "--openmetrics":
+        text = (tmp_path / "m.txt").read_text()
+        assert "rp_stream_rows_total 64" in text and text.endswith("# EOF\n")
+    assert not telemetry._SUBSCRIPTIONS and cli._METRICS_SERVER is None
+
+
 @pytest.mark.parametrize("cmd,item", [
-    ("topk-bench", "A13"), ("loadgen", "A13"),
-    ("recover", "A13"), ("doctor", "A13"), ("report", "A13"),
-    ("lint", "A13"),
+    ("lint", "A14"),
+    ("topk-bench --shards 2", "A10"), ("topk-bench --replicas 2", "A10"),
+    ("loadgen --shards 2", "A10"), ("loadgen --replicas 2", "A10"),
 ])
 def test_later_subcommands_refuse_naming_their_item(cmd, item):
     with pytest.raises(SystemExit) as info:
-        cli.main([cmd, "--anything", "goes"])
+        cli.main([*cmd.split(), "--device", "cpu", "--index-codes", "64"])
     assert item in str(info.value.code) and "not ported" in str(info.value.code)
+
+
+@pytest.mark.parametrize("cmd", ["topk-bench", "loadgen", "recover",
+                                 "doctor", "report"])
+def test_ops_subcommands_run_on_the_cpu(capsys, tmp_path, cmd):
+    """The ops planes' subcommands at toy shapes on the CPU (their records
+    are held to the reference's in tests/test_torch_loadgen.py and
+    tests/test_torch_live_plane.py)."""
+    from randomprojection_tpu_torch import durable
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+
+    codes = np.random.default_rng(2).integers(0, 256, size=(256, 8),
+                                              dtype=np.uint8)
+    jsonl = str(tmp_path / "t.jsonl")
+    loadgen = ["--rate", "40", "--duration", "0.3", "--index-codes", "256",
+               "--code-bytes", "8", "--m", "3", "--request-rows", "2,4",
+               "--device", "cpu", "--telemetry-jsonl", jsonl]
+    argv = {
+        "topk-bench": ["--index-codes", "256", "--code-bytes", "8",
+                       "--queries", "16", "--request-rows", "8",
+                       "--clients", "2", "--m", "3", "--device", "cpu"],
+        "loadgen": loadgen,
+        "recover": [str(tmp_path / "snap")],
+        "doctor": [jsonl],
+        "report": ["--json", jsonl],
+    }[cmd]
+    if cmd == "recover":
+        durable.save_index(SimHashIndex(codes, device="cpu"),
+                           str(tmp_path / "snap"))
+    if cmd in ("doctor", "report"):
+        cli.main(["loadgen", *loadgen])
+        capsys.readouterr()
+    rv = cli.main([cmd, *argv])
+    out = capsys.readouterr().out
+    assert rv in (None, 0)
+    if cmd == "doctor":
+        assert "serve latency" in out and "sharded[tenant-" in out
+    else:
+        rec = _json_line(out)
+        key = {"topk-bench": "direct_queries_per_s", "loadgen": "metric",
+               "recover": "ok", "report": "latency"}[cmd]
+        assert rec[key]
 
 
 @pytest.mark.parametrize("argv", [
@@ -191,6 +247,9 @@ def test_later_subcommands_refuse_naming_their_item(cmd, item):
     ["project", "--input", "x.npy", "--output", "y.npy"],
     ["info"],
     ["bench"],
+    ["topk-bench"],
+    ["loadgen"],
+    ["recover", "--smoke"],
 ])
 def test_no_card_exits_naming_it(monkeypatch, capsys, argv):
     import torch
@@ -214,7 +273,7 @@ def test_module_entry_point_runs():
         [sys.executable, "-m", "randomprojection_tpu_torch", "lint"],
         capture_output=True, text=True, cwd=REPO, timeout=120,
     )
-    assert r.returncode == 1 and "A13" in r.stderr
+    assert r.returncode == 1 and "A14" in r.stderr
 
 
 @pytest.fixture

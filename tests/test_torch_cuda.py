@@ -1087,3 +1087,112 @@ def test_bench_smoke_on_the_card(cuda):
     assert head["timing_suspect"] is False and compact["timing_suspect"] is False
     assert head["distortion"] <= benchmark.DISTORTION_BUDGET
     assert record["device"] == torch.cuda.get_device_name(0)
+
+
+def _run_scraped(argv, scrape):
+    """``cli.main(argv)`` on a thread; while it runs, ``scrape(port)`` is
+    called on this thread with the live endpoint's port until it returns
+    True.  Returns the command's stdout lines and whether a scrape got
+    through."""
+    import contextlib
+    import io
+    import threading
+    import time
+
+    from randomprojection_tpu_torch import cli
+
+    out, err = io.StringIO(), []
+
+    def run():
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main(list(argv))
+        except BaseException as e:  # surfaced after the join
+            err.append(e)
+
+    t = threading.Thread(target=run, name="rp-torch-test-cli", daemon=True)
+    t.start()
+    done = False
+    while t.is_alive() and not done:
+        server = cli._METRICS_SERVER
+        if server is not None:
+            try:
+                done = scrape(server.port)
+            except OSError:
+                pass
+        time.sleep(0.05)
+    t.join(timeout=300)
+    assert not t.is_alive() and not err, err
+    return out.getvalue().strip().splitlines(), done
+
+
+def test_loadgen_with_the_live_plane_on_the_card(cuda):
+    """A short open-loop run at 2^16 codes with the metrics endpoint and
+    the health plane on: a mid-run scrape carries the ``sharded`` latency
+    histogram, ``/health`` answers, and K4 launched one scan and one merge
+    per coalesced batch (the warm-up's included), none on another route."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+    from randomprojection_tpu_torch.utils import telemetry
+    from randomprojection_tpu_torch.utils.metrics_server import (
+        fetch_metrics,
+        parse_openmetrics,
+    )
+
+    seen = {}
+
+    def scrape(port):
+        plain, labeled = parse_openmetrics(fetch_metrics("127.0.0.1", port))
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/health", timeout=5) as r:
+                seen["health"] = r.status
+        except urllib.error.HTTPError as e:
+            seen["health"] = e.code
+        if "rp_serve_latency_sharded_seconds_bucket" in labeled:
+            seen["labeled"] = labeled
+            return True
+        return False
+
+    tk.reset_launches()
+    lines, scraped = _run_scraped(
+        ["loadgen", "--rate", "200", "--duration", "2", "--index-codes",
+         str(1 << 16), "--code-bytes", "32", "--m", "16", "--metrics-port",
+         "0", "--health", "25"], scrape)
+    launches = dict(tk.LAUNCHES)
+    rec = json.loads(lines[-1])
+    assert scraped and seen["health"] in (200, 503)
+    assert rec["errors"] == 0 and rec["rejects"] == 0
+    batches = rec["server"]["batches"]
+    assert 1 <= batches <= rec["requests"] + 1
+    assert launches.get("rp_fused_topk_wgmma") == batches
+    assert launches.get("rp_topk_merge") == batches
+    assert not launches.get("rp_fused_topk_popc")
+    assert not telemetry._SUBSCRIPTIONS
+
+
+def test_topk_bench_on_the_card(cuda):
+    """``topk-bench`` at 2^16 codes on the card: the wgmma route, both
+    rates, and the tiered index's answers equal to the resident one's."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    r = subprocess.run(
+        [sys.executable, "-m", "randomprojection_tpu_torch", "topk-bench",
+         "--index-codes", str(1 << 16), "--queries", "2048",
+         "--hbm-budget", str(1 << 20), "--probes", "2"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr[-4000:]
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["topk_impl"] == "wgmma"
+    assert rec["direct_queries_per_s"] > 0 and rec["server_queries_per_s"] > 0
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["tiered"]["parity_ok"] and rec["tiered"]["fallbacks"] == 0
+    assert rec["lsh"]["probe_path_resolved"] == "device"

@@ -72,7 +72,10 @@ def test_port_imports_neither_jax_nor_reference():
     for module in ("models/sketch.py", "ops/topk_kernels.py",
                    "utils/telemetry.py", "backends/torch_backend.py",
                    "streaming.py", "utils/observability.py", "cli.py",
-                   "__main__.py", "ops/staging.py"):
+                   "__main__.py", "ops/staging.py", "utils/health.py",
+                   "utils/metrics_server.py", "loadgen.py",
+                   "utils/health_smoke.py", "utils/live_smoke.py",
+                   "utils/trace_report.py"):
         assert f"randomprojection_tpu_torch/{module}" in names
     bad = {str(f.relative_to(REPO)): _banned_imports(f) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
