@@ -205,7 +205,27 @@ Phases (any failure exits non-zero and prints no result):
    ``topk-bench`` at 2^24 codes, at 2^20 with ``--probes 4,16`` (device
    rung) and at 2^20 with 4 of its 8 chunks hot (parity, no fallback);
    ``utils.health_smoke`` and ``utils.live_smoke`` on the card, and
-   ``recover`` of phase 10's 2^24-code snapshot.
+   ``recover`` of phase 10's 2^24-code snapshot;
+16. config 4 sharded (``benchmark.py`` ``TOPK_BENCH_SHAPES["full"]``'s
+   layout, depth cut to 2^24 codes, on the one card): phase 15's corpus
+   (seed 0) as ``ShardedSimHashIndex(devices=[card], n_shards=8)`` (8 x
+   64 MiB) and a second group of 8, the second replica; 2,048 queries at
+   m = 16 equal the one-device ``SimHashIndex`` bit for bit (its ids as
+   int64), with K4 launched 8 scans + 8 merges around one call, exactly;
+   q/s of the sharded and the one-device index in turns, with the host
+   merge's wall (``stats()``); ids offset by 2^31 + 13; a
+   ``ShardedTopKServer`` over the 2 replicas with 16 clients (every result
+   equals a direct call, both replicas serve); 1% deleted across shard
+   boundaries; the snapshot loaded onto 4 shards and as one index; the LSH
+   cell's 2^20 planted codes as ``LSHShardedSimHashIndex`` over 8 shards
+   (8 bands x 16 bits, tile 64, ``fallback_density=1.0``): full probe
+   coverage on 16 queries equals the exact answer on the device rung (2
+   K5 + 1 + 1 K4 a shard), and probes 16 give recall@10 beside the
+   one-device LSH index's, K5 and K4 counted a shard a tile; the serving
+   and ann smokes, ``topk-bench --shards 8 --replicas 2`` and ``loadgen
+   --shards 8`` at phase 15's R/2 as subprocesses, their JSONL carrying
+   ``serve.shard.batch`` and ``shard.merge`` (loadgen: 8 K4 dispatches a
+   batch).
 
 The kernels' timings are printed as one JSON line.
 
@@ -355,6 +375,15 @@ CLI_ROWS, CLI_D, CLI_K, CLI_BATCH = 1 << 19, 512, 64, 8192
 # at R/2 (the bursty leg's health plane gets 5 s to clear after it)
 OPS_RATES, OPS_STEP_S, OPS_P99_MS = (250, 500, 1000, 2000, 4000), 3, 100
 OPS_LEG_S, OPS_SETTLE_S = 10, 5
+# the sharded tier (phase 16): phase 15's corpus as 8 shards sharing the
+# card (benchmark.py TOPK_BENCH_SHAPES["full"]'s layout), a second group
+# of 8 the second replica; ids offset past int32; the server's batches
+# capped at one query tile so the replicas both serve; full probe coverage
+# of the LSH cell on 16 queries (one shard's tile then holds 2^24 slots);
+# loadgen's leg at R/2
+SHARDS, SHARD_REPLICAS, SHARD_CALLS = 8, 2, 3
+SHARD_OFFSET, SHARD_SERVER_BATCH = 2**31 + 13, 2048
+SHARD_FULL_NQ, SHARD_LOADGEN_S = 16, 3
 
 CARD = ""
 
@@ -1387,6 +1416,7 @@ BENCH_LEGS = {
     "tiered": ("config4", "topk_serving", "tiered", "launches"),
     "tiered_resident": ("config4", "topk_serving", "tiered",
                         "resident_launches"),
+    "sharded": ("config4", "topk_serving", "sharded", "launches"),
 }
 
 
@@ -1419,7 +1449,7 @@ def _bench_launches(rec, bm) -> dict:
                       ("config4_encode", {})):
         check(legs[leg] == want,
               f"bench {leg} launched {legs[leg]}, not {want}")
-    for leg in ("serving", "lsh", "tiered", "tiered_resident"):
+    for leg in ("serving", "lsh", "tiered", "tiered_resident", "sharded"):
         got = legs[leg]
         scans = (got.get("rp_fused_topk_wgmma", 0)
                  + got.get("rp_fused_topk_popc", 0))
@@ -1428,6 +1458,11 @@ def _bench_launches(rec, bm) -> dict:
               f"bench {leg} launched {got}")
     check(legs["lsh"].get("rp_probe", 0) > 0,
           f"bench LSH curve launched no rp_probe: {legs['lsh']}")
+    sh = rec["config4"]["topk_serving"]["sharded"]
+    check(legs["sharded"]["rp_fused_topk_wgmma"] % sh["shards"] == 0
+          and legs["sharded"]["rp_fused_topk_wgmma"] >= sh["shard_dispatches"],
+          f"bench sharded leg launched {legs['sharded']} for "
+          f"{sh['shard_dispatches']} timed shard dispatches")
     return legs
 
 
@@ -1478,6 +1513,7 @@ def phase_bench(kind: str, main_rate: float) -> dict:
         within_peak(what, row)
     within_peak("single-stream serving", dict(
         tk, executed_tflops=tk["single_stream_executed_tflops"]))
+    within_peak("sharded serving", tk["sharded"])
     check(c3["distortion"] <= DISTORTION_BUDGET,
           f"config 3 distortion {c3['distortion']}")
     check(c4["sign_mismatch_rate_vs_cpu"] <= SIGN_MISMATCH_BUDGET,
@@ -1525,7 +1561,10 @@ def phase_bench(kind: str, main_rate: float) -> dict:
                     f"{p['recall_at_m']} fraction {p['candidate_fraction']}"
                     for p in lsh["curve"])
         + f" (exact {lsh['exact_queries_per_s']} q/s, host reference "
-        f"{lsh['exact_ref_s']} s); tiered {tier['queries_per_s']} q/s vs "
+        f"{lsh['exact_ref_s']} s); sharded ({tk['sharded']['shards']} shards x "
+        f"{tk['sharded']['replicas']} replicas) {tk['sharded']['queries_per_s']}"
+        f" q/s, {tk['sharded']['merges']} merges in "
+        f"{tk['sharded']['merge_wall_s']} s; tiered {tier['queries_per_s']} q/s vs "
         f"resident {tier['resident_queries_per_s']} ({tier['hot_chunks']} hot, "
         f"{tier['cold_chunks']} cold)")
     log(f"bench config 5: ingest {c5['ingest_tokens_per_s']} tokens/s, device "
@@ -3123,9 +3162,10 @@ def _hold_k4(rec, launches, what):
     return batches
 
 
-def phase_ops_planes(torch, snapshot: str, scratch: Path) -> dict:
+def phase_ops_planes(torch, snapshot: str, scratch: Path):
     """The ops planes at config 4's serving width (see the module
-    docstring, phase 15).  Returns K4's launches on each loadgen leg."""
+    docstring, phase 15).  Returns K4's launches on each loadgen leg and
+    R."""
     from randomprojection_tpu_torch import cli
     from randomprojection_tpu_torch.utils import telemetry
     from randomprojection_tpu_torch.utils.metrics_server import (
@@ -3342,8 +3382,336 @@ def phase_ops_planes(torch, snapshot: str, scratch: Path) -> dict:
         f"chunk(s), coverage_ok {status.get('coverage_ok')}")
     shutil.rmtree(root, ignore_errors=True)
     log(f"ops planes: {time.perf_counter() - t_phase:.1f} s")
-    return leg_launches
+    return leg_launches, rate
 
+
+
+def _same_topk(got, want, what: str, ids=np.int64) -> None:
+    """A sharded answer (int64 ids; ``ids`` for another index) against a
+    one-device one, bit for bit."""
+    check(got[1].dtype == ids, f"{what}: ids are {got[1].dtype}")
+    check(np.array_equal(got[0], want[0])
+          and np.array_equal(got[1], np.asarray(want[1], dtype=np.int64)),
+          f"{what}: the sharded answer differs from the one-device index's")
+
+
+def _cli_sub(argv, jsonl: Path):
+    """One CLI command as a subprocess on the card with a telemetry JSONL:
+    its last stdout line parsed and the JSONL's event names counted."""
+    from randomprojection_tpu_torch.utils import telemetry
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "randomprojection_tpu_torch", *argv,
+         "--telemetry-jsonl", str(jsonl)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"{argv[0]} exited {r.returncode}: "
+          f"{r.stderr[-3000:]}")
+    counts: dict = {}
+    for e in telemetry.read_events(str(jsonl)):
+        counts[e["event"]] = counts.get(e["event"], 0) + 1
+    return (json.loads(r.stdout.strip().splitlines()[-1]), counts,
+            time.perf_counter() - t0)
+
+
+def phase_sharded(torch, tk, pk, rate: float, scratch: Path) -> dict:
+    """The sharded tier at config 4's serving width on the one card (see
+    the module docstring, phase 16).  Returns K4's and K5's launches on
+    its paths, each read around its own call."""
+    from randomprojection_tpu_torch.ann import (
+        LSHShardedSimHashIndex,
+        LSHSimHashIndex,
+    )
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+    from randomprojection_tpu_torch.serving import (
+        ShardedSimHashIndex,
+        ShardedTopKServer,
+    )
+    from randomprojection_tpu_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    root = scratch / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    card = torch.device("cuda", 0)
+    launches = {}
+    # phase 15's corpus: loadgen's first draw from seed 0
+    codes = np.random.default_rng(0).integers(
+        0, 256, size=(N_CODES, SIGN_BITS // 8), dtype=np.uint8)
+    qsets = np.random.default_rng(16).integers(
+        0, 256, size=(SHARD_CALLS + 1, N_QUERIES, SIGN_BITS // 8),
+        dtype=np.uint8)
+    one = SimHashIndex(codes, device=card)
+    groups = [ShardedSimHashIndex(codes, devices=[card], n_shards=SHARDS)
+              for _ in range(SHARD_REPLICAS)]
+    sh = groups[0]
+    check(sh.stats()["shard_rows"] == [N_CODES // SHARDS] * SHARDS,
+          f"shard rows {sh.stats()['shard_rows']}")
+    q = qsets[0]
+    want = one.query_topk(q, TOPK_M, tile=QUERY_TILE)
+    sh.query_topk(q, TOPK_M, tile=QUERY_TILE)  # warm
+    tk.reset_launches()
+    got = sh.query_topk(q, TOPK_M, tile=QUERY_TILE)
+    torch.cuda.synchronize()
+    launches["exact_tile"] = dict(tk.LAUNCHES)
+    _same_topk(got, want, f"{SHARDS} shards, {N_QUERIES} queries")
+    check(tk.LAUNCHES["rp_fused_topk_wgmma"] == SHARDS
+          and tk.LAUNCHES["rp_topk_merge"] == SHARDS
+          and tk.LAUNCHES["rp_fused_topk_popc"] == 0,
+          f"one {N_QUERIES}-row tile over {SHARDS} shards launched "
+          f"{tk.LAUNCHES}, not {SHARDS} scans + {SHARDS} merges")
+    log(f"sharded: {SHARDS} shards of {N_CODES // SHARDS} codes on one card, "
+        f"{N_QUERIES} queries at m = {TOPK_M}: dist and ids equal the "
+        f"one-device index bit for bit (ids int64); K4 launches around one "
+        f"call {launches['exact_tile']}")
+
+    # q/s beside the one-device index, turns one, sharded, sharded, one
+    walls = {"one-device": [], "sharded": []}
+    merge_walls = []
+    for way in ("one-device", "sharded", "sharded", "one-device"):
+        index = one if way == "one-device" else sh
+        before = sh.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(1, SHARD_CALLS + 1):
+            index.query_topk(qsets[c], TOPK_M, tile=QUERY_TILE)
+        walls[way].append(time.perf_counter() - t0)
+        if index is sh:
+            after = sh.stats()
+            merge_walls.append((after["merges"] - before["merges"],
+                                after["merge_wall_s"] - before["merge_wall_s"]))
+    qps = {way: [round(SHARD_CALLS * N_QUERIES / w, 1) for w in ws]
+           for way, ws in walls.items()}
+    log(f"sharded q/s ({SHARD_CALLS} calls of {N_QUERIES} queries a turn, "
+        f"turns one-device, sharded, sharded, one-device): one-device "
+        f"{qps['one-device']}, {SHARDS} shards {qps['sharded']}; the "
+        f"sharded calls' host merges (merges, summed wall s) {merge_walls}, "
+        f"{[round(w / n * 1e3, 3) for n, w in merge_walls]} ms a merge")
+
+    # ids past int32
+    wide = ShardedSimHashIndex(codes, devices=[card], n_shards=SHARDS,
+                               id_offset=SHARD_OFFSET)
+    dw, iw = wide.query_topk(q, TOPK_M, tile=QUERY_TILE)
+    _same_topk((dw, iw - SHARD_OFFSET), want, "id_offset")
+    check(int(iw.min()) > 2**31, "ids past int32 did not surface")
+    wide.close()
+    del wide
+    log(f"sharded: id_offset 2^31 + 13: the same distances, every id "
+        f"shifted by it (smallest {int(iw.min())})")
+
+    # the replicas behind ShardedTopKServer, 16 clients
+    pool = qsets.reshape(-1, SIGN_BITS // 8)
+    reqs = [pool[r * REQUEST_ROWS:(r + 1) * REQUEST_ROWS]
+            for r in range(CLIENTS * REQUESTS)]
+    # a name of its own: the latency histograms are keyed by it, and
+    # phase 15's servers used the default
+    server = ShardedTopKServer(groups, TOPK_M, max_batch=SHARD_SERVER_BATCH,
+                               max_delay_s=0.002, name="chip-smoke-sharded")
+    try:
+        server.query(reqs[0])  # warm
+        results = [None] * len(reqs)
+
+        def client(ci):
+            futs = [(r, server.submit(reqs[r]))
+                    for r in range(ci, len(reqs), CLIENTS)]
+            for r, f in futs:
+                results[r] = f.result(timeout=300)
+
+        threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+                   for ci in range(CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        srv_wall = time.perf_counter() - t0
+    finally:
+        server.close()
+    st = server.stats()
+    for r, req in enumerate(reqs):
+        _same_topk(results[r], sh.query_topk(req, TOPK_M),
+                   f"server request {r}")
+    check(len(st["replica_batches"]) == SHARD_REPLICAS
+          and min(st["replica_batches"]) > 0,
+          f"replica batches {st['replica_batches']}")
+    log(f"sharded server: {SHARD_REPLICAS} replicas x {SHARDS} shards, "
+        f"{CLIENTS} clients x {REQUESTS} requests x {REQUEST_ROWS} rows "
+        f"(max_batch {SHARD_SERVER_BATCH}): "
+        f"{round(len(reqs) * REQUEST_ROWS / srv_wall, 1)} q/s, "
+        f"{st['batches']} batches, replica_batches {st['replica_batches']}, "
+        f"p99 {st['latency']['p99'] * 1e3:.3f} ms; every result equals a "
+        f"direct call")
+    for g in groups[1:]:
+        g.close()
+    del groups, server
+
+    # 1% deleted, across shard boundaries
+    span = N_CODES // SHARDS
+    dead = np.unique(np.concatenate([
+        np.random.default_rng(17).choice(N_CODES, N_CODES // 100,
+                                         replace=False),
+        np.arange(span - 5000, span + 5000),
+        np.arange(3 * span - 100, 3 * span + 100)]))
+    check(one.delete(dead) == dead.size and sh.delete(dead) == dead.size,
+          "deletes")
+    want_d = one.query_topk(q, TOPK_M, tile=QUERY_TILE)
+    _same_topk(sh.query_topk(q, TOPK_M, tile=QUERY_TILE), want_d,
+               f"{dead.size} deleted across shard boundaries")
+    log(f"sharded: {dead.size} codes deleted (1% seeded and two ranges "
+        f"across shard boundaries): equal the one-device index bit for bit")
+
+    # the snapshot, loaded onto 4 shards and as one index
+    snap = root / "snap"
+    t0 = time.perf_counter()
+    man = sh.save(str(snap))
+    t_save = time.perf_counter() - t0
+    check(man["sharded"] == {"shards": SHARDS} and "id_offset" not in man,
+          f"sharded manifest {man.get('sharded')}")
+    t0 = time.perf_counter()
+    four = ShardedSimHashIndex.load(str(snap), devices=[card], n_shards=4)
+    t_four = time.perf_counter() - t0
+    _same_topk(four.query_topk(q, TOPK_M, tile=QUERY_TILE), want_d,
+               "snapshot loaded onto 4 shards")
+    four.close()
+    del four
+    t0 = time.perf_counter()
+    plain = SimHashIndex.load(str(snap), device=card)
+    t_plain = time.perf_counter() - t0
+    _same_topk(plain.query_topk(q, TOPK_M, tile=QUERY_TILE), want_d,
+               "snapshot loaded as one index", ids=np.int32)
+    del plain, one, sh, codes
+    shutil.rmtree(snap, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"sharded snapshot ({SHARDS} shards, {dead.size} deleted): save "
+        f"{t_save:.3f} s, load onto 4 shards {t_four:.3f} s, as one index "
+        f"{t_plain:.3f} s; both answer bit for bit")
+
+    # the LSH tier's cell over 8 shards
+    lsh_codes, lsh_q = _lsh_data()
+    Q = lsh_q[:LSH_NQ]
+    kw = dict(bands=LSH_BANDS, band_bits=LSH_BAND_BITS, fallback_density=1.0)
+    one_lsh = LSHSimHashIndex(lsh_codes, device=card, **kw)
+    sh_lsh = LSHShardedSimHashIndex(lsh_codes, devices=[card],
+                                    n_shards=SHARDS, **kw)
+    exact = one_lsh.query_topk(Q, LSH_M, tile=LSH_TILE, probes=0)
+    reg = telemetry.registry()
+    full = 1 << LSH_BAND_BITS
+    Qf = Q[:SHARD_FULL_NQ]
+    fb0 = reg.counter("index.lsh.fallbacks")
+    pk.reset_launches()
+    tk.reset_launches()
+    t0 = time.perf_counter()
+    got = sh_lsh.query_topk(Qf, LSH_M, tile=LSH_TILE, probes=full)
+    t_full = time.perf_counter() - t0
+    launches["lsh_full"] = {**tk.LAUNCHES, **pk.LAUNCHES,
+                            "graph_replays": pk.GRAPH_REPLAYS,
+                            "graph_captures": pk.GRAPH_CAPTURES}
+    _same_topk(got, (exact[0][:SHARD_FULL_NQ], exact[1][:SHARD_FULL_NQ]),
+               f"full coverage ({full} probes a band) over {SHARDS} shards")
+    # the probe plan clamps a shard's tile; each tile is one replay of its
+    # graph, and each capture runs the tile once eagerly first
+    tq = sh_lsh._shards[0]._lsh_device_tile(LSH_TILE, full, LSH_M)
+    tiles = SHARDS * -(-SHARD_FULL_NQ // tq)
+    runs = pk.GRAPH_REPLAYS + pk.GRAPH_CAPTURES
+    check(reg.counter("index.lsh.fallbacks") == fb0
+          and pk.GRAPH_REPLAYS == tiles
+          and tk.LAUNCHES["rp_fused_topk_wgmma"] == runs
+          and tk.LAUNCHES["rp_topk_merge"] == runs
+          and pk.LAUNCHES["rp_probe"] == 2 * runs,
+          f"full coverage launched {launches['lsh_full']} for {tiles} "
+          f"shard tiles, fallbacks {reg.counter('index.lsh.fallbacks') - fb0}")
+    log(f"sharded LSH full coverage ({SHARD_FULL_NQ} queries, {LSH_BANDS} "
+        f"bands x {full} probes, {SHARDS} shards of {LSH_N // SHARDS} codes, "
+        f"the plan's tile {tq}) on the device rung: equal to the exact "
+        f"answer bit for bit in {t_full:.3f} s; launches "
+        f"{launches['lsh_full']}: K5 twice and K4 once a shard tile (a "
+        f"capture's eager warm-up included)")
+    # probes 16: recall@10 and q/s beside the one-device LSH index
+    p = LSH_PROBES[-1]
+    rows = {}
+    for name, index in (("one-device", one_lsh), ("sharded", sh_lsh)):
+        index.query_topk(Q, LSH_M, tile=LSH_TILE, probes=p)  # warm: capture
+        fb0 = reg.counter("index.lsh.fallbacks")
+        pk.reset_launches()
+        tk.reset_launches()
+        d, i = index.query_topk(Q, LSH_M, tile=LSH_TILE, probes=p)
+        torch.cuda.synchronize()
+        lau = {**tk.LAUNCHES, **pk.LAUNCHES,
+               "graph_replays": pk.GRAPH_REPLAYS,
+               "fallbacks": reg.counter("index.lsh.fallbacks") - fb0}
+        hits = sum(np.intersect1d(a, b).size for a, b in zip(i, exact[1]))
+        t0 = time.perf_counter()
+        for c in range(1, LSH_CALLS + 1):
+            index.query_topk(lsh_q[c * LSH_NQ:(c + 1) * LSH_NQ], LSH_M,
+                             tile=LSH_TILE, probes=p)
+        wall = time.perf_counter() - t0
+        rows[name] = {"recall": round(hits / exact[1].size, 4),
+                      "qps": round(LSH_CALLS * LSH_NQ / wall, 1),
+                      "launches": lau}
+    tiles = -(-LSH_NQ // LSH_TILE)
+    sl = rows["sharded"]["launches"]
+    launches["lsh_probes16"] = sl
+    check(sl["rp_fused_topk_wgmma"] == sl["rp_topk_merge"] == SHARDS * tiles
+          and sl["rp_probe"] == 2 * sl["graph_replays"]
+          and sl["graph_replays"] == SHARDS * tiles - sl["fallbacks"],
+          f"probes {p} over {SHARDS} shards launched {sl}")
+    log(f"sharded LSH at probes {p} ({LSH_NQ} queries, tile {LSH_TILE}): "
+        f"recall@{LSH_M} {rows['sharded']['recall']} at "
+        f"{rows['sharded']['qps']} q/s over {SHARDS} shards, one-device "
+        f"{rows['one-device']['recall']} at {rows['one-device']['qps']} q/s; "
+        f"launches a call, {SHARDS} shards {sl}, one device "
+        f"{rows['one-device']['launches']}")
+    del one_lsh, sh_lsh, lsh_codes, lsh_q
+    torch.cuda.empty_cache()
+
+    # the CLI as subprocesses on the card
+    for mod, word in (("serving.smoke", "shard-smoke OK"),
+                      ("ann.smoke", "ann-smoke OK")):
+        r = subprocess.run(
+            [sys.executable, "-m", f"randomprojection_tpu_torch.{mod}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0 and word in r.stdout,
+              f"{mod} exited {r.returncode}: {r.stderr[-3000:]}")
+    rec, ev, wall = _cli_sub(
+        ["topk-bench", "--index-codes", str(N_CODES), "--code-bytes",
+         str(SIGN_BITS // 8), "--m", str(TOPK_M), "--shards", str(SHARDS),
+         "--replicas", str(SHARD_REPLICAS)], root / "tb.jsonl")
+    shd = rec["sharded"]
+    check(shd["shards"] == SHARDS and shd["replicas"] == SHARD_REPLICAS
+          and min(shd["replica_batches"]) > 0
+          and ev.get("serve.shard.batch", 0) > 0 and ev.get("shard.merge", 0) > 0,
+          f"topk-bench --shards {SHARDS}: {shd}, events {ev}")
+    log(f"sharded topk-bench --shards {SHARDS} --replicas {SHARD_REPLICAS} "
+        f"(subprocess, {wall:.1f} s): sharded {shd['queries_per_s']} q/s "
+        f"beside the one-device server {rec['server_queries_per_s']} q/s and "
+        f"direct {rec['direct_queries_per_s']} q/s; {shd['merges']} merges "
+        f"({shd['merge_wall_s']} s), replica_batches "
+        f"{shd['replica_batches']}; serve.shard.batch "
+        f"{ev['serve.shard.batch']}, shard.merge {ev['shard.merge']} events")
+    rec, ev, wall = _cli_sub(
+        ["loadgen", "--index-codes", str(N_CODES), "--code-bytes",
+         str(SIGN_BITS // 8), "--m", str(TOPK_M), "--request-rows",
+         "16,64,256", "--labels", "tenant-a,tenant-b", "--seed", "0",
+         "--server-batch", str(MAX_BATCH), "--server-delay-ms", "2",
+         "--shards", str(SHARDS), "--rate", str(rate / 2), "--duration",
+         str(SHARD_LOADGEN_S)], root / "lg.jsonl")
+    batches = rec["server"]["batches"]
+    check(rec["shards"] == SHARDS and rec["errors"] == 0
+          and ev.get("serve.shard.batch", 0) == batches
+          and ev.get("shard.merge", 0) == batches
+          and ev.get("topk.kernel.dispatch", 0) == SHARDS * batches,
+          f"loadgen --shards {SHARDS}: {batches} batches, events {ev}")
+    log(f"sharded loadgen --shards {SHARDS} at R/2 = {rate / 2} req/s x "
+        f"{SHARD_LOADGEN_S} s (subprocess, {wall:.1f} s): {_labels_line(rec)}; "
+        f"rejects {rec['rejects']}, max_lag_s {rec['max_lag_s']}, {batches} "
+        f"batches, each {SHARDS} K4 dispatches and one merge "
+        f"(serve.shard.batch {ev['serve.shard.batch']}, shard.merge "
+        f"{ev['shard.merge']}, topk.kernel.dispatch "
+        f"{ev['topk.kernel.dispatch']})")
+    shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"sharded phase: {wall:.1f} s")
+    return launches
 
 
 def _bound(bytes_s: float, ops_s: float) -> dict:
@@ -3459,7 +3827,7 @@ def main() -> int:
                 for leg, got in legs.items()
                 if any(got.get(key) for key in keys)}
         # the ops planes' legs, each counted from 0
-        ops = phase_ops_planes(torch, snapshot, scratch)
+        ops, rate = phase_ops_planes(torch, snapshot, scratch)
         for name, keys in (
                 ("rp_fused_topk", ("rp_fused_topk_wgmma", "rp_fused_topk_popc",
                                    "rp_topk_merge")),
@@ -3468,6 +3836,23 @@ def main() -> int:
                 leg: {key: got[key] for key in keys if got.get(key)}
                 for leg, got in ops.items()
                 if any(got.get(key) for key in keys)}
+        # the sharded tier's paths, each counted from 0
+        sharded = phase_sharded(torch, tk, pk, rate, scratch)
+        for name, keys in (
+                ("rp_fused_topk", ("rp_fused_topk_wgmma", "rp_topk_merge")),
+                ("rp_probe", ("rp_probe",))):
+            rows[name]["sharded_launches"] = {
+                leg: {key: got[key] for key in keys if got.get(key)}
+                for leg, got in sharded.items()
+                if any(got.get(key) for key in keys)}
+        # the entry points whose runs launched each kernel
+        rows["rp_fused_topk"]["paths"] = [
+            "SimHashIndex", "TopKServer", "LSHSimHashIndex",
+            "tiered SimHashIndex", "ShardedSimHashIndex",
+            "ShardedTopKServer", "LSHShardedSimHashIndex"]
+        rows["rp_probe"]["paths"] = [
+            "LSHSimHashIndex", "tiered LSHSimHashIndex",
+            "LSHShardedSimHashIndex"]
         log(f"total {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()

@@ -8,9 +8,12 @@ serving (``SignRandomProjection`` codes, ``SimHashIndex.query_topk``,
 and tiered hot/cold residency (``SimHashIndex(hbm_budget_bytes=...)``),
 config-5 Count-Sketch feature hashing (``CountSketch``,
 ``ops.hashing.FeatureHasher``, ``streaming.TokenSource``),
-model persistence (``serialize.save_model``/``load_model``) and durable index
+model persistence (``serialize.save_model``/``load_model``), durable index
 snapshots with exactly-once ingest (``save_index``/``load_index``,
-``DurableIngest``), executed on an NVIDIA card: plain products through
+``DurableIngest``) and the sharded serving tier (``ShardedSimHashIndex``,
+``ShardedTopKServer``, ``LSHShardedSimHashIndex``, their layout-agnostic
+snapshots ``save_sharded_index``/``load_sharded_index``), executed on an
+NVIDIA card: plain products through
 torch; the fused lazy-mask projection and mask writer
 (``csrc/fused_project.cu``) and the fused Hamming top-k
 (``csrc/topk.cu``) and the LSH tier's CSR probe gather (``csrc/probe.cu``)
@@ -18,7 +21,9 @@ as hand-written CUDA kernels for Hopper.  ``backend='auto'`` is the card; the CP
 only when asked (``backend_options={'device': 'cpu'}``).
 
 The package imports neither JAX nor ``randomprojection_tpu``; the tests
-hold it to that package.
+hold it to that package.  ``__all__`` is the reference's; the port adds
+``from_reference`` (``interop.py``) and the ``ann`` subpackage as
+attributes.
 """
 
 from randomprojection_tpu_torch.jl import johnson_lindenstrauss_min_dim
@@ -39,21 +44,35 @@ _LAZY_ESTIMATORS = (
     "TopKServer",
     "pairwise_hamming",
     "pairwise_hamming_device",
+    "pairwise_hamming_sharded",
     "cosine_from_hamming",
     "topk_bruteforce",
 )
 
-_LAZY_DURABLE = ("DurableIngest", "save_index", "load_index")
+_LAZY_DURABLE = (
+    "DurableIngest",
+    "save_index",
+    "load_index",
+    "save_sharded_index",
+    "load_sharded_index",
+)
 
-_LAZY_ANN = ("ann", "LSHSimHashIndex", "load_lsh_index")
+_LAZY_SERVING = ("ShardedSimHashIndex", "ShardedTopKServer", "shard_devices")
+
+_LAZY_ANN = (
+    "LSHSimHashIndex",
+    "LSHShardedSimHashIndex",
+    "load_lsh_index",
+    "load_lsh_sharded_index",
+)
 
 __all__ = [
     "johnson_lindenstrauss_min_dim",
     "DataDimensionalityWarning",
     "NotFittedError",
-    "from_reference",
     *_LAZY_ESTIMATORS,
     *_LAZY_DURABLE,
+    *_LAZY_SERVING,
     *_LAZY_ANN,
 ]
 
@@ -68,9 +87,16 @@ def __getattr__(name):
         from randomprojection_tpu_torch import durable
 
         return getattr(durable, name)
-    if name in _LAZY_ANN:
-        from randomprojection_tpu_torch import ann
+    if name in _LAZY_SERVING:
+        from randomprojection_tpu_torch import serving
 
+        return getattr(serving, name)
+    if name in _LAZY_ANN or name == "ann":
+        # import_module, not ``from ... import ann``: that form asks this
+        # hook for ``ann`` again before the subpackage is imported
+        from importlib import import_module
+
+        ann = import_module("randomprojection_tpu_torch.ann")
         return ann if name == "ann" else getattr(ann, name)
     if name == "from_reference":
         from randomprojection_tpu_torch.interop import from_reference

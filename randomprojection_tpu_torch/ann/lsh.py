@@ -58,8 +58,13 @@ That rung is eager (a graph would bake in the host sync and the staged
 rows).  The host rung's re-rank (``_lsh_rerank_tiered``) splits the same
 way.  Every promotion, demotion and ``reset`` drops the captured tiles.
 
-Not ported (ROADMAP): the sharded tier ``LSHShardedSimHashIndex`` (A10).
-The reference's host-select rung for a re-rank that overflowed the TPU's
+The sharded tier, ``LSHShardedSimHashIndex``: a ``ShardedSimHashIndex``
+whose shards are ``LSHSimHashIndex``es; a tile probes every shard's bucket
+index, each shard re-ranks its own candidates on its own ladder (the
+device rung on a card), and the shards' candidates merge through the
+exact tier's ``_merge_tile``.  Its snapshots spill the band keys in
+global id order (``load_lsh_sharded_index`` restores them onto any
+layout).  The reference's host-select rung for a re-rank that overflowed the TPU's
 scoped VMEM has no counterpart: the card's kernel plans fit by
 construction.
 
@@ -83,6 +88,7 @@ import numpy as np
 
 from randomprojection_tpu_torch.models.sketch import SimHashIndex
 from randomprojection_tpu_torch.ops import probe_kernels, topk_kernels
+from randomprojection_tpu_torch.serving.sharded_index import ShardedSimHashIndex
 # a tensor's copy to the host, started at dispatch and read one tile behind
 from randomprojection_tpu_torch.streaming import _HostFetch
 from randomprojection_tpu_torch.utils import telemetry
@@ -94,7 +100,9 @@ __all__ = [
     "probe_masks",
     "BandedBuckets",
     "LSHSimHashIndex",
+    "LSHShardedSimHashIndex",
     "load_lsh_index",
+    "load_lsh_sharded_index",
 ]
 
 # bucket-space ceiling: indptr is 2^b + 1 offsets a band
@@ -415,7 +423,9 @@ class LSHSimHashIndex(SimHashIndex):
     The bucket index follows every mutation: ``add`` folds new rows
     incrementally (through the base index's ``_codes_appended`` hook),
     ``delete`` needs no bucket work (tombstones are masked at the
-    re-rank), and ``compact`` folds the id remap.  Single-device."""
+    re-rank), and ``compact`` folds the id remap.  Single-device: one
+    banded index is one shard (``LSHShardedSimHashIndex`` shards a
+    corpus)."""
 
     def __init__(self, codes, *, bands: Optional[int] = None,
                  band_bits: Optional[int] = None, probes: int = 8,
@@ -424,8 +434,8 @@ class LSHSimHashIndex(SimHashIndex):
                  candidate_budget: Optional[int] = None, **kw):
         if kw.get("mesh") is not None:
             raise ValueError(
-                "mesh is not ported yet (ROADMAP A10, the sharded tier "
-                "LSHShardedSimHashIndex); LSHSimHashIndex is single-device"
+                "LSHSimHashIndex is single-device (one banded index is "
+                "one shard); shard a corpus with ann.LSHShardedSimHashIndex"
             )
         self.probes = _check_ctor_probes(probes)
         if not 0.0 < float(fallback_density) <= 1.0:
@@ -545,8 +555,8 @@ class LSHSimHashIndex(SimHashIndex):
         See ``load_lsh_index``."""
         if mesh is not None:
             raise ValueError(
-                "mesh is not ported yet (ROADMAP A10, the sharded tier "
-                "LSHShardedSimHashIndex); LSHSimHashIndex is single-device"
+                "LSHSimHashIndex is single-device; load a sharded "
+                "snapshot with ann.load_lsh_sharded_index"
             )
         return load_lsh_index(
             path, bands=bands, band_bits=band_bits, probes=probes,
@@ -1339,7 +1349,132 @@ class LSHSimHashIndex(SimHashIndex):
         return "done", (best_d, best_g)
 
 
-# -- durable spill/restore ---------------------------------------------------
+# -- the sharded tier ------------------------------------------------------------
+
+
+class LSHShardedSimHashIndex(ShardedSimHashIndex):
+    """``ShardedSimHashIndex`` whose shards carry banded multi-probe LSH
+    tiers: a query tile probes every shard's bucket index, each shard
+    re-ranks its own candidates exactly on its own ladder (a dense shard
+    falls back to its exact path while the others stay on their rung), and
+    the shards' candidates merge through the exact tier's ``_merge_tile``,
+    so cross-shard tombstones, int64 global ids and ``id_offset`` behave
+    as there, and full probe coverage equals ``topk_bruteforce`` on the
+    concatenated corpus bit for bit.
+
+    It plugs into ``ShardedTopKServer`` as it is; ``probes`` at
+    construction is the serving default, ``query_topk(probes=)``
+    overrides it, 0 is the exact path."""
+
+    def __init__(self, codes, *, bands: Optional[int] = None,
+                 band_bits: Optional[int] = None, probes: int = 8,
+                 fallback_density: float = 0.1, probe_path: str = "auto",
+                 adaptive: bool = False,
+                 candidate_budget: Optional[int] = None, **kw):
+        self.probes = _check_ctor_probes(probes)
+        if not 0.0 < float(fallback_density) <= 1.0:
+            raise ValueError(
+                f"fallback_density must be in (0, 1], got {fallback_density!r}"
+            )
+        self.fallback_density = float(fallback_density)
+        self.probe_path = _check_probe_path(probe_path)
+        self.adaptive = bool(adaptive)
+        self.candidate_budget = _check_budget(candidate_budget)
+        self._lsh_cfg = (bands, band_bits)
+        super().__init__(codes, **kw)
+        self.band_plan = self._shards[0].band_plan
+
+    def _make_shard(self, s: int, dev):
+        bands, band_bits = self._lsh_cfg
+        return LSHSimHashIndex(
+            np.empty((0, self.n_bytes), np.uint8),
+            n_bits=self.n_bits, device=dev,
+            label=f"shard {s}/{len(self._devices)} on {dev}",
+            bands=bands, band_bits=band_bits, probes=self.probes,
+            fallback_density=self.fallback_density,
+            probe_path=self.probe_path, adaptive=self.adaptive,
+            candidate_budget=self.candidate_budget,
+            **self._tier_kwargs(s),
+        )
+
+    def _lsh_global_keys(self) -> np.ndarray:
+        """Every row's band keys in global id order: the layout-agnostic
+        durable state (the segments place each shard's local key columns
+        at their global positions)."""
+        out = np.empty((self.band_plan.bands, self.n_codes), np.uint32)
+        for seg in self._segments:
+            ks = self._shards[seg.shard]._buckets.keys
+            out[:, seg.g0: seg.g0 + seg.rows] = ks[:, seg.l0: seg.l0 + seg.rows]
+        return out
+
+    def _durable_extra(self, dirpath: str, gen: int) -> dict:
+        return _spill_lsh_keys(self, dirpath, gen, self._lsh_global_keys())
+
+    @classmethod
+    def load(cls, path: str, *, mesh=None, devices=None,
+             n_shards: Optional[int] = None, data_axis: str = "data",
+             bands: Optional[int] = None,
+             band_bits: Optional[int] = None,
+             probes: Optional[int] = None,
+             fallback_density: Optional[float] = None):
+        """Restore onto any shard layout, from an LSH or a plain snapshot,
+        sharded or not.  See ``load_lsh_sharded_index``."""
+        return load_lsh_sharded_index(
+            path, mesh=mesh, devices=devices, n_shards=n_shards,
+            data_axis=data_axis, bands=bands,
+            band_bits=band_bits, probes=probes,
+            fallback_density=fallback_density,
+        )
+
+    def query_topk(self, A, m: int, *, tile: int = 2048,
+                   probes: Optional[int] = None,
+                   probe_path: Optional[str] = None,
+                   adaptive: Optional[bool] = None,
+                   candidate_budget: Optional[int] = None):
+        """Top-``m`` across every shard: each shard's candidate tier and
+        exact re-rank, then the (distance, lower-global-id) cross-shard
+        merge.  The exact tier's contract (``dist`` int32, ``idx`` int64
+        global ids, ``m_eff = min(m, n_live)``); ``probe_path``,
+        ``adaptive`` and ``candidate_budget`` drive every shard's ladder
+        as on ``LSHSimHashIndex.query_topk``."""
+        p = _check_probes(probes, self.probes)
+        if p == 0:
+            return super().query_topk(A, m, tile=tile)
+        A, m_eff = self._check_query(A, m)
+        device = self._shards[0]._lsh_probe_device(probe_path)
+        adaptive_eff = self.adaptive if adaptive is None else bool(adaptive)
+        budget_eff = (self.candidate_budget if candidate_budget is None
+                      else _check_budget(candidate_budget))
+        live = self._live_shards(m_eff)
+        # the shards share one band plan, so shard 0's mask cache serves
+        masks = self._shards[0]._probe_masks(p)
+        if device:
+            # one tile feeds every shard, so it clamps to the tightest
+            # shard's probe plan
+            for si, m_s in live:
+                tile = self._shards[si]._lsh_device_tile(tile, p, m_s)
+
+        def dispatch(shard, a, m_s):
+            return shard._lsh_tile_entry(a, m_s, masks, p, tile, device,
+                                         adaptive_eff, budget_eff)
+
+        return self._serve_tiles(A, m_eff, live, tile, dispatch,
+                                 _finish_lsh_entry)
+
+
+def _finish_lsh_entry(shard, entry, m_s: int):
+    """Finish one shard's ``_lsh_tile_entry``: ``(dist, local id)``."""
+    kind, payload = entry
+    if kind == "lsh":
+        return shard._lsh_finish_tile(payload, m_s)
+    if kind == "lsh_dev":
+        return shard._lsh_finish_device_tile(payload, m_s)
+    if kind == "exact":
+        return shard._topk_finish_tile(payload, m_s)
+    return payload  # 'done': served whole (adaptive rounds)
+
+
+# -- durable spill and restore -------------------------------------------------
 
 
 def _spill_lsh_keys(index, dirpath: str, gen: int, keys: np.ndarray) -> dict:
@@ -1441,4 +1576,32 @@ def load_lsh_index(path: str, *, bands: Optional[int] = None,
         index_kwargs={**kwargs, **kw},
     )
     _verify_lsh_keys(path, meta, index.band_plan, index._buckets.keys)
+    return index
+
+
+def load_lsh_sharded_index(path: str, *, mesh=None, devices=None,
+                           n_shards: Optional[int] = None,
+                           data_axis: str = "data",
+                           bands: Optional[int] = None,
+                           band_bits: Optional[int] = None,
+                           probes: Optional[int] = None,
+                           fallback_density: Optional[float] = None
+                           ) -> LSHShardedSimHashIndex:
+    """Restore a sharded LSH index onto any shard layout: the corpus
+    re-shards balanced, each shard rebuilds its banded index over its
+    local rows, and the snapshot's keys (global id order) are verified
+    against the rebuilt global view, so the buckets are the same whatever
+    layout wrote or reads the snapshot.  A snapshot without keys (a plain
+    or an older one) loads with the bands rebuilt."""
+    from randomprojection_tpu_torch import durable
+
+    manifest = durable.read_manifest(path)
+    kw, meta = _resolve_lsh_kwargs(
+        manifest, bands, band_bits, probes, fallback_density
+    )
+    index = durable.load_sharded_index(
+        path, mesh=mesh, devices=devices, n_shards=n_shards,
+        data_axis=data_axis, index_cls=LSHShardedSimHashIndex, index_kwargs=kw,
+    )
+    _verify_lsh_keys(path, meta, index.band_plan, index._lsh_global_keys())
     return index

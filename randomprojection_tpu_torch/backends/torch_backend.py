@@ -180,8 +180,9 @@ class TorchBackend(ProjectionBackend):
         for name, value in (("mesh", mesh), ("feature_axis", feature_axis)):
             if value is not None:
                 raise ValueError(
-                    f"{name}={value!r} is not ported yet (ROADMAP A10 "
-                    f"(scale-out)); the torch backend takes {name}=None only"
+                    f"{name}={value!r} is not ported yet (ROADMAP A10b, the "
+                    "projection half of the scale-out); the torch backend "
+                    f"takes {name}=None only"
                 )
         # execution knobs, not spec fields (the spec defines the matrix):
         # they change how a lazy transform runs, never what it computes

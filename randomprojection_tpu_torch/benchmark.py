@@ -46,8 +46,10 @@ What differs from the reference, and why:
   reference's three anti-cache rules and is timed on the host clock ending
   in a synchronize (the reference's method), with CUDA events around the
   same calls beside it (``event_elapsed_s``).
-- **Serving.**  The sharded leg waits for the sharded tier (ROADMAP A10):
-  ``sharded`` is null and ``sharded_skipped`` says why.  ``topk_impl`` is
+- **Serving.**  The sharded leg runs the shape's ``shards`` ×
+  ``replicas`` layout on the one device (the reference's single-chip
+  case: the shards share it); its ``launches`` are the top-k kernel's
+  over that leg alone, one scan and one merge a shard a tile.  ``topk_impl`` is
   the plan the serving kernel takes (``'wgmma'`` or ``'popc'``; ``'plain'``
   on the CPU) and ``topk_interpret`` says the device is the CPU.
 - **Config 5.**  The port has one device CSR route, the flat
@@ -115,8 +117,8 @@ COMPACT_MAX_BYTES = 2048
 REGRESSION_THRESHOLD = 0.10
 
 # top-k serving bench shapes (measure_config4_topk), the reference's; the
-# tests patch them down to toy sizes.  ``shards``/``replicas`` say what the
-# sharded leg would run (it waits for ROADMAP A10)
+# tests patch them down to toy sizes.  ``shards``/``replicas`` are the
+# sharded leg's layout (0 shards skips it)
 TOPK_BENCH_SHAPES = {
     "full": dict(n_idx=1 << 24, q_tile=2048, clients=16, req_rows=128,
                  reqs_per_client=4, max_batch=8192, shards=8, replicas=1),
@@ -710,10 +712,14 @@ def measure_config4_topk(preset: str = "full", *, device=None) -> dict:
     - ``single_stream_queries_per_s``: one ``query_topk`` tile at a time;
     - ``queries_per_s`` (THE serving number): concurrent client threads
       submitting small requests through ``TopKServer``, which coalesces
-      them into one tile.
+      them into one tile;
+
+    and ``sharded``: the same corpus row-sharded (``ShardedSimHashIndex``
+    groups, the shards sharing the device) behind ``ShardedTopKServer``,
+    the same clients.
 
     Every timed call or request sees DISTINCT query values (sliced from a
-    pool drawn up front).  The sharded leg waits for ROADMAP A10."""
+    pool drawn up front)."""
     from randomprojection_tpu_torch.models.sketch import SimHashIndex, TopKServer
 
     dev = _device(device)
@@ -769,6 +775,7 @@ def measure_config4_topk(preset: str = "full", *, device=None) -> dict:
     idx.close()
     del idx
     _free(dev)
+    sharded = _measure_sharded(shape, codes, spool, m, unit, dev)
     flags = _rate_flags(server_executed, unit, dev)
     single = _rate_flags(executed, unit, dev)
     # the int8 form's flags beside: a rate past the published int8 peak
@@ -802,14 +809,71 @@ def measure_config4_topk(preset: str = "full", *, device=None) -> dict:
         "dense_d2h_bytes_per_query": 4 * n_idx,
         "checksum": int(last[0][0, 0]) if last is not None else None,
         "launches": launches,
-        "sharded": None,
-        "sharded_skipped": (
-            f"the sharded tier ({shape.get('shards', 0)} shards x "
-            f"{shape.get('replicas', 1)} replicas) is not ported yet "
-            "(ROADMAP A10, scale-out)"
-        ),
+        "sharded": sharded,
         "lsh": measure_topk_lsh(preset, device=dev),
         "tiered": measure_topk_tiered(preset, device=dev),
+    }
+
+
+def _measure_sharded(shape: dict, codes, spool, m: int, unit: str, dev):
+    """The sharded leg: ``replicas`` groups of ``shards`` shards of the
+    serving corpus, all on ``dev``, behind ``ShardedTopKServer``; a warm
+    round, then the timed one (the plain server's clients and requests).
+    None when the shape has no shards."""
+    shards, replicas = shape.get("shards", 0), shape.get("replicas", 1)
+    if not shards:
+        return None
+    from randomprojection_tpu_torch.serving import (
+        ShardedSimHashIndex,
+        ShardedTopKServer,
+    )
+
+    clients, req_rows = shape["clients"], shape["req_rows"]
+    reqs_per_client = shape["reqs_per_client"]
+    n_requests = clients * reqs_per_client
+    _zero_launches()
+    groups = [ShardedSimHashIndex(codes, devices=[dev], n_shards=shards)
+              for _ in range(replicas)]
+    server = ShardedTopKServer(groups, m, max_batch=shape["max_batch"],
+                               max_delay_s=0.01)
+    try:
+        _serve_round(server, spool, 0, clients, reqs_per_client, req_rows)
+        pre = [g.stats() for g in groups]
+        t0 = time.perf_counter()
+        _serve_round(server, spool, n_requests, clients, reqs_per_client,
+                     req_rows)
+        elapsed = time.perf_counter() - t0
+        post = [g.stats() for g in groups]
+        stats = server.stats()
+    finally:
+        server.close()
+        for g in groups:
+            g.close()
+    launches = _read_launches()
+    del groups
+    _free(dev)
+    merges = sum(b["merges"] - a["merges"] for a, b in zip(pre, post))
+    qps = n_requests * req_rows / elapsed
+    executed = qps * 2 * codes.shape[0] * 256 / 1e12
+    return {
+        "shards": shards,
+        "replicas": replicas,
+        "queries_per_s": round(qps, 1),
+        "elapsed_s": round(elapsed, 4),
+        # every live shard is dispatched once a query tile (= a merge)
+        "dispatches_per_shard": merges // max(replicas, 1),
+        "shard_dispatches": merges * shards,
+        "merges": merges,
+        "merge_wall_s": round(sum(
+            b["merge_wall_s"] - a["merge_wall_s"] for a, b in zip(pre, post)
+        ), 6),
+        "replica_batches": stats["replica_batches"],
+        "latency_quantiles": stats.get("latency"),
+        "executed_tflops": round(executed, 1),
+        "executed_on": unit,
+        "timing_suspect": _rate_flags(executed, unit, dev)["timing_suspect"],
+        # warm and timed rounds: one scan and one merge a shard a tile
+        "launches": launches,
     }
 
 

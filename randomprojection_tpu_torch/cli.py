@@ -29,9 +29,10 @@ carries on on the CPU; ``--device cpu`` asks for the CPU (for ``bench``
 that runs the kernels' plain versions, every timing flagged suspect).
 The live plane's flags (``--openmetrics``, ``--metrics-port``,
 ``--health``, ``--flight-dump``) run as the reference's do.  ``lint`` is
-registered and refuses, naming its ROADMAP item; ``topk-bench`` and
-``loadgen`` serve from one device, so ``--shards``/``--replicas`` past 1
-refuse naming theirs.  ``--debug-nans`` and ``--disable-jit`` set JAX
+registered and refuses, naming its ROADMAP item.  ``topk-bench --shards``
+and ``loadgen`` serve the sharded tier (``ShardedSimHashIndex`` groups
+behind ``ShardedTopKServer``), every shard on ``--device``.
+``--debug-nans`` and ``--disable-jit`` set JAX
 options and ``--transform-dma`` picks the TPU kernel's DMA route: they
 have no counterpart here and refuse too (``bench`` takes
 ``--transform-dma auto``, its default: the kernel's one route on the
@@ -49,8 +50,6 @@ import numpy as np
 
 #: later-slice subcommands: registered, they refuse naming their item
 _LATER_COMMANDS = {"lint": "ROADMAP A14 (rplint)"}
-#: the sharded serving tier, ``--shards``/``--replicas`` past one device
-_SHARDED_ITEM = "ROADMAP A10 (the sharded serving tier)"
 #: the reference's jax.config switches: no counterpart in torch
 _JAX_FLAGS = ("debug_nans", "disable_jit")
 #: the reference's TPU kernel switches: no counterpart on the card
@@ -372,12 +371,12 @@ def build_parser():
                         "version on the CPU); the reference's 'scan' "
                         "route does not exist here and refuses")
     q.add_argument("--shards", type=int, default=0,
-                   help="also measure the sharded tier's serving path; "
-                        "one device serves it, so only 0 (skip) and 1 run "
-                        "until " + _SHARDED_ITEM)
+                   help="also measure the sharded tier: ShardedSimHashIndex "
+                        "groups of this many shards, all on --device, "
+                        "behind ShardedTopKServer (0 = skip)")
     q.add_argument("--replicas", type=_positive_int, default=1,
-                   help="replica groups for the sharded tier; only 1 runs "
-                        "until " + _SHARDED_ITEM)
+                   help="replica groups for the sharded tier (each a full "
+                        "copy of the corpus, batches routed round-robin)")
     q.add_argument("--probes", default="", metavar="P1,P2,...",
                    help="also measure the multi-probe LSH candidate tier "
                         "(ann.LSHSimHashIndex) at each probe count: "
@@ -423,9 +422,10 @@ def build_parser():
                     "fixed client labels, fully determined by --seed) and "
                     "print a 'topk_slo' record of per-label "
                     "p50/p90/p99/p99.9 latency, rejects and the "
-                    "schedule's digest as the last line.  One device "
-                    "serves: a SimHashIndex (an LSHSimHashIndex with "
-                    "--probes) behind TopKServer(name='sharded').",
+                    "schedule's digest as the last line.  The sharded tier "
+                    "serves: --replicas groups of ShardedSimHashIndex "
+                    "(LSHShardedSimHashIndex with --probes) of --shards "
+                    "shards on --device, behind ShardedTopKServer.",
     )
     q.add_argument("--index-codes", type=_positive_int, default=1 << 14,
                    help="rows in the resident code index")
@@ -434,9 +434,9 @@ def build_parser():
     q.add_argument("--m", type=_positive_int, default=16,
                    help="neighbors per query")
     q.add_argument("--shards", type=_positive_int, default=1,
-                   help="row shards; only 1 runs until " + _SHARDED_ITEM)
+                   help="row shards a replica group, all on --device")
     q.add_argument("--replicas", type=_positive_int, default=1,
-                   help="replica groups; only 1 runs until " + _SHARDED_ITEM)
+                   help="replica groups (each a full copy of the corpus)")
     q.add_argument("--topk-impl", default="auto",
                    choices=["auto", "fused", "scan"],
                    help="'auto'/'fused' = the top-k kernel; 'scan' "
@@ -1040,19 +1040,12 @@ def cmd_recover(args):
 
 
 def _check_serving_args(args) -> None:
-    """``topk-bench``/``loadgen`` serve from one device: the reference's
-    ``scan`` route and more than one shard or replica refuse."""
+    """``topk-bench``/``loadgen``: the reference's ``scan`` route refuses."""
     if args.topk_impl == "scan":
         raise SystemExit(
             "--topk-impl scan: the port has one top-k route, the kernel on "
             "the card (its plain version on the CPU); no scan route (a "
             "standing divergence, ROADMAP queue C)"
-        )
-    if args.shards > 1 or args.replicas > 1:
-        raise SystemExit(
-            f"--shards {args.shards} --replicas {args.replicas}: the "
-            f"sharded serving tier is not ported yet ({_SHARDED_ITEM}); "
-            "one shard and one replica run"
         )
 
 
@@ -1100,13 +1093,10 @@ def cmd_topk_bench(args):
     direct_elapsed = time.perf_counter() - t0
     direct_qps = len(requests) * args.request_rows / direct_elapsed
 
-    def measure_server(name):
-        server = TopKServer(
-            index, args.m, max_batch=args.server_batch,
-            max_delay_s=args.server_delay_ms / 1e3, name=name,
-        )
+    def measure_server(server, warmed=lambda: None):
         try:
             server.query(requests[0])  # warm the coalesced bucket
+            warmed()
 
             def client(reqs):
                 futs = [server.submit(r) for r in reqs]
@@ -1129,20 +1119,40 @@ def cmd_topk_bench(args):
             server.close()
         return len(requests) * args.request_rows / elapsed, server.stats()
 
-    server_qps, server_stats = measure_server("topk")
+    server_qps, server_stats = measure_server(TopKServer(
+        index, args.m, max_batch=args.server_batch,
+        max_delay_s=args.server_delay_ms / 1e3, name="topk"))
 
     sharded = None
     if args.shards:
-        # one shard, one replica: the single-device index behind the
-        # sharded tier's server name (no cross-shard merge to count)
-        sh_qps, sh_stats = measure_server("sharded")
+        from randomprojection_tpu_torch.serving import (
+            ShardedSimHashIndex,
+            ShardedTopKServer,
+        )
+
+        groups = [
+            ShardedSimHashIndex(codes, devices=[dev], n_shards=args.shards)
+            for _ in range(args.replicas)
+        ]
+        pre = []
+        sh_qps, sh_stats = measure_server(
+            ShardedTopKServer(groups, args.m, max_batch=args.server_batch,
+                              max_delay_s=args.server_delay_ms / 1e3),
+            # the merges are counted from after the warm request
+            warmed=lambda: pre.extend(g.stats() for g in groups))
+        post = [g.stats() for g in groups]
+        for g in groups:
+            g.close()
         sharded = {
             "shards": args.shards,
             "replicas": args.replicas,
             "queries_per_s": round(sh_qps, 1),
-            "merges": 0,
-            "merge_wall_s": 0.0,
-            "replica_batches": [sh_stats["batches"]],
+            "merges": sum(b["merges"] - a["merges"]
+                          for a, b in zip(pre, post)),
+            "merge_wall_s": round(sum(
+                b["merge_wall_s"] - a["merge_wall_s"]
+                for a, b in zip(pre, post)), 6),
+            "replica_batches": sh_stats["replica_batches"],
         }
 
     lsh = None
@@ -1388,16 +1398,15 @@ def _probe_args(text: str):
 
 def cmd_loadgen(args):
     """Open-loop SLO measurement (``loadgen.py``): a seeded arrival
-    schedule against one device's index behind ``TopKServer(name=
-    'sharded')``, the reference's server name, so the scrape's
-    ``rp_serve_latency_sharded*`` names and the events' ``server`` field
-    are the reference's.  The ``topk_slo`` record is the last stdout line
-    and optionally ``--out``."""
+    schedule against ``--replicas`` groups of ``--shards`` shards on
+    ``--device`` behind a ``ShardedTopKServer``, as the reference serves
+    it.  The ``topk_slo`` record is the last stdout line and optionally
+    ``--out``."""
     from randomprojection_tpu_torch import loadgen
     from randomprojection_tpu_torch.benchmark import _device
-    from randomprojection_tpu_torch.models.sketch import (
-        SimHashIndex,
-        TopKServer,
+    from randomprojection_tpu_torch.serving import (
+        ShardedSimHashIndex,
+        ShardedTopKServer,
     )
 
     def _csv(text, cast, flag):
@@ -1433,20 +1442,22 @@ def cmd_loadgen(args):
     codes = rng.integers(
         0, 256, size=(args.index_codes, args.code_bytes), dtype=np.uint8
     )
+    layout = {"devices": [dev], "n_shards": args.shards}
     if probes_default > 0 or probe_policy is not None:
         # the LSH candidate tier serves: probes is the recall/latency knob
         # the per-label SLO tables then express
-        from randomprojection_tpu_torch.ann import LSHSimHashIndex
+        from randomprojection_tpu_torch.ann import LSHShardedSimHashIndex
 
         lsh_kw = {"probes": probes_default} if probes_default > 0 else {}
-        index = LSHSimHashIndex(codes, device=dev, **lsh_kw)
+        groups = [LSHShardedSimHashIndex(codes, **layout, **lsh_kw)
+                  for _ in range(args.replicas)]
     else:
-        index = SimHashIndex(codes, device=dev)
-    server = TopKServer(
-        index, args.m, max_batch=args.server_batch,
+        groups = [ShardedSimHashIndex(codes, **layout)
+                  for _ in range(args.replicas)]
+    server = ShardedTopKServer(
+        groups, args.m, max_batch=args.server_batch,
         max_delay_s=args.server_delay_ms / 1e3,
-        max_pending=args.max_pending, name="sharded",
-        probe_policy=probe_policy,
+        max_pending=args.max_pending, probe_policy=probe_policy,
     )
     try:
         record = loadgen.run(
@@ -1456,6 +1467,8 @@ def cmd_loadgen(args):
         )
     finally:
         server.close()
+        for g in groups:
+            g.close()
     record.update({
         "seed": args.seed,
         "arrival": args.arrival,

@@ -35,9 +35,13 @@ restored chunks under the caller's budget.  The fourth kill point,
 spill write and the residency swap; the harness child crosses it in a
 disk-tiered leg after its ingest.
 
-Not ported yet: the sharded pair ``save_sharded_index``/
-``load_sharded_index`` (ROADMAP A10; ``load_index`` refuses an
-``id_offset`` manifest).
+Sharded indexes: ``save_sharded_index`` writes a
+``serving.ShardedSimHashIndex`` in global id order (the plain format plus
+``sharded.shards`` and, when nonzero, ``id_offset``), and
+``load_sharded_index`` restores any snapshot onto any shard layout;
+``load_index`` restores a snapshot with no ``id_offset`` as a plain index
+(on one device, or row-sharded over ``mesh``) and points an ``id_offset``
+manifest to ``load_sharded_index``.
 
 Telemetry: ``index.snapshot.save``/``index.snapshot.load``,
 ``recover.resume``, ``recover.orphan_chunk`` and
@@ -75,6 +79,8 @@ __all__ = [
     "DurableIngest",
     "save_index",
     "load_index",
+    "save_sharded_index",
+    "load_sharded_index",
     "read_manifest",
     "verify_snapshot",
     "check_coverage",
@@ -274,6 +280,19 @@ def _load_chunk_verified(dirpath: str, entry: dict) -> np.ndarray:
     return arr
 
 
+def _verified_chunks(dirpath: str, manifest: dict):
+    """The manifest's chunks in order, each checksum-verified and held to
+    its ``(rows, n_bytes)``."""
+    for entry in manifest["chunks"]:
+        arr = _load_chunk_verified(dirpath, entry)
+        if arr.ndim != 2 or arr.shape != (entry["rows"], manifest["n_bytes"]):
+            raise ValueError(
+                f"snapshot chunk {entry['file']} has shape {arr.shape}, "
+                f"manifest says ({entry['rows']}, {manifest['n_bytes']})"
+            )
+        yield arr
+
+
 def _next_generation(dirpath: str) -> int:
     try:
         return read_manifest(dirpath).get("generation", 0) + 1
@@ -379,48 +398,45 @@ def _check_tier_block(manifest: dict) -> None:
             )
 
 
-def load_index(dirpath: str, *, device=None, mesh=None, index_cls=None,
+def load_index(dirpath: str, *, device=None, mesh=None,
+               data_axis: str = "data", index_cls=None,
                index_kwargs: Optional[dict] = None):
     """Rebuild a ``SimHashIndex`` from a snapshot directory on ``device``
-    (None: the card).
+    (None: the card), or row-sharded over ``mesh``'s ``data_axis``.
 
     The manifest's format version is checked first, every chunk payload
     is SHA-256-verified before upload, chunk structure and global ids are
     restored exactly, and the tombstone bitmap (if any) is re-armed.  A
-    tier block is validated; the restored index tiers under
-    ``index_kwargs``' ``hbm_budget_bytes`` (and ``cold_tier``/``cold_dir``)
-    when given, and is fully resident otherwise.  ``index_cls`` restores a
-    subclass instead (the LSH tier; ``ann.load_lsh_index`` is its public
-    face)."""
+    snapshot of the sharded tier (global id order) loads here as a plain
+    index with the same answers; one with an ``id_offset`` refuses and
+    points to ``load_sharded_index``, which restores the offset.  A tier
+    block is validated; the restored index tiers under ``index_kwargs``'
+    ``hbm_budget_bytes`` (and ``cold_tier``/``cold_dir``) when given, and
+    is fully resident otherwise.  ``index_cls`` restores a subclass
+    instead (the LSH tier; ``ann.load_lsh_index`` is its public face)."""
     from randomprojection_tpu_torch.models.sketch import SimHashIndex
 
-    if mesh is not None:
-        raise ValueError(
-            f"mesh={mesh!r} is not ported yet (ROADMAP A10 (scale-out)); "
-            "load_index restores a single-device index"
-        )
     manifest = read_manifest(dirpath)
     check_coverage(manifest)
     _check_tier_block(manifest)
     if manifest.get("id_offset"):
+        # a plain index has no id offset: loading would renumber the
+        # corpus from 0
         raise ValueError(
             f"{dirpath} was saved with id_offset="
             f"{manifest['id_offset']} (a sharded-tier global id space); "
-            "the sharded loader that restores it is not ported yet "
-            "(ROADMAP A10, durable.load_sharded_index)"
+            "load it with ShardedSimHashIndex.load / "
+            "durable.load_sharded_index, which restores the offset"
         )
     cls = SimHashIndex if index_cls is None else index_cls
+    kw = dict(index_kwargs or {})
+    if mesh is not None:
+        kw.update(mesh=mesh, data_axis=data_axis)
     index = cls(
         np.empty((0, manifest["n_bytes"]), np.uint8),
-        n_bits=manifest["n_bits"], device=device, **(index_kwargs or {}),
+        n_bits=manifest["n_bits"], device=device, **kw,
     )
-    for entry in manifest["chunks"]:
-        arr = _load_chunk_verified(dirpath, entry)
-        if arr.ndim != 2 or arr.shape != (entry["rows"], manifest["n_bytes"]):
-            raise ValueError(
-                f"snapshot chunk {entry['file']} has shape {arr.shape}, "
-                f"manifest says ({entry['rows']}, {manifest['n_bytes']})"
-            )
+    for arr in _verified_chunks(dirpath, manifest):
         index.add(arr)
     if index.n_codes != manifest["n_codes"]:
         raise ValueError(
@@ -443,6 +459,119 @@ def load_index(dirpath: str, *, device=None, mesh=None, index_cls=None,
         EVENTS.INDEX_SNAPSHOT_LOAD, path=dirpath,
         generation=manifest["generation"], chunks=len(manifest["chunks"]),
         n_codes=int(index.n_codes), deleted=int(index.n_deleted),
+    )
+    return index
+
+
+def save_sharded_index(index, dirpath: str) -> dict:
+    """Durable snapshot of a ``serving.ShardedSimHashIndex``, agnostic of
+    its layout: one spill a segment (a shard's chunk) in global id order,
+    so the files are a plain index snapshot of the concatenated corpus
+    (same manifest kind, coverage and checksums) plus ``sharded`` (the
+    writing layout) and ``id_offset`` (when nonzero).  It restores under
+    any shard count (``load_sharded_index``), or as a plain
+    ``SimHashIndex`` when ``id_offset`` is 0 (``load_index``), in either
+    package, with the same answers.  The commit discipline is
+    ``save_index``'s; the tombstones persist as the global bitmap.
+    Returns the committed manifest."""
+    os.makedirs(dirpath, exist_ok=True)
+    gen = _next_generation(dirpath)
+    entries = [
+        _spill_chunk(dirpath, gen, seq, rows, g0)
+        for seq, (g0, rows) in enumerate(index._iter_segment_host())
+    ]
+    tomb = None
+    dead = index._dead_global()
+    if dead is not None:
+        packed = np.packbits(dead, bitorder="little")
+        fname = f"tombstones-{gen:06d}.npy"
+        _write_npy_atomic(os.path.join(dirpath, fname), packed)
+        tomb = {
+            "file": fname, "deleted": int(index.n_deleted),
+            "sha256": _sha256(packed),
+        }
+    manifest = {
+        "format_version": INDEX_FORMAT_VERSION,
+        "kind": "simhash_index",
+        "n_bytes": int(index.n_bytes),
+        "n_bits": int(index.n_bits),
+        "n_codes": int(index.n_codes),
+        "generation": gen,
+        "chunks": entries,
+        "tombstones": tomb,
+        "sharded": {"shards": int(index.n_shards)},
+    }
+    if index.id_offset:
+        manifest["id_offset"] = int(index.id_offset)
+    # index-class extras: the sharded LSH tier spills its band keys in
+    # global id order, agnostic of the layout like the chunks
+    extra_hook = getattr(index, "_durable_extra", None)
+    if extra_hook is not None:
+        manifest.update(extra_hook(dirpath, gen))
+    check_coverage(manifest)  # the writer holds itself to the invariant
+    _commit_manifest(dirpath, manifest)
+    for fn in _scan_orphans(dirpath, manifest):
+        os.unlink(os.path.join(dirpath, fn))
+    telemetry.emit(
+        EVENTS.INDEX_SNAPSHOT_SAVE, path=dirpath, generation=gen,
+        chunks=len(entries), n_codes=int(index.n_codes),
+        deleted=int(index.n_deleted), shards=int(index.n_shards),
+    )
+    return manifest
+
+
+def load_sharded_index(dirpath: str, *, mesh=None, devices=None,
+                       n_shards=None, data_axis: str = "data", index_cls=None,
+                       index_kwargs: Optional[dict] = None):
+    """Rebuild a ``serving.ShardedSimHashIndex`` from a snapshot directory
+    onto any shard layout (``mesh``/``devices``/``n_shards``, resolved as
+    ``serving.shard_devices`` resolves them).  Reads snapshots of
+    ``save_sharded_index`` and plain ``save_index`` ones alike (both hold
+    the corpus in global id order): every chunk is verified before any
+    upload, the corpus re-shards balanced, the tombstones re-arm at the new
+    shard boundaries and ``id_offset`` comes back from the manifest, so
+    ``query_topk`` answers as the saved index did."""
+    from randomprojection_tpu_torch.serving.sharded_index import (
+        ShardedSimHashIndex,
+    )
+
+    manifest = read_manifest(dirpath)
+    check_coverage(manifest)
+    parts = list(_verified_chunks(dirpath, manifest))
+    codes = (
+        np.concatenate(parts, axis=0)
+        if parts
+        else np.empty((0, manifest["n_bytes"]), np.uint8)
+    )
+    if codes.shape[0] != manifest["n_codes"]:
+        raise ValueError(
+            f"restored {codes.shape[0]} codes but the manifest records "
+            f"{manifest['n_codes']}"
+        )
+    id_offset = int(manifest.get("id_offset", 0))
+    cls = ShardedSimHashIndex if index_cls is None else index_cls
+    index = cls(
+        codes, mesh=mesh, devices=devices, n_shards=n_shards,
+        data_axis=data_axis, n_bits=manifest["n_bits"],
+        id_offset=id_offset, **(index_kwargs or {}),
+    )
+    tomb = manifest.get("tombstones")
+    if tomb:
+        packed = _load_chunk_verified(dirpath, tomb)
+        dead = np.unpackbits(
+            packed, count=manifest["n_codes"], bitorder="little"
+        ).astype(bool)
+        if int(dead.sum()) != tomb["deleted"]:
+            raise ValueError(
+                f"tombstone bitmap in {dirpath} marks {int(dead.sum())} "
+                f"codes deleted but the manifest records {tomb['deleted']}"
+            )
+        index.delete(np.flatnonzero(dead).astype(np.int64) + id_offset)
+    telemetry.emit(
+        EVENTS.INDEX_SNAPSHOT_LOAD, path=dirpath,
+        generation=manifest["generation"], chunks=len(manifest["chunks"]),
+        n_codes=int(index.n_codes), deleted=int(index.n_deleted),
+        shards=int(index.n_shards),
     )
     return index
 

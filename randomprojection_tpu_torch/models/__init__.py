@@ -14,6 +14,7 @@ from randomprojection_tpu_torch.models.sketch import (
     cosine_from_hamming,
     pairwise_hamming,
     pairwise_hamming_device,
+    pairwise_hamming_sharded,
     topk_bruteforce,
 )
 
@@ -28,5 +29,6 @@ __all__ = [
     "cosine_from_hamming",
     "pairwise_hamming",
     "pairwise_hamming_device",
+    "pairwise_hamming_sharded",
     "topk_bruteforce",
 ]

@@ -18,8 +18,11 @@ CPU (``SimHashIndex(..., device='cpu')``), where the kernel's plain
 version serves.  ``save``/``load`` write and read the reference's durable
 snapshot format (``durable.py``).  ``hbm_budget_bytes`` tiers the chunks
 past a device-memory budget into pinned host memory or onto disk
-(``tiering.py``); meshes (ROADMAP A10) are a later slice and raise naming
-their item.  The multi-probe LSH tier on top of the index is
+(``tiering.py``).  ``mesh=`` splits every added chunk into one row block
+per device of the mesh's data axis, each a chunk on its own device scored
+by the kernel; the sharded serving tier (``serving.ShardedSimHashIndex``)
+is N such single-device indexes.  The multi-probe LSH tier on top of the
+index is
 ``ann.LSHSimHashIndex``; a ``TopKServer`` takes per-label probe budgets
 for it (``probe_policy``).
 
@@ -44,6 +47,7 @@ import scipy.sparse as sp
 
 from randomprojection_tpu_torch.models.base import BaseRandomProjection, ParamsMixin
 from randomprojection_tpu_torch.ops import topk_kernels
+from randomprojection_tpu_torch.parallel.mesh import concrete_device
 from randomprojection_tpu_torch.parallel.sharded import row_bucket
 # a tensor's copy to the host: pinned memory, non_blocking, an event
 # behind it on a card; .result(None) waits for that copy alone
@@ -60,6 +64,7 @@ __all__ = [
     "TopKServer",
     "pairwise_hamming",
     "pairwise_hamming_device",
+    "pairwise_hamming_sharded",
     "cosine_from_hamming",
     "topk_bruteforce",
 ]
@@ -143,6 +148,20 @@ def pairwise_hamming_device(A, B=None, *, tile: int = 2048, device=None):
     return SimHashIndex(A if B is None else B, device=device).query(A, tile=tile)
 
 
+def pairwise_hamming_sharded(A, B=None, *, mesh, data_axis: str = "data",
+                             tile: int = 2048):
+    """Hamming distances ``(n1, n2)`` int32 with the code set ``B``
+    (default ``A``) row-sharded over ``mesh``'s ``data_axis``: each device
+    holds a contiguous block of ``B``'s rows and scores every query tile
+    against it; the result's column blocks are the devices' blocks, so it
+    assembles on the host with no collective.  One-shot: a
+    ``SimHashIndex(B, mesh=mesh)`` held across calls ships ``B`` once."""
+    A = np.asarray(A, dtype=np.uint8)
+    return SimHashIndex(
+        A if B is None else B, mesh=mesh, data_axis=data_axis
+    ).query(A, tile=tile)
+
+
 def cosine_from_hamming(hamming, n_bits: int):
     """SimHash estimate: ``cos(π · hamming / k)`` (Charikar 2002)."""
     return np.cos(np.pi * np.asarray(hamming, dtype=np.float64) / n_bits)
@@ -198,6 +217,13 @@ class SimHashIndex:
     runs only when asked (``device='cpu'``), with the kernel's plain
     version.  At most ``2**31 - 1`` codes per index: device ids are int32.
 
+    ``mesh`` (a ``parallel.Mesh``) row-shards the index over the devices
+    of its ``data_axis``: every added chunk splits into one contiguous row
+    block per device, each a chunk of its own on that device, and every
+    query tile runs the kernel on each block; the chunks' candidates merge
+    as any chunks' do, so the answers are the single-device index's.  A
+    mesh may name one device several times (blocks then share it).
+
     ``hbm_budget_bytes`` tiers the index (``tiering.TieredResidency``):
     chunks are admitted to the device until their bytes reach the budget,
     later ones land cold (``cold_tier='host'``: a pinned host copy;
@@ -211,26 +237,39 @@ class SimHashIndex:
     quiescent — drain a ``TopKServer`` before compacting.
     """
 
-    def __init__(self, codes, *, mesh=None, n_bits: Optional[int] = None,
+    def __init__(self, codes, *, mesh=None, data_axis: str = "data",
+                 n_bits: Optional[int] = None,
                  device=None,
                  label: Optional[str] = None,
                  hbm_budget_bytes: Optional[int] = None,
                  cold_tier: str = "host", cold_dir: Optional[str] = None):
-        from randomprojection_tpu_torch.backends.torch_backend import (
-            resolve_device,
-        )
-
-        if mesh is not None:
+        if device is not None and mesh is not None:
             raise ValueError(
-                f"mesh={mesh!r} is not ported yet (ROADMAP A10 (scale-out)); "
-                "SimHashIndex takes mesh=None only"
+                "device= pins a single-device index; it cannot combine "
+                "with mesh= (one index is one shard OR one mesh span)"
             )
-        self.device = resolve_device(device, how="device='cpu'")
-        if self.device.type == "cuda" and self.device.index is None:
-            import torch
+        if hbm_budget_bytes is not None and mesh is not None:
+            raise ValueError(
+                "hbm_budget_bytes= tiers a single-device index; the mesh "
+                "path shards residency across devices instead (tier the "
+                "per-shard indexes of serving.ShardedSimHashIndex)"
+            )
+        self.mesh = mesh
+        self.data_axis = data_axis
+        # the devices of the mesh's data axis, one row block each (None:
+        # the one device)
+        self._block_devices = None
+        if mesh is not None:
+            from randomprojection_tpu_torch.parallel.mesh import (
+                data_axis_devices,
+            )
 
-            # a concrete card, so the server's thread can pin it
-            self.device = torch.device("cuda", torch.cuda.current_device())
+            self._block_devices = [
+                concrete_device(d) for d in data_axis_devices(mesh, data_axis)
+            ]
+            self.device = self._block_devices[0]
+        else:
+            self.device = concrete_device(device)
         self.label = label
         codes = self._check_codes(codes, None)
         self.n_bytes = int(codes.shape[1])
@@ -279,18 +318,37 @@ class SimHashIndex:
             raise ValueError(f"{what} must be {want}, got {tuple(codes.shape)}")
         return codes
 
-    def _to_device(self, a):
-        """One host array or tensor onto the index's device: host arrays
-        are copied (through pinned memory and a ``non_blocking`` copy on a
-        card), a tensor already on the device is kept as it is."""
+    def _to_device(self, a, device=None):
+        """One host array or tensor onto ``device`` (the index's device by
+        default): host arrays are copied (through pinned memory and a
+        ``non_blocking`` copy on a card), a tensor already on the device
+        is kept as it is."""
         import torch
 
+        device = self.device if device is None else device
         if isinstance(a, torch.Tensor):
-            return a.to(self.device).contiguous()
+            return a.to(device).contiguous()
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
+
+    def _chunk_device(self, chunk):
+        """The device a chunk is scored on: its own block's on a mesh, the
+        index's otherwise (a cold chunk is staged there)."""
+        return chunk.b.device if self._block_devices is not None else self.device
+
+    def _on_chunk_devices(self, a_np) -> dict:
+        """One query tile on every device a chunk lives on: device -> the
+        uploaded tile (one upload a device)."""
+        if self._block_devices is None:
+            return {self.device: self._to_device(a_np)}
+        out: dict = {}
+        for c in self._chunks:
+            dev = c.b.device
+            if dev not in out:
+                out[dev] = self._to_device(a_np, dev)
+        return out
 
     def _codes_appended(self, codes, row0: int) -> None:
         """Subclass hook: ``codes`` (the chunk as given: a host array or a
@@ -314,19 +372,35 @@ class SimHashIndex:
             raise ValueError(
                 f"{who} is limited to 2**31 - 1 codes (int32 device-local "
                 f"ids); have {self.n_codes}, adding {n} would overflow. "
-                "Grow past int32 by sharding over more devices"
+                "Grow past int32 by sharding over more devices "
+                "(serving.ShardedSimHashIndex keeps global ids int64 and "
+                "this bound per shard)"
             )
-        hot = self._tier is None or self._tier.admit(n * self.n_bytes)
-        if hot:
-            b = self._to_device(codes)
+        if self._block_devices is not None:
+            # one contiguous row block per device of the data axis, each a
+            # chunk of its own (the balanced split: the first n % p blocks
+            # take one row more)
+            p = len(self._block_devices)
+            lo = 0
+            for j, dev in enumerate(self._block_devices):
+                rows = n // p + (1 if j < n % p else 0)
+                if rows:
+                    self._chunks.append(_IndexChunk(
+                        self._to_device(codes[lo: lo + rows], dev), rows,
+                        self.n_codes + lo))
+                lo += rows
         else:
-            # past the budget: the chunk lands cold and its rows are
-            # staged per query instead of residing
-            b = self._tier.place_cold(_host_rows_of(codes))
-        chunk = _IndexChunk(b, n, self.n_codes)
-        self._chunks.append(chunk)
-        if self._tier is not None:
-            self._tier.register(chunk, n * self.n_bytes, hot)
+            hot = self._tier is None or self._tier.admit(n * self.n_bytes)
+            if hot:
+                b = self._to_device(codes)
+            else:
+                # past the budget: the chunk lands cold and its rows are
+                # staged per query instead of residing
+                b = self._tier.place_cold(_host_rows_of(codes))
+            chunk = _IndexChunk(b, n, self.n_codes)
+            self._chunks.append(chunk)
+            if self._tier is not None:
+                self._tier.register(chunk, n * self.n_bytes, hot)
         if self._dead is not None:
             self._dead = np.concatenate([self._dead, np.zeros(n, dtype=bool)])
         row0 = self.n_codes
@@ -394,7 +468,8 @@ class SimHashIndex:
             return chunk.dead_dev
         sl = self._dead[chunk.row0: chunk.row0 + chunk.n]
         chunk.dead_dev = (
-            self._to_device(sl.astype(np.uint8)) if sl.any() else None
+            self._to_device(sl.astype(np.uint8), self._chunk_device(chunk))
+            if sl.any() else None
         )
         chunk.dead_rev = self._dead_rev
         return chunk.dead_dev
@@ -442,7 +517,7 @@ class SimHashIndex:
         from randomprojection_tpu_torch.tiering import is_resident
 
         b = chunk.b
-        if is_resident(b, self.device):
+        if is_resident(b, self._chunk_device(chunk)):
             return b
         if audit and self._tier is not None:
             self._tier.note_fallback("demoted_under_dispatch",
@@ -496,14 +571,17 @@ class SimHashIndex:
         return durable.save_index(self, path)
 
     @classmethod
-    def load(cls, path: str, *, device=None, mesh=None):
+    def load(cls, path: str, *, device=None, mesh=None,
+             data_axis: str = "data"):
         """Restore an index saved by ``save`` (by either package) onto
-        ``device`` (None: the card): manifest version and per-chunk
-        checksums are verified before upload; chunk structure and the
-        tombstone bitmap round-trip exactly (see ``durable.load_index``)."""
+        ``device`` (None: the card) or row-sharded over ``mesh``: manifest
+        version and per-chunk checksums are verified before upload; chunk
+        structure and the tombstone bitmap round-trip exactly (see
+        ``durable.load_index``)."""
         from randomprojection_tpu_torch import durable
 
-        return durable.load_index(path, device=device, mesh=mesh)
+        return durable.load_index(path, device=device, mesh=mesh,
+                                  data_axis=data_axis)
 
     # -- dense distances ----------------------------------------------------------
 
@@ -528,10 +606,10 @@ class SimHashIndex:
 
         for lo in range(0, A.shape[0], tile):
             hi = min(lo + tile, A.shape[0])
-            a = self._to_device(A[lo:hi])
+            a = self._on_chunk_devices(A[lo:hi])
             pending.append((lo, hi, [
                 _HostFetch(topk_kernels.hamming_counts(
-                    a, self._resident_codes(c)))
+                    a[self._chunk_device(c)], self._resident_codes(c)))
                 for c in self._chunks]))
             telemetry.registry().counter_inc(
                 "simhash.chunk_dispatches", len(self._chunks)
@@ -578,11 +656,7 @@ class SimHashIndex:
         # m_eff counts LIVE codes only: tombstoned rows never win, and the
         # result width never includes sentinel filler
         m_eff = int(min(m, self.n_live))
-        if self.device.type == "cuda" and m_eff > topk_kernels.MAX_M:
-            raise ValueError(
-                f"query_topk m={m_eff} exceeds the kernel's largest m "
-                f"(MAX_M={topk_kernels.MAX_M}) for an index on {self.device}"
-            )
+        self._check_m(m_eff)
         nq = A.shape[0]
         out_d = np.empty((nq, m_eff), dtype=np.int32)
         out_i = np.empty((nq, m_eff), dtype=np.int32)
@@ -605,13 +679,24 @@ class SimHashIndex:
             finish(pending.pop(0))
         return out_d, out_i
 
+    def _check_m(self, m_eff: int) -> None:
+        """A card index serves ``m`` up to the kernel's ``MAX_M``; past it
+        the port has no other route and refuses, naming the index."""
+        if self.device.type == "cuda" and m_eff > topk_kernels.MAX_M:
+            where = (f"{self.label}" if self.label
+                     else f"an index on {self.device}")
+            raise ValueError(
+                f"query_topk m={m_eff} exceeds the kernel's largest m "
+                f"(MAX_M={topk_kernels.MAX_M}) for {where}"
+            )
+
     # -- tile-level dispatch/finish halves (shared with the sharded tier) ------
 
     def _topk_dispatch_tile(self, a_np, m_eff: int) -> list:
         """Dispatch one query tile against every resident chunk and start
         each result's copy to the host; returns the per-chunk
         ``(dist, idx)`` fetches for ``_topk_finish_tile``."""
-        a = self._to_device(a_np)
+        a_on = self._on_chunk_devices(a_np)
         stager = None
         if self._tier is not None and self._tier.any_cold():
             from randomprojection_tpu_torch.tiering import _TileStager
@@ -623,7 +708,8 @@ class SimHashIndex:
             # started under the previous chunk's kernel) and starts the
             # next cold chunk's upload before this kernel is launched
             b = stager.resolve(ci) if stager is not None else None
-            d, i = self._chunk_topk(a, c, int(min(m_eff, c.n)), b=b)
+            d, i = self._chunk_topk(a_on[self._chunk_device(c)], c,
+                                    int(min(m_eff, c.n)), b=b)
             handles.append((_HostFetch(d), _HostFetch(i)))
         if stager is not None:
             stager.finish()
@@ -905,6 +991,17 @@ class TopKServer:
 
     # -- dispatcher ---------------------------------------------------------
 
+    def _pick_index(self):
+        """The index one coalesced dispatch runs against.  The sharded
+        tier's ``serving.ShardedTopKServer`` round-robins replica groups
+        here (dispatcher thread only)."""
+        return self.index
+
+    def _batch_served(self, index, rows: int, padded: int,
+                      requests: int, wall: float) -> None:
+        """Hook after each successful coalesced dispatch (dispatcher
+        thread); the sharded tier counts its ``serve.shard.*`` here."""
+
     def _collect(self, first):
         """One coalesced batch: ``first`` plus whatever arrives within
         ``max_delay_s``, capped at ``max_batch`` rows.  Returns
@@ -954,10 +1051,11 @@ class TopKServer:
         pad_to = row_bucket(n)
         if pad_to != n:
             arr = np.pad(arr, ((0, pad_to - n), (0, 0)))
+        index = self._pick_index()
         t0 = time.perf_counter()
         kw = {} if probes is None else {"probes": probes}
         try:
-            d, i = self.index.query_topk(arr, self.m, tile=pad_to, **kw)
+            d, i = index.query_topk(arr, self.m, tile=pad_to, **kw)
         except BaseException as e:
             # every caller sees the exception through its future; the
             # failed dispatch also lands on the telemetry spine
@@ -987,6 +1085,7 @@ class TopKServer:
                 requests=len(batch), m=int(self.m), wall_s=round(wall, 6),
                 **({} if probes is None else {"probes": int(probes)}),
             )
+        self._batch_served(index, n, pad_to, len(batch), wall)
         lo = 0
         for codes, fut, label, t_enq in batch:
             hi = lo + codes.shape[0]
@@ -1091,7 +1190,8 @@ class CountSketch(ParamsMixin):
 
     On the card the scatter routes sum in the order the atomics land, so
     they agree with the host to float32 rounding, not bit for bit.
-    ``mesh=`` is not ported yet (ROADMAP A10).
+    ``mesh=`` is not ported yet (ROADMAP A10b, the projection half of
+    the scale-out).
     """
 
     def __init__(self, n_components, *, random_state=None, backend="auto",
@@ -1103,8 +1203,9 @@ class CountSketch(ParamsMixin):
             )
         if mesh is not None:
             raise ValueError(
-                f"mesh={mesh!r} is not ported yet (ROADMAP A10 (scale-out)); "
-                "CountSketch takes mesh=None only"
+                f"mesh={mesh!r} is not ported yet (ROADMAP A10b, the "
+                "projection half of the scale-out); CountSketch takes "
+                "mesh=None only"
             )
         self.n_components = int(n_components)
         self.random_state = random_state

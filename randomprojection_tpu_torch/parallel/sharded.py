@@ -1,5 +1,6 @@
 """Row bucketing (the single-device part of
-``randomprojection_tpu/parallel/sharded.py``; meshes come in a later slice).
+``randomprojection_tpu/parallel/sharded.py``; its mesh-spanning projectors
+are ROADMAP A10b).
 
 Eager PyTorch needs no static shapes, so the port pads no rows for
 compute.  The bucket sizes the pinned host staging buffers instead: a

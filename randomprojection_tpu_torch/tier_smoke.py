@@ -7,9 +7,11 @@ resident index on the exact path, on the LSH tier at partial and full
 probe coverage, with tombstones spanning the hot/cold seam, and on the
 disk rung's memmapped spills; the hot set never exceeds the budget; an
 injected staging-upload failure still answers exactly while landing on
-the fallback counter; and a tiered snapshot round-trips through
-``durable`` with its residency block verified.  The reference's 8-shard
-leg waits for the sharded tier (ROADMAP A10).
+the fallback counter; a tiered snapshot round-trips through ``durable``
+with its residency block verified; and eight LSH shards sharing the
+device, each under a budget below any chunk (every shard all cold),
+merge to the fully resident sharded index's answers with tombstones
+across shard boundaries.
 
 Run ``python -m randomprojection_tpu_torch.tier_smoke [--device cpu]``
 (the card unless asked); ``chip_smoke.py`` and the CPU tests call
@@ -37,7 +39,10 @@ def main(device=None) -> dict:
     """Run every leg on ``device`` (None: the card); raises on the first
     mismatch and returns a summary of what ran."""
     from randomprojection_tpu_torch import durable
-    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+    from randomprojection_tpu_torch.ann import (
+        LSHShardedSimHashIndex,
+        LSHSimHashIndex,
+    )
     from randomprojection_tpu_torch.backends.torch_backend import resolve_device
     from randomprojection_tpu_torch.models import sketch as sk
     from randomprojection_tpu_torch.ops import topk_kernels
@@ -145,6 +150,21 @@ def main(device=None) -> dict:
             same(retiered.query_topk(queries, m), want,
                  "snapshot restored under a budget")
             disk.close()
+
+        # -- 8 shards with budgets a shard (tombstones included) ------------
+        sref = LSHShardedSimHashIndex(codes, devices=[device], n_shards=8,
+                                      **lsh_kw)
+        # a budget below any chunk: every shard serves all cold
+        stier = LSHShardedSimHashIndex(codes, devices=[device], n_shards=8,
+                                       hbm_budget_bytes=n_bytes, **lsh_kw)
+        opened += [sref, stier]
+        for index in (sref, stier):
+            index.delete(np.arange(200, 420))
+        _check(all(s._tier.any_cold() for s in stier._shards),
+               "a budgeted shard holds no cold chunk")
+        same(stier.query_topk(queries, m, probes=full),
+             sref.query_topk(queries, m, probes=full),
+             "8-shard all-cold merge")
     finally:
         for idx in opened:
             idx.close()
@@ -161,7 +181,8 @@ def _main(argv=None) -> int:
     print(f"tier-smoke OK on {summary['device']}: a 4x-over-budget tiered "
           "index answers bit for bit like the fully resident one (exact, LSH "
           "at partial and full probes, seam-spanning tombstones, the upload-"
-          "failure rung, disk spills, the snapshot round trip)")
+          "failure rung, disk spills, the snapshot round trip, an 8-shard "
+          "all-cold merge)")
     return 0
 
 

@@ -43,9 +43,10 @@ ADDED = {
     "run": {"device", "lazy_matrix_launches"},
     "config3": {"event_elapsed_s", "executed_on", "launches"},
     "config4": {"event_elapsed_s", "executed_on", "launches"},
-    "topk_serving": {"executed_on", "sharded_skipped", "launches",
+    "topk_serving": {"executed_on", "launches",
                      "int8_timing_suspect",
                      "single_stream_int8_timing_suspect"},
+    "sharded": {"executed_on", "launches"},
     "lsh": {"exact_ref_s", "launches"},
     "curve": set(),
     "tiered": {"launches", "resident_launches"},
@@ -242,7 +243,15 @@ def test_run_has_the_reference_keys(cpu_record):
     tk = c4["topk_serving"]
     assert set(tk) == _literal_keys(ref.measure_config4_topk) | \
         ADDED["topk_serving"]
-    assert tk["sharded"] is None and "A10" in tk["sharded_skipped"]
+    # the sharded leg runs (the toy shape's 2 shards x 2 replicas)
+    sh = tk["sharded"]
+    assert set(sh) == _literal_keys(ref.measure_config4_topk,
+                                    assigned="sharded") | ADDED["sharded"]
+    assert sh["shards"] == TOY_TOPK["shards"]
+    assert sh["replicas"] == TOY_TOPK["replicas"]
+    assert len(sh["replica_batches"]) == sh["replicas"]
+    assert sh["merges"] >= 1
+    assert sh["shard_dispatches"] == sh["merges"] * sh["shards"]
     assert set(tk["lsh"]) == _literal_keys(ref.measure_topk_lsh) | \
         ADDED["lsh"]
     assert set(tk["lsh"]["curve"][0]) == _literal_keys(
@@ -280,6 +289,7 @@ def test_every_timing_flag_is_set_on_the_cpu(cpu_record):
     assert tk["topk_impl"] == "plain"
     assert all(p["timing_suspect"] for p in tk["lsh"]["curve"])
     assert tk["tiered"]["timing_suspect"] is True
+    assert tk["sharded"]["timing_suspect"] is True
     c5 = rec["config5"]
     for key in ("sketch_timing_suspect", "pipeline_timing_suspect",
                 "prefetch_timing_suspect", "serial_timing_suspect"):
@@ -299,7 +309,8 @@ def test_no_kernel_launches_on_the_cpu(cpu_record):
     legs = [m["launches"] for m in rec["all_modes"].values()] + [
         rec["lazy_matrix_launches"], rec["config3"]["launches"],
         rec["config4"]["launches"], tk["launches"], tk["lsh"]["launches"],
-        tk["tiered"]["launches"], tk["tiered"]["resident_launches"]]
+        tk["tiered"]["launches"], tk["tiered"]["resident_launches"],
+        tk["sharded"]["launches"]]
     assert legs == [{}] * len(legs)
 
 
@@ -333,6 +344,13 @@ def test_compact_line_is_read_by_the_reference(cpu_record, capsys):
     assert compact == json.loads(last) == port.find_compact_line(last)
     assert compact["mode"] == cpu_record["mode"]
     assert port.compact_summary(cpu_record) == ref.compact_summary(cpu_record)
+    # the sharded leg's digest, as the reference writes it
+    c4d = compact["config4"]
+    sh = cpu_record["config4"]["topk_serving"]["sharded"]
+    assert c4d["topk_sharded_shards"] == sh["shards"]
+    assert c4d["topk_sharded_replicas"] == sh["replicas"]
+    assert c4d["topk_sharded_timing_suspect"] is True
+    assert "config4.topk.sharded_queries_per_s" in ref.bench_rates(cpu_record)
     assert ref.bench_rates(compact) == port.bench_rates(compact)
     assert port.bench_rates(cpu_record) == ref.bench_rates(cpu_record)
 

@@ -1196,3 +1196,92 @@ def test_topk_bench_on_the_card(cuda):
     assert rec["device"] == torch.cuda.get_device_name(0)
     assert rec["tiered"]["parity_ok"] and rec["tiered"]["fallbacks"] == 0
     assert rec["lsh"]["probe_path_resolved"] == "device"
+
+
+# -- the sharded serving tier -------------------------------------------------
+
+
+def _shard_corpus(n=1 << 16, nq=300, seed=21):
+    g = np.random.default_rng(seed)
+    return (g.integers(0, 256, size=(n, 32), dtype=np.uint8),
+            g.integers(0, 256, size=(nq, 32), dtype=np.uint8))
+
+
+def test_eight_shards_on_one_card_equal_the_one_device_index(cuda):
+    """8 shards sharing the card answer as the one-device index does, bit
+    for bit (ids int64), over tiles with a ragged last one, with 1%
+    deleted across shard boundaries and with ids offset past int32."""
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+    from randomprojection_tpu_torch.serving import ShardedSimHashIndex
+
+    codes, q = _shard_corpus()
+    one = SimHashIndex(codes, device=cuda)
+    sh = ShardedSimHashIndex(codes, devices=[cuda], n_shards=8)
+    assert sh.devices == [torch.device("cuda", 0)] * 8
+    for m in (1, 16, 200):
+        d, i = sh.query_topk(q, m, tile=128)
+        wd, wi = one.query_topk(q, m, tile=128)
+        assert i.dtype == np.int64
+        assert np.array_equal(d, wd) and np.array_equal(i, wi)
+    span = codes.shape[0] // 8
+    dead = np.unique(np.concatenate([
+        np.random.default_rng(3).choice(codes.shape[0], 655, replace=False),
+        np.arange(span - 40, span + 40)]))
+    assert sh.delete(dead) == one.delete(dead) == dead.size
+    d, i = sh.query_topk(q, 16)
+    wd, wi = one.query_topk(q, 16)
+    assert np.array_equal(d, wd) and np.array_equal(i, wi)
+    off = 2**31 + 13
+    wide = ShardedSimHashIndex(codes, devices=[cuda], n_shards=8,
+                               id_offset=off)
+    d, i = wide.query_topk(q, 16)
+    wd, wi = SimHashIndex(codes, device=cuda).query_topk(q, 16)
+    assert np.array_equal(d, wd) and np.array_equal(i, wi.astype(np.int64) + off)
+
+
+def test_sharded_query_launches_a_scan_and_a_merge_per_shard_a_tile(cuda):
+    """K4's launches around one call: one wgmma scan and one merge a
+    shard a query tile, none on the popc route; an empty shard launches
+    nothing."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+    from randomprojection_tpu_torch.serving import ShardedSimHashIndex
+
+    codes, q = _shard_corpus()
+    sh = ShardedSimHashIndex(codes, devices=[cuda], n_shards=8)
+    sh.query_topk(q, 16, tile=128)  # warm
+    tk.reset_launches()
+    sh.query_topk(q, 16, tile=128)
+    torch.cuda.synchronize()
+    tiles = -(-q.shape[0] // 128)
+    assert tk.LAUNCHES == {"rp_fused_topk_wgmma": 8 * tiles,
+                           "rp_fused_topk_popc": 0,
+                           "rp_topk_merge": 8 * tiles}
+    tiny = ShardedSimHashIndex(codes[:5], devices=[cuda], n_shards=8)
+    tk.reset_launches()
+    tiny.query_topk(q, 3)
+    assert tk.LAUNCHES["rp_fused_topk_wgmma"] == 5
+
+
+def test_sharded_lsh_device_rung_at_full_coverage_is_exact(cuda):
+    """The sharded LSH tier on the device rung (K5, then K4 on each
+    shard's candidates) at full probe coverage equals the exact answer bit
+    for bit, with tombstones across shard boundaries; K5 launches twice a
+    shard a tile, inside its graph."""
+    from randomprojection_tpu_torch.ann import LSHShardedSimHashIndex
+    from randomprojection_tpu_torch.models.sketch import SimHashIndex
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    codes, q = _shard_corpus(n=1 << 14, nq=64)
+    sh = LSHShardedSimHashIndex(codes, devices=[cuda], n_shards=8, bands=4,
+                                band_bits=8, fallback_density=1.0)
+    dead = np.arange(1900, 2300)  # across the first shard boundary
+    sh.delete(dead)
+    one = SimHashIndex(codes, device=cuda)
+    one.delete(dead)
+    want = one.query_topk(q, 10)
+    sh.query_topk(q, 10, tile=64, probes=1 << 8)  # warm: captures
+    pk.reset_launches()
+    d, i = sh.query_topk(q, 10, tile=64, probes=1 << 8)
+    assert np.array_equal(d, want[0])
+    assert np.array_equal(i, want[1].astype(np.int64))
+    assert pk.LAUNCHES["rp_probe"] == 2 * 8 and pk.GRAPH_REPLAYS == 8

@@ -6,6 +6,10 @@
   ``n_bits``; both packages write the same chunk checksums.
 - The LSH tier's snapshot (band keys spilled beside the chunks) crosses
   both ways; a plain snapshot rebuilds the bands.
+- The sharded tier's snapshots (``save_sharded_index``: global id order,
+  ``sharded.shards`` and ``id_offset`` in the manifest) cross both ways
+  onto another shard count, and load as a plain index where they have no
+  ``id_offset``; ``load_index(mesh=)`` row-shards a restore.
 - A corrupted chunk raises ``ValueError`` and emits
   ``recover.checksum_mismatch``; ``verify_snapshot`` reports it.
 - ``DurableIngest`` resumes an in-process ``FaultInjectionSource`` crash
@@ -184,7 +188,7 @@ def test_manifest_refusals(tmp_path):
     for change, match in (
         ({"format_version": 2}, "Unsupported index manifest version"),
         ({"kind": "other"}, "not a SimHash index"),
-        ({"id_offset": 100}, "ROADMAP A10"),
+        ({"id_offset": 100}, "load_sharded_index"),
         ({"tier": {"format": 1, "cold_tier": "tape"}}, "unknown cold_tier"),
         ({"n_codes": 1}, "chunks cover"),
     ):
@@ -192,8 +196,18 @@ def test_manifest_refusals(tmp_path):
             json.dump({**good, **change}, f)
         with pytest.raises(ValueError, match=match):
             durable.load_index(snap, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        durable.load_index(snap, device="cpu", mesh=object())
+    # a mesh is taken, not refused: the restore row-shards over it
+    from randomprojection_tpu_torch.parallel import make_mesh
+
+    with open(path, "w") as f:
+        json.dump(good, f)
+    meshed = durable.load_index(
+        snap, mesh=make_mesh({"data": 3}, devices=["cpu"] * 3))
+    assert len(meshed._chunks) == 3 * len(good["chunks"])
+    _equal(_answers(meshed), _answers(_port_index()))
+    with pytest.raises(ValueError, match="device= pins"):
+        durable.load_index(snap, device="cpu",
+                           mesh=make_mesh({"data": 2}, devices=["cpu"] * 2))
     # a valid tier block loads, every chunk resident
     tier = {"format": 1, "cold_tier": "host", "hbm_budget_bytes": 1,
             "chunks": [{"row0": e["row0"], "rows": e["rows"], "tier": "host"}
@@ -352,3 +366,71 @@ def test_child_command_runs_one_ingest(tmp_path):
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary == {"path": str(tmp_path / "x"), "rows_done": 64,
                        "n_codes": 64, "chunks": 1, "tier_demotions": 1}
+
+
+# -- the sharded tier's snapshots ---------------------------------------------
+
+
+def _sharded_pair(off=0):
+    from randomprojection_tpu.serving import ShardedSimHashIndex as RefSharded
+    from randomprojection_tpu_torch.serving import ShardedSimHashIndex
+
+    codes = _codes(1100, 8, 4)
+    port = ShardedSimHashIndex(codes[:900], devices=["cpu"], n_shards=8,
+                               id_offset=off)
+    ref = RefSharded(codes[:900], n_shards=3, topk_impl="scan", id_offset=off)
+    for idx in (port, ref):
+        idx.add(codes[900:])  # a second segment a shard
+        idx.delete(np.arange(200, 420) + off)  # across shard boundaries
+    return port, ref, codes
+
+
+def _sharded_answers(idx):
+    return idx.query_topk(_codes(24, 8, 9), 7, tile=10)
+
+
+@pytest.mark.parametrize("off", [0, 2**31 + 13])
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_sharded_snapshot_crosses_both_ways_onto_other_layouts(tmp_path,
+                                                               writer, off):
+    from randomprojection_tpu.serving import ShardedSimHashIndex as RefSharded
+    from randomprojection_tpu_torch.serving import ShardedSimHashIndex
+
+    port, ref, _ = _sharded_pair(off)
+    want = _sharded_answers(ref)
+    _equal(_sharded_answers(port), want)
+    snap = str(tmp_path / "snap")
+    man = (durable.save_sharded_index(port, snap) if writer == "port"
+           else ref_durable.save_sharded_index(ref, snap))
+    assert man["sharded"] == {"shards": 8 if writer == "port" else 3}
+    assert man.get("id_offset", 0) == off
+    assert [(e["row0"], e["rows"], e["sha256"]) for e in man["chunks"]] == [
+        (e["row0"], e["rows"], e["sha256"])
+        for e in durable.read_manifest(snap)["chunks"]]
+    for n in (1, 5):
+        got = durable.load_sharded_index(snap, devices=["cpu"], n_shards=n)
+        assert got.n_shards == n and got.id_offset == off
+        _equal(_sharded_answers(got), want)
+        _equal(_sharded_answers(ShardedSimHashIndex.load(
+            snap, devices=["cpu"], n_shards=n)), want)
+    back = RefSharded.load(snap, n_shards=2, topk_impl="scan")
+    _equal(_sharded_answers(back), want)
+    if off:
+        with pytest.raises(ValueError, match="load_sharded_index"):
+            durable.load_index(snap, device="cpu")
+    else:
+        # a plain index of the concatenated corpus: int32 ids, same values
+        plain = durable.load_index(snap, device="cpu")
+        _equal(_sharded_answers(plain), want)
+        _equal(_sharded_answers(ref_durable.load_index(
+            snap, index_kwargs={"topk_impl": "scan"})), want)
+
+
+def test_plain_snapshot_loads_onto_shards(tmp_path):
+    snap = str(tmp_path)
+    ref_durable.save_index(_ref_index(), snap)
+    want = _answers(_ref_index())
+    got = durable.load_sharded_index(snap, devices=["cpu"], n_shards=4)
+    assert got.n_bits == 20 and got.n_deleted == 6
+    _equal(got.query_topk(_ragged(40, 9), 7, tile=16), want)
+    assert got.save(str(tmp_path / "again"))["sharded"] == {"shards": 4}

@@ -5,9 +5,11 @@ commands against the JAX package's.
 arrival processes over several seeds, and raise its errors; ``slo_table``
 is the reference's; ``loadgen.run`` against a port ``TopKServer`` returns
 a record with the reference's keys; ``loadgen --device cpu`` (exact and
-LSH, the live plane on), ``topk-bench --device cpu`` and ``recover``
+LSH, the live plane on, served by the sharded tier as the reference's is),
+``topk-bench --device cpu`` (with its sharded leg) and ``recover``
 (status and ``--smoke --device cpu``) end with the reference's record
-keys; one seed gives one schedule through the CLI.
+keys; one seed gives one schedule through the CLI; the reference's doctor
+reads the shard events of a sharded ``loadgen``.
 """
 
 import json
@@ -163,11 +165,16 @@ def test_cli_loadgen_with_the_live_plane(capsys, tmp_path):
     servers = {e.get("server") for e in events
                if e["event"] == telemetry.EVENTS.SERVE_LATENCY_REQUEST}
     assert servers == {"sharded"}
-    # one device serves until the sharded tier: no shard fanout or merge
-    assert not [e for e in events if e["event"].startswith(
-        ("serve.shard.", "shard."))]
-    assert not [k for k in plain if k.startswith(("rp_serve_shard_",
-                                                  "rp_shard_"))]
+    # the sharded tier serves (one shard, one replica): each coalesced
+    # batch is one routed dispatch, one shard tile and one merge
+    names = [e["event"] for e in events]
+    batches = names.count("serve.topk_batch")
+    assert batches >= rec["server"]["batches"]
+    assert names.count("serve.shard.batch") == batches
+    assert names.count("shard.topk_tile") == names.count("shard.merge") \
+        == batches
+    assert plain["rp_serve_shard_batches_total"] >= rec["server"]["batches"]
+    assert rec["server"]["replica_batches"] == [rec["server"]["batches"]]
 
 
 @pytest.mark.parametrize("cmd,argv,message", [
@@ -191,11 +198,12 @@ def test_cli_topk_bench_ends_with_the_reference_record(capsys):
              "--request-rows", "8", "--clients", "2", "--m", "4",
              "--probes", "1,2", "--lsh-bands", "4", "--lsh-band-bits", "4",
              "--hbm-budget", "1024"]
-    ref_cli.main(["topk-bench", "--topk-impl", "scan", *small])
+    sharded = ["--shards", "2", "--replicas", "2"]
+    ref_cli.main(["topk-bench", "--topk-impl", "scan", *sharded, *small])
     want = _last_json(capsys.readouterr().out)
-    cli.main(["topk-bench", "--device", "cpu", "--shards", "1", *small])
+    cli.main(["topk-bench", "--device", "cpu", *sharded, *small])
     got = _last_json(capsys.readouterr().out)
-    assert set(got) - {"sharded", "device"} == set(want)
+    assert set(got) - {"device"} == set(want)
     assert got["device"] == "cpu" and got["topk_impl"] == "plain"
     assert set(got["lsh"]) == set(want["lsh"])
     assert [p["recall_at_m"] for p in got["lsh"]["curve"]] == \
@@ -203,9 +211,29 @@ def test_cli_topk_bench_ends_with_the_reference_record(capsys):
     assert set(got["tiered"]) == set(want["tiered"])
     assert got["tiered"]["parity_ok"] and got["tiered"]["fallbacks"] == 0
     sharded = got["sharded"]
-    assert sharded["shards"] == sharded["replicas"] == 1
-    assert sharded["merges"] == 0 and len(sharded["replica_batches"]) == 1
-    assert sharded["replica_batches"][0] >= 1
+    assert set(sharded) == set(want["sharded"])
+    assert sharded["shards"] == sharded["replicas"] == 2
+    assert sharded["merges"] >= 1 and len(sharded["replica_batches"]) == 2
+    assert min(sharded["replica_batches"]) >= 1
+
+
+def test_sharded_loadgen_events_read_by_the_reference_doctor(capsys,
+                                                             tmp_path):
+    from randomprojection_tpu.utils import trace_report as ref_report
+
+    jsonl = str(tmp_path / "t.jsonl")
+    cli.main(_loadgen_argv("--device", "cpu", "--shards", "3", "--replicas",
+                           "2", "--telemetry-jsonl", jsonl))
+    rec = _last_json(capsys.readouterr().out)
+    assert rec["shards"] == 3 and rec["replicas"] == 2
+    assert sum(rec["server"]["replica_batches"]) == rec["server"]["batches"]
+    report = ref_report.build_report(jsonl)
+    sv = report["serving"]
+    assert sv["shard_batches"] == rec["server"]["batches"]
+    assert sv["shard_dispatches"] == 3 * sv["shard_tiles"]
+    assert sv["shard_merges"] == sv["shard_tiles"]
+    assert sv["shard_replicas_used"] == [0, 1]
+    assert report["unregistered_events"] == {}
 
 
 def test_cli_recover_status_and_smoke(capsys, tmp_path):

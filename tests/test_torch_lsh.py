@@ -10,7 +10,11 @@ calls, since each new shape costs the reference seconds through its
 interpreted top-k kernel, and to ``_model_topk`` (the reference's buckets,
 probe masks and host selection applied tile by tile) everywhere else.
 In the port, the device rung (``probe_path='device'``: K5's plain version,
-the dedup, the gather and K4's plain version) equals the host rung.
+the dedup, the gather and K4's plain version) equals the host rung.  The
+sharded tier (``LSHShardedSimHashIndex``, ``devices=['cpu']``) on its
+device rung is held to the reference's sharded host rung and to brute
+force (the reference's device rung cannot run here), and its snapshots
+cross both ways onto other shard counts.
 """
 
 import threading
@@ -518,15 +522,17 @@ def test_call_knobs_and_later_slices(tmp_path):
         idx.query_topk(A, 3, probe_path="bogus")
     with pytest.raises(ValueError, match="m must be"):
         idx.query_topk(A, 0)
-    with pytest.raises(ValueError, match="ROADMAP A10"):
+    # one banded index is one shard: a mesh points to the sharded tier
+    with pytest.raises(ValueError, match="one banded index is one shard.*"
+                       "LSHShardedSimHashIndex"):
         lsh.LSHSimHashIndex(codes, device="cpu", mesh=object())
     # save/load are ported (durable.py): the tier round-trips with its
-    # band layout, and the sharded tier's mesh still names its item
+    # band layout, and a mesh points to the sharded loader
     idx.save(str(tmp_path / "snap"))
     back = lsh.LSHSimHashIndex.load(str(tmp_path / "snap"), device="cpu")
     assert back.band_plan == idx.band_plan and back.probes == idx.probes
     np.testing.assert_array_equal(back._buckets.keys, idx._buckets.keys)
-    with pytest.raises(ValueError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="load_lsh_sharded_index"):
         lsh.LSHSimHashIndex.load(str(tmp_path / "snap"), mesh=object())
     idx.delete(np.arange(64))
     with pytest.raises(ValueError, match="all deleted"):
@@ -543,9 +549,12 @@ def test_package_exports():
 
     assert rpt.LSHSimHashIndex is lsh.LSHSimHashIndex
     assert rpt.ann.BandedBuckets is lsh.BandedBuckets
-    assert set(rpt.ann.__all__) == {"BandPlan", "band_keys", "probe_masks",
-                                    "BandedBuckets", "LSHSimHashIndex",
-                                    "load_lsh_index"}
+    from randomprojection_tpu import ann as ref_ann
+
+    assert set(rpt.ann.__all__) == set(ref_ann.__all__) == {
+        "BandPlan", "band_keys", "probe_masks", "BandedBuckets",
+        "LSHSimHashIndex", "LSHShardedSimHashIndex", "load_lsh_index",
+        "load_lsh_sharded_index"}
     # the snapshot loaders and durable ingest, as the reference exports them
     from randomprojection_tpu_torch import durable
 
@@ -612,3 +621,128 @@ def test_plan_clamps_the_device_tile():
     pplan = pk.plan_probe(1024, 400, 4, 4, 3, M)
     assert idx._lsh_device_tile(5000, 3, M) == pplan.tq
     assert idx._lsh_device_tile(7, 3, M) == 7
+
+
+# -- the sharded tier -------------------------------------------------------------
+
+
+def _ref_sharded(codes, n_shards, **kw):
+    return ref_lsh.LSHShardedSimHashIndex(
+        codes, n_shards=n_shards, topk_impl="scan", probe_path="host", **kw)
+
+
+def _port_sharded(codes, n_shards, **kw):
+    return lsh.LSHShardedSimHashIndex(codes, devices=["cpu"],
+                                      n_shards=n_shards, **kw)
+
+
+@pytest.mark.parametrize("n_shards,off", [(3, 0), (8, 0), (3, 2**31 + 7)])
+def test_sharded_device_rung_equals_the_reference_and_brute_force(n_shards,
+                                                                  off):
+    codes, q = _planted(800, 24, 31)
+    dead = np.arange(90, 310)  # across shard boundaries
+    port = _port_sharded(codes, n_shards, **BANDS, fallback_density=1.0,
+                         probe_path="device", id_offset=off)
+    ref = _ref_sharded(codes, n_shards, **BANDS, fallback_density=1.0,
+                       id_offset=off)
+    for idx in (port, ref):
+        idx.delete(dead + off)
+    md, mi = _masked_brute(q, codes, M, dead)
+    d, i = port.query_topk(q, M, tile=TILE, probes=FULL)
+    rd, ri = ref.query_topk(q, M, tile=TILE, probes=FULL)
+    assert i.dtype == np.int64
+    for got_d, got_i in ((d, i), (rd, ri)):
+        assert np.array_equal(got_d, md)
+        assert np.array_equal(got_i, mi.astype(np.int64) + off)
+    # partial probes: the device rung, the port's host rung and the
+    # reference's host rung hold the same candidates, so the same answer
+    pd, pi = port.query_topk(q, M, tile=TILE, probes=2)
+    hd, hi = port.query_topk(q, M, tile=TILE, probes=2, probe_path="host")
+    rd, ri = ref.query_topk(q, M, tile=TILE, probes=2)
+    for a, b in ((pd, hd), (pi, hi), (pd, rd), (pi, ri)):
+        assert np.array_equal(a, b)
+    D = ref_sk.pairwise_hamming(q, codes)
+    assert (np.take_along_axis(D, pi - off, axis=1) == pd).all()
+    # probes 0 is the exact tier
+    _same_pair = port.query_topk(q, M, probes=0)
+    assert np.array_equal(_same_pair[0], md)
+
+
+def test_sharded_per_shard_fallback_mix():
+    """Each shard decides its own ladder: a dense shard serves exact while
+    the others stay on their rung; full probes equal brute force."""
+    codes, q = _planted(600, 16, 13)
+    for path in ("device", "host"):
+        idx = _port_sharded(codes, 3, **BANDS, fallback_density=0.5,
+                            probe_path=path)
+        d, i = idx.query_topk(q, M, probes=FULL)
+        rd, ri = ref_sk.topk_bruteforce(q, codes, M)
+        assert np.array_equal(d, rd) and np.array_equal(i, ri.astype(np.int64))
+
+
+def test_sharded_server_serves_lsh_replicas():
+    from randomprojection_tpu_torch.serving import ShardedTopKServer
+
+    codes, q = _planted(400, 16, 17)
+    groups = [_port_sharded(codes, 2, **BANDS, probes=FULL,
+                            fallback_density=1.0) for _ in range(2)]
+    rd, ri = ref_sk.topk_bruteforce(q, codes, M)
+    with ShardedTopKServer(groups, M, max_delay_s=0.0,
+                           probe_policy={"exact": 0, "full": FULL}) as srv:
+        for label in (None, "exact", "full"):
+            d, i = srv.query(q, label=label)
+            assert np.array_equal(d, rd)
+            assert np.array_equal(i, ri.astype(np.int64))
+        assert srv.stats()["replica_batches"] == [2, 1]
+
+
+def test_sharded_compact_rebuilds_per_shard_buckets():
+    codes, q = _planted(600, 16, 26)
+    port = _port_sharded(codes, 3, **BANDS, fallback_density=1.0)
+    ref = _ref_sharded(codes, 3, **BANDS, fallback_density=1.0)
+    dead = np.arange(10, 250, 5)
+    for idx in (port, ref):
+        idx.delete(dead)
+    assert np.array_equal(port.compact(), ref.compact())
+    live = np.delete(codes, dead, axis=0)
+    assert np.array_equal(port._lsh_global_keys(), ref._lsh_global_keys())
+    assert np.array_equal(port._lsh_global_keys(),
+                          ref_lsh.band_keys(live, port.band_plan))
+    for s in port._shards:
+        assert s._buckets.n == s.n_codes
+    rd, ri = ref_sk.topk_bruteforce(q, live, M)
+    d, i = port.query_topk(q, M, probes=FULL)
+    assert np.array_equal(d, rd) and np.array_equal(i, ri.astype(np.int64))
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_sharded_lsh_snapshot_crosses_both_ways(tmp_path, writer):
+    codes, q = _planted(600, 16, 19)
+    off = 2**31 + 3
+    kw = dict(**BANDS, probes=3, fallback_density=0.7, id_offset=off)
+    port = _port_sharded(codes, 3, **kw)
+    ref = _ref_sharded(codes, 3, **kw)
+    for idx in (port, ref):
+        idx.delete(np.array([5, 9, 300]) + off)
+    snap = str(tmp_path / "snap")
+    man = (port if writer == "port" else ref).save(snap)
+    assert man["lsh"]["rows"] == 600 and man["id_offset"] == off
+    assert man["sharded"] == {"shards": 3}
+    want = ref.query_topk(q, M, probes=FULL)
+    got = lsh.load_lsh_sharded_index(snap, devices=["cpu"], n_shards=5)
+    assert got.n_shards == 5 and got.probes == 3 and got.id_offset == off
+    assert got.fallback_density == 0.7 and got.band_plan == port.band_plan
+    assert np.array_equal(got._lsh_global_keys(), ref._lsh_global_keys())
+    for a, b in zip(got.query_topk(q, M, probes=FULL), want):
+        assert np.array_equal(a, b)
+    back = ref_lsh.load_lsh_sharded_index(snap, n_shards=2, topk_impl="scan")
+    assert np.array_equal(back._lsh_global_keys(), ref._lsh_global_keys())
+    for a, b in zip(back.query_topk(q, M, probes=FULL, probe_path="host"),
+                    want):
+        assert np.array_equal(a, b)
+    # a corrupt key spill is refused on the port's sharded load
+    keys = np.load(f"{snap}/{man['lsh']['file']}")
+    keys[0, 0] ^= 1
+    np.save(f"{snap}/{man['lsh']['file']}", keys)
+    with pytest.raises(ValueError, match="sha256|checksum|disagree"):
+        lsh.load_lsh_sharded_index(snap, devices=["cpu"], n_shards=2)

@@ -141,9 +141,18 @@ def test_card_index_refuses_m_past_the_kernel():
 
 
 def test_index_checks_and_later_slices(tmp_path):
+    from randomprojection_tpu_torch.parallel import make_mesh
+
     codes = _codes(16, 8, 0)
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        sk.SimHashIndex(codes, device="cpu", mesh=object())
+    # a mesh row-shards the index (one block a device); with device= too
+    # it refuses, as the reference does
+    mesh = make_mesh({"data": 3}, devices=["cpu"] * 3)
+    meshed = sk.SimHashIndex(codes, mesh=mesh)
+    assert [c.n for c in meshed._chunks] == [6, 5, 5]
+    _same(meshed.query_topk(codes[:4], 3),
+          ref_sk.topk_bruteforce(codes[:4], codes, 3))
+    with pytest.raises(ValueError, match="device= pins"):
+        sk.SimHashIndex(codes, device="cpu", mesh=mesh)
     # tiered residency is ported (tiering.py): its options are validated
     # as the reference validates them
     for kw, msg in (({"hbm_budget_bytes": 1 << 20, "cold_tier": "bogus"},
@@ -159,14 +168,15 @@ def test_index_checks_and_later_slices(tmp_path):
           ref_sk.topk_bruteforce(codes[:4], codes, 3))
     tiered.close()
     idx = sk.SimHashIndex(codes, device="cpu", label="shard-3")
-    # save/load are ported (durable.py): a round trip, and the sharded
-    # loader's mesh still names its item
+    # save/load are ported (durable.py): a round trip, and a load
+    # row-sharded over a mesh
     idx.save(str(tmp_path / "snap"))
     back = sk.SimHashIndex.load(str(tmp_path / "snap"), device="cpu")
     assert back.n_codes == idx.n_codes and back.n_bits == idx.n_bits
     np.testing.assert_array_equal(back.query(codes), idx.query(codes))
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        sk.SimHashIndex.load(str(tmp_path / "snap"), mesh=object())
+    spread = sk.SimHashIndex.load(str(tmp_path / "snap"), mesh=mesh)
+    assert len(spread._chunks) == 3
+    np.testing.assert_array_equal(spread.query(codes), idx.query(codes))
     idx.n_codes = 2**31 - 10  # a near-capacity index refuses to grow
     with pytest.raises(ValueError, match="'shard-3'.*2\\*\\*31"):
         idx.add(codes)

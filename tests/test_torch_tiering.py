@@ -14,6 +14,9 @@
   an idempotent ``close`` that joins the ``rp-torch-tier-worker`` thread,
   the graphs dropped on every residency change, and a child killed at
   ``mid-demotion`` resumed through ``crash_smoke``.
+- The sharded tier with a budget a shard (exact and LSH, host and disk
+  cold tiers, a spill directory a shard) answers as the resident sharded
+  index and the reference's tiered sharded index do.
 
 Shapes follow the reference's ``tests/test_tiering.py``: 8-byte codes,
 m = 5, 8 queries, 400 rows in 4 chunks of 100.
@@ -488,3 +491,47 @@ def test_mid_demotion_child_resumes_through_crash_smoke(tmp_path):
     assert case["kill_at"] == "mid-demotion@2"
     assert case["crash_returncode"] == -9 and case["resume_returncode"] == 0
     assert case["bit_identical_codes"] and case["query_results_match"]
+
+
+@pytest.mark.parametrize("cold_tier", ["host", "disk"])
+def test_sharded_tier_with_a_budget_a_shard(tmp_path, cold_tier):
+    """Every shard tiers its own memory under its own budget (the
+    reference's knob is per shard too): two chunks a shard, one hot."""
+    from randomprojection_tpu.serving import ShardedSimHashIndex as RefSharded
+    from randomprojection_tpu_torch.ann import LSHShardedSimHashIndex
+    from randomprojection_tpu_torch.serving import ShardedSimHashIndex
+
+    codes, q = _codes(3, n=800), _queries()
+    cold_dir = str(tmp_path / "cold") if cold_tier == "disk" else None
+    kw = dict(devices=["cpu"], n_shards=4, hbm_budget_bytes=BUDGET,
+              cold_tier=cold_tier, cold_dir=cold_dir)
+    tiered = ShardedSimHashIndex(codes[:400], **kw)
+    tiered.add(codes[400:])
+    resident = ShardedSimHashIndex(codes, devices=["cpu"], n_shards=4)
+    ref = RefSharded(codes[:400], n_shards=4, topk_impl="scan",
+                     hbm_budget_bytes=BUDGET, cold_tier="host")
+    ref.add(codes[400:])
+    for idx in (tiered, resident, ref):
+        idx.delete(np.arange(80, 130))  # across shard boundaries
+    for s in tiered._shards:
+        r = s._tier.residency()
+        assert r["hot_bytes"] <= BUDGET
+        assert [c["tier"] for c in r["chunks"]] == ["hot", cold_tier]
+    if cold_dir:
+        assert sorted(os.listdir(cold_dir)) == [f"shard-{s:02d}"
+                                               for s in range(4)]
+    want = resident.query_topk(q, M)
+    for got in (tiered.query_topk(q, M), ref.query_topk(q, M)):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+    lsh_kw = dict(bands=4, band_bits=8, fallback_density=1.0)
+    ltier = LSHShardedSimHashIndex(codes, **kw, **lsh_kw)
+    lres = LSHShardedSimHashIndex(codes, devices=["cpu"], n_shards=4, **lsh_kw)
+    for p in (2, 1 << 8):
+        for path in ("host", "device"):
+            got = ltier.query_topk(q, M, probes=p, probe_path=path)
+            want = lres.query_topk(q, M, probes=p, probe_path=path)
+            assert np.array_equal(got[0], want[0])
+            assert np.array_equal(got[1], want[1])
+    for idx in (tiered, ltier, ref):
+        idx.close()
