@@ -225,7 +225,39 @@ Phases (any failure exits non-zero and prints no result):
    and ann smokes, ``topk-bench --shards 8 --replicas 2`` and ``loadgen
    --shards 8`` at phase 15's R/2 as subprocesses, their JSONL carrying
    ``serve.shard.batch`` and ``shard.merge`` (loadgen: 8 K4 dispatches a
-   batch).
+   batch);
+17. config 3 DP x TP (BASELINE.json config 3 at the full scale of
+   ``examples/config3_verysparse_tp.py``: 16,384 -> 512 at density
+   1/sqrt(d), ``random_state=0``, 131,072-row batches, the reference's
+   v5e-8 mesh ``{"data": 4, "feature": 2}`` naming the one card 8 times;
+   the one cut is depth, 10M -> 2^20 rows, 8 batches drawn on the card):
+   (a) the lazy model through ``TorchBackend(mesh=, feature_axis=)``, each
+   batch within ``1e-5·max|Y|`` of the one-device lazy model, one batch's
+   launches read around it (8 ``rp_fused_project``, one a position at its
+   feature shard's block offset on a column view of the batch, and 2
+   ``rp_mask_cache``, one a feature shard), and the same 8 launches each
+   writing its own mask (8 + 8) equal bit for bit; the distortion of a
+   2,000-row sample; K1 at block offsets 0 and 16 against its plain
+   version on 1,024 rows, and timed at a feature shard's shape (32,768 x
+   8,192 -> 512) beside its bound, its plain version and a float32
+   ``torch.matmul`` of the materialized column shard; (b) lazy DP
+   ``{"data": 8}`` equal to one device bit for bit (8 + 1 launches); (c)
+   dense TP (the example's default): ``materialize_sharded``'s column
+   shards equal the full matrix's columns bit for bit and Y within
+   tolerance; (d) split2 TP likewise; (e) rows/s of every route and the
+   one-device lazy route in turns (CUDA events and the host clock); (f) a
+   two-process gloo job on the card (global mesh ``{"feature": 2, "data":
+   1}``, 16,384 rows at full width, the TP reduction crossing the process
+   boundary): both ranks' outputs equal bit for bit and within tolerance
+   of one process, and ``host_row_range`` streaming through
+   ``python -m randomprojection_tpu_torch.examples.multihost`` (2 ranks,
+   lazy) whose rows, concatenated, equal one process's bit for bit; (g)
+   ``CountSketch(256, mesh=make_mesh({"data": 8}, devices=[card] * 8))`` at
+   config 5's shape (2^20 buckets, one 65,536-doc batch of 100 tokens from
+   a 50,000-word vocabulary) within rtol = atol = 2e-5 of one device, each
+   shard's tokens within one doc's tokens of nnz/8.
+
+``python3 chip_smoke.py --scale-out`` runs the build and phase 17 alone.
 
 The kernels' timings are printed as one JSON line.
 
@@ -384,6 +416,17 @@ OPS_LEG_S, OPS_SETTLE_S = 10, 5
 SHARDS, SHARD_REPLICAS, SHARD_CALLS = 8, 2, 3
 SHARD_OFFSET, SHARD_SERVER_BATCH = 2**31 + 13, 2048
 SHARD_FULL_NQ, SHARD_LOADGEN_S = 16, 3
+# config 3 DP x TP (phase 17): BASELINE.json config 3 at the full scale of
+# examples/config3_verysparse_tp.py (16,384 -> 512 at density 1/sqrt(d),
+# random_state 0, 131,072-row batches) on the reference's v5e-8 mesh
+# {"data": 4, "feature": 2}, here naming the one card 8 times; the one cut
+# is depth, 10M -> 2^20 rows (8 batches drawn on the card from a seed).  The
+# two-process job runs 16,384 rows at full width; config 5's sketch one
+# 65,536-doc batch over 8 positions
+TP_ROWS, TP_BATCH, TP_MESH = 1 << 20, 131_072, {"data": 4, "feature": 2}
+TP_TWO_ROWS, TP_TURNS = 16_384, 2
+TP_RANK_FLAG = "--tp-rank"  # phase 17's two-process job's rank
+SCALE_OUT_FLAG = "--scale-out"  # the build and phase 17 alone
 
 CARD = ""
 
@@ -3714,6 +3757,367 @@ def phase_sharded(torch, tk, pk, rate: float, scratch: Path) -> dict:
     return launches
 
 
+# -- config 3 DP x TP (phase 17) --------------------------------------------------
+
+
+def _c3_model(torch, shape=None, **opts):
+    """Config 3's model (16,384 -> 512, density 1/sqrt(d), seed 0) on the
+    card, or on a mesh of ``shape`` naming the card at every position
+    (DP x TP where the shape has a feature axis)."""
+    from randomprojection_tpu_torch import SparseRandomProjection
+    from randomprojection_tpu_torch.parallel import make_mesh
+
+    if shape is not None:
+        card = torch.device("cuda", 0)
+        opts["mesh"] = make_mesh(shape, devices=[card] * int(np.prod(
+            list(shape.values()))))
+        if "feature" in shape:
+            opts["feature_axis"] = "feature"
+    return SparseRandomProjection(
+        C3_COMPONENTS, density="auto", random_state=0,
+        backend_options=opts).fit_schema(TP_ROWS, C3_FEATURES, np.float32)
+
+
+def _rel_err(torch, got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _k1_shard(torch, fk, x) -> dict:
+    """K1 at a feature shard's shape (32,768 x 8,192 -> 512 split2, the
+    column view of a 131,072-row batch's last row block and second feature
+    shard, block offset 16): held to its plain version at offsets 0 and 16
+    on 1,024 rows, then timed beside its bound, the plain version and a
+    float32 ``torch.matmul`` against the materialized column shard."""
+    from randomprojection_tpu_torch.ops.precision import fp32_matmul
+
+    k, w = C3_COMPONENTS, C3_FEATURES // TP_MESH["feature"]
+    rows = TP_BATCH // TP_MESH["data"]
+    density = 1.0 / np.sqrt(C3_FEATURES)
+    err = 0.0
+    for j in range(TP_MESH["feature"]):
+        view = x[:1024, j * w:(j + 1) * w]
+        off = j * w // fk.BLOCK_D
+        got = fk.rp_fused_project(view, 0, k, density, block_offset=off,
+                                  mxu_mode="split2")
+        want = fk.fused_project(view, 0, k, density, block_offset=off,
+                                mxu_mode="split2")
+        e = (got - want).abs().max().item()
+        check(e <= TOL * want.abs().max().item(),
+              f"K1 at block offset {off} off its plain version by {e:.3e}")
+        err = max(err, e)
+    view = x[TP_BATCH - rows:, w:]
+    m = fk.rp_lazy_matrix(0, k, w, density, block_offset=w // fk.BLOCK_D)
+    nnz = int(torch.count_nonzero(m).item())
+
+    def library():
+        with fp32_matmul():
+            return torch.matmul(view, m.t())
+
+    row = {
+        "shape": f"{rows}x{w}->{k} split2 at block offset "
+                 f"{w // fk.BLOCK_D}, a column view of a "
+                 f"{C3_FEATURES}-wide batch",
+        "ms": cuda_ms(lambda: fk.rp_fused_project(
+            view, 0, k, density, block_offset=w // fk.BLOCK_D,
+            mxu_mode="split2"), reps=20, warmup=2),
+        "plain_ms": cuda_ms(lambda: fk.fused_project(
+            view, 0, k, density, block_offset=w // fk.BLOCK_D,
+            mxu_mode="split2"), reps=3),
+        "library_ms": cuda_ms(library, reps=20, warmup=2),
+        "max_abs_err": err,
+        "mask_nonzeros": nnz,
+    }
+    row.update(_bound((4 * rows * w + 4 * rows * k) / HBM_BYTES_PER_S,
+                      2 * rows * nnz / FP32_FLOP_PER_S))
+    log(f"rp_fused_project at a feature shard's shape {row['shape']}: "
+        f"{row['ms']:.3f} ms (mask cache included), bound "
+        f"{row['bound_ms']:.3f} ms by {row['bound_by']} "
+        f"({row['bound_ms'] / row['ms']:.1%} of it), plain "
+        f"{row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms "
+        f"(torch.matmul fp32 of the materialized column shard, TF32 off); "
+        f"offsets 0 and 16 on 1,024 rows vs plain max|d|={err:.3e}")
+    del m
+    return row
+
+
+def tp_rank(rank: int, port: int, out: str) -> int:
+    """One rank of phase 17's two-process job (gloo, both ranks on the
+    card): the global mesh {"feature": 2, "data": 1}, each rank owning one
+    feature shard, so the TP reduction crosses the process boundary."""
+    import torch
+
+    from randomprojection_tpu_torch.ops import fused_kernels as fk
+    from randomprojection_tpu_torch.parallel import distributed, global_mesh
+
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank)
+    mesh = global_mesh({"feature": 2, "data": 1}, ["cuda:0"])
+    est = _c3_model(torch, mesh=mesh, feature_axis="feature",
+                    materialization="lazy")
+    g = torch.Generator(device="cuda").manual_seed(2000)
+    x = torch.empty((TP_TWO_ROWS, C3_FEATURES), device="cuda")
+    x.normal_(generator=g)
+    est.transform(x)  # warm: the group's first collective
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    y = est.transform(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    np.save(out, y.cpu().numpy())
+    print(json.dumps({"rank": rank, "ranks": mesh.ranks.tolist(),
+                      "launches": dict(fk.LAUNCHES), "wall_s": wall}))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_all(argvs, timeout: float = 300) -> list:
+    """Run the commands at once from the repository root; every one must
+    exit 0.  Returns their stdouts."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    procs = [subprocess.Popen(a, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    outs = [p.communicate(timeout=timeout) for p in procs]
+    for a, p, (so, se) in zip(argvs, procs, outs):
+        check(p.returncode == 0, f"{a[1:4]} exited {p.returncode}: "
+              f"{se[-2000:]}")
+    return [so for so, _ in outs]
+
+
+def phase_scale_out(torch, fk, scratch: Path) -> dict:
+    """Config 3 DP x TP on the one card (see the module docstring, phase
+    17).  Returns K1's and the mask cache's launches by leg, each read
+    around its own call, and K1's row at a feature shard's shape."""
+    import scipy.sparse as sp
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    n, k = TP_BATCH, C3_COMPONENTS
+    density = 1.0 / np.sqrt(C3_FEATURES)
+    lazy = {"materialization": "lazy"}
+    one = _c3_model(torch, **lazy)
+    tp = _c3_model(torch, TP_MESH, **lazy)
+    dp = _c3_model(torch, {"data": 8}, **lazy)
+    check(tp.density_ == density, f"density {tp.density_}")
+    x = torch.empty((n, C3_FEATURES), device=card)
+    g = torch.Generator(device=card)
+    launches = {}
+
+    def counted(leg, fn):
+        fn()  # warm
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[leg] = {key: v for key, v in fk.LAUNCHES.items() if v}
+        return out
+
+    # (a) lazy DP x TP over 2^20 rows, each batch against one device
+    worst = 0.0
+    for b in range(TP_ROWS // n):
+        g.manual_seed(1000 + b)
+        x.normal_(generator=g)
+        want = one.transform(x)
+        got = (counted("lazy_dp_tp_batch", lambda: tp.transform(x)) if b == 0
+               else tp.transform(x))
+        check(got.shape == (n, k) and bool(torch.isfinite(got).all()),
+              "DP x TP output not finite or of the wrong shape")
+        worst = max(worst, _rel_err(torch, got, want))
+    check(worst <= TOL, f"lazy DP x TP off one device by {worst:.3e}·max|Y|")
+    check(launches["lazy_dp_tp_batch"] == {"rp_fused_project": 8,
+                                           "rp_mask_cache": 2},
+          f"one DP x TP batch launched {launches['lazy_dp_tp_batch']}, not "
+          "8 K1 + 2 mask caches")
+    eps = distortion(tp, x[:SAMPLE])
+    check(eps <= DISTORTION_BUDGET, f"DP x TP distortion {eps:.3e}")
+    log(f"scale-out (a) lazy DP x TP {TP_MESH} on one card: {TP_ROWS // n} "
+        f"batches of {n} x {C3_FEATURES} -> {k}, max|d| {worst:.3e}·max|Y| "
+        f"against one device (tolerance {TOL}); launches around one batch "
+        f"{launches['lazy_dp_tp_batch']}; distortion of {SAMPLE} rows "
+        f"{eps:.3e} (budget {DISTORTION_BUDGET})")
+    k1 = _k1_shard(torch, fk, x)
+
+    # the same 8 K1 launches without the shared mask: the reference's design
+    rows, w = n // TP_MESH["data"], C3_FEATURES // TP_MESH["feature"]
+
+    def unshared():
+        y = torch.empty((n, k), device=card)
+        for i in range(TP_MESH["data"]):
+            r = slice(i * rows, (i + 1) * rows)
+            fk.rp_fused_project(x[r, :w], 0, k, density, mxu_mode="split2",
+                                out=y[r])
+            y[r] += fk.rp_fused_project(x[r, w:], 0, k, density,
+                                        block_offset=w // fk.BLOCK_D,
+                                        mxu_mode="split2")
+        return y
+
+    y_unshared = counted("lazy_dp_tp_unshared_mask", unshared)
+    check(torch.equal(y_unshared, got), "the unshared-mask launches differ")
+    check(launches["lazy_dp_tp_unshared_mask"] == {"rp_fused_project": 8,
+                                                   "rp_mask_cache": 8},
+          f"unshared {launches['lazy_dp_tp_unshared_mask']}")
+    del y_unshared
+
+    # (b) lazy DP: bit for bit one device
+    got = counted("lazy_dp_batch", lambda: dp.transform(x))
+    check(torch.equal(got, want), "lazy DP {data: 8} differs from one device")
+    check(launches["lazy_dp_batch"] == {"rp_fused_project": 8,
+                                        "rp_mask_cache": 1},
+          f"one DP batch launched {launches['lazy_dp_batch']}")
+    log(f"scale-out (b) lazy DP {{'data': 8}}: equal to one device bit for "
+        f"bit; launches {launches['lazy_dp_batch']}")
+
+    # (c) dense TP (the example's default) and (d) split2 TP
+    routes = {"one-device lazy": one, "lazy DP x TP": tp, "lazy DP": dp}
+    for label, opts in (("dense TP", {}), ("split2 TP", {"precision":
+                                                         "split2"})):
+        est, ref1 = _c3_model(torch, TP_MESH, **opts), _c3_model(torch, **opts)
+        full = ref1.components_ if not opts else ref1.components_.mask
+        shards = est.components_ if not opts else est.components_.mask
+        check(len(shards.blocks) == TP_MESH["feature"],
+              f"{label}: {len(shards.blocks)} column shards")
+        for (_, (c0, c1)), blk in shards.blocks.items():
+            check(torch.equal(blk, full[:, c0:c1]),
+                  f"{label}: shard [{c0}, {c1}) differs from the columns")
+        e = _rel_err(torch, counted(label.replace(" ", "_"),
+                                    lambda: est.transform(x)),
+                     ref1.transform(x))
+        check(e <= TOL, f"{label} off one device by {e:.3e}·max|Y|")
+        log(f"scale-out ({'c' if not opts else 'd'}) {label}: "
+            f"materialize_sharded's {len(shards.blocks)} shards equal the "
+            f"full matrix's columns bit for bit; max|d| {e:.3e}·max|Y| "
+            f"against one device")
+        routes[label] = est
+        del ref1
+
+    # (e) rows/s of every route in turns, CUDA events and the host clock
+    rates = {label: [] for label in routes}
+    order = list(routes) + list(routes)[::-1]
+    for label in order * (TP_TURNS // 2):
+        est = routes[label]
+        ms = cuda_ms(lambda: est.transform(x), reps=5, warmup=1)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            est.transform(x)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        rates[label].append({"rows_per_s": n / ms * 1e3,
+                             "host_rows_per_s": n / host_ms * 1e3,
+                             "ms": ms})
+    unshared_ms = cuda_ms(unshared, reps=5, warmup=1)
+    log(f"scale-out (e) rows/s of a {n}-row batch, turns "
+        + " ".join(order) + ": "
+        + "; ".join(f"{lab} " + ", ".join(
+            f"{r['rows_per_s']:.1f} ({r['host_rows_per_s']:.1f} host)"
+            for r in rs) for lab, rs in rates.items())
+        + f"; the 8 K1 launches without the shared mask {unshared_ms:.3f} ms "
+        f"a batch against {rates['lazy DP x TP'][0]['ms']:.3f}")
+    del routes, est
+
+    # (f) a two-process job on the card: gloo, the feature shards in two
+    # ranks; and host_row_range streaming through the multihost example
+    root = scratch / "scale_out"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    port = _free_port()
+    mh_port = _free_port()
+    mh = [sys.executable, "-m", "randomprojection_tpu_torch.examples.multihost",
+          "--rows", "65536", "--d", "4096", "--k", "256", "--batch-rows",
+          "8192", "--materialization", "lazy"]
+    mh_ranks = [[*mh, "--coordinator", f"127.0.0.1:{mh_port}",
+                 "--num-processes", "2", "--process-id", str(r), "--out",
+                 str(root / f"mh{r}.npy")] for r in range(2)]
+    outs = _run_all(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), TP_RANK_FLAG, str(r),
+          str(port), str(root / f"y{r}.npy")] for r in range(2)]
+        + mh_ranks + [[*mh, "--out", str(root / "mh.npy")]])
+    metas = [json.loads(o.strip().splitlines()[-1]) for o in outs[:2]]
+    y0, y1 = (np.load(root / f"y{r}.npy") for r in range(2))
+    check(np.array_equal(y0, y1), "the two ranks' outputs differ")
+    mesh2 = _c3_model(torch, {"feature": 2, "data": 1}, **lazy)
+    g2 = torch.Generator(device="cuda").manual_seed(2000)
+    x2 = torch.empty((TP_TWO_ROWS, C3_FEATURES), device=card)
+    x2.normal_(generator=g2)
+    want2 = mesh2.transform(x2).cpu().numpy()
+    e2 = float(np.abs(y0 - want2).max() / np.abs(want2).max())
+    check(e2 <= TOL, f"two-process TP off one process by {e2:.3e}·max|Y|")
+    for m in metas:
+        check(m["launches"] == {"rp_fused_project": 1, "rp_mask_cache": 1,
+                                "rp_lazy_matrix": 0},
+              f"rank {m['rank']} launched {m['launches']}")
+    mh_meta = [json.loads(o.strip().splitlines()[-1]) for o in outs[2:]]
+    got_mh = np.concatenate([np.load(root / f"mh{r}.npy") for r in range(2)])
+    check(np.array_equal(got_mh, np.load(root / "mh.npy")),
+          "the multihost example's rows differ from one process's")
+    log(f"scale-out (f) two processes on the card (gloo, mesh "
+        f"{{'feature': 2, 'data': 1}}, ranks {metas[0]['ranks']}): "
+        f"{TP_TWO_ROWS} x {C3_FEATURES} -> {k} equal in both ranks bit for "
+        f"bit, {e2:.3e}·max|Y| from one process; a call's wall "
+        f"{metas[0]['wall_s'] * 1e3:.3f} and {metas[1]['wall_s'] * 1e3:.3f} "
+        f"ms; launches a rank {metas[0]['launches']}; the multihost example "
+        f"(2 ranks of host_row_range, lazy) {[m['row_range'] for m in mh_meta[:2]]}"
+        f" equal one process's rows bit for bit ({mh_meta[0]['rows_per_s']}, "
+        f"{mh_meta[1]['rows_per_s']} and one process {mh_meta[2]['rows_per_s']}"
+        f" rows/s)")
+    shutil.rmtree(root, ignore_errors=True)
+    del x2, mesh2, one, tp, dp
+
+    # (g) CountSketch over 8 positions at config 5's shape
+    from randomprojection_tpu_torch import CountSketch
+    from randomprojection_tpu_torch.ops.hashing import FeatureHasher
+    from randomprojection_tpu_torch.parallel import make_mesh
+    from randomprojection_tpu_torch.parallel.sharded import (
+        token_balanced_bounds,
+    )
+
+    rng = np.random.default_rng(0)
+    words = np.asarray([f"tok{i}" for i in range(C5_VOCAB)])
+    toks = words[rng.integers(0, C5_VOCAB, size=BATCH * C5_TOKENS)]
+    indptr = np.arange(0, BATCH * C5_TOKENS + 1, C5_TOKENS, dtype=np.int64)
+    Xs = FeatureHasher(n_features=C5_FEATURES, input_type="string",
+                       dtype=np.float32).transform_tokens(toks, indptr)
+    Xs = sp.csr_array(Xs)
+    mesh8 = make_mesh({"data": 8}, devices=[card] * 8)
+    cs_m = CountSketch(C5_K, random_state=0, mesh=mesh8).fit(Xs)
+    cs_1 = CountSketch(C5_K, random_state=0).fit(Xs)
+    ym, y1 = cs_m.transform(Xs), cs_1.transform(Xs)
+    check(ym.shape == (BATCH, C5_K) and np.isfinite(ym).all(), "sketch shape")
+    check(np.allclose(ym, y1, rtol=C5_TOL, atol=C5_TOL),
+          f"the mesh sketch off one device by {np.abs(ym - y1).max()}")
+    counts = np.diff(Xs.indptr[token_balanced_bounds(Xs.indptr, 8)])
+    row_max = int(np.diff(Xs.indptr).max())
+    check(np.abs(counts - Xs.nnz / 8).max() <= row_max,
+          f"shard tokens {counts.tolist()} off nnz/8 by more than a doc")
+    sk_ms = {lab: cuda_ms(lambda: c._transform_csr_device(Xs), reps=3)
+             for lab, c in (("mesh", cs_m), ("one", cs_1), ("mesh2", cs_m),
+                            ("one2", cs_1))}
+    log(f"scale-out (g) CountSketch({C5_K}) over {{'data': 8}} on one card, "
+        f"{BATCH} docs x {C5_TOKENS} tokens at 2^20: within {C5_TOL} of one "
+        f"device (max|d| {np.abs(ym - y1).max():.3e}); shard tokens "
+        f"{counts.tolist()} (nnz/8 {Xs.nnz / 8:.1f}, a doc at most {row_max}); "
+        f"the device sketch (layout and upload included) mesh "
+        f"{sk_ms['mesh']:.3f}, {sk_ms['mesh2']:.3f} ms against one device "
+        f"{sk_ms['one']:.3f}, {sk_ms['one2']:.3f} ms")
+    del x
+    torch.cuda.empty_cache()
+    log(f"scale-out: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "k1_shard": k1, "rates": rates,
+            "unshared_mask_ms": unshared_ms}
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -3751,7 +4155,16 @@ def main() -> int:
         return 2
     if sys.argv[1:] == [PROFILE_TURN_FLAG]:
         return profile_stream_turn()
+    if sys.argv[1:2] == [TP_RANK_FLAG]:
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     scratch = ROOT / "build" / "chip_smoke"
+    if sys.argv[1:] == [SCALE_OUT_FLAG]:
+        # the build and phase 17 alone: a quick check of the scale-out
+        CARD = card_line()
+        phase_build(build_mod)
+        got = phase_scale_out(torch, fk, scratch)
+        print(json.dumps(got, default=str))
+        return 0
     try:
         CARD = card_line()
         log(f"card: {CARD}; torch.cuda: {torch.cuda.get_device_name(0)}; "
@@ -3845,7 +4258,20 @@ def main() -> int:
                 leg: {key: got[key] for key in keys if got.get(key)}
                 for leg, got in sharded.items()
                 if any(got.get(key) for key in keys)}
+        # config 3 DP x TP: K1 and the mask cache a mesh position, each leg
+        # counted from 0; K1 at a feature shard's shape
+        scale_out = phase_scale_out(torch, fk, scratch)
+        for name in ("rp_fused_project", "rp_mask_cache"):
+            rows[name]["tp_launches"] = {
+                leg: got[name] for leg, got in scale_out["launches"].items()
+                if got.get(name)}
+        rows["rp_fused_project"]["tp_shard"] = scale_out["k1_shard"]
+        rows["rp_fused_project"]["tp_rates"] = scale_out["rates"]
         # the entry points whose runs launched each kernel
+        for name in ("rp_fused_project", "rp_mask_cache"):
+            rows[name]["paths"] = [
+                "SparseRandomProjection(materialization='lazy')",
+                "transform_stream", "benchmark", "TorchBackend(mesh=)"]
         rows["rp_fused_topk"]["paths"] = [
             "SimHashIndex", "TopKServer", "LSHSimHashIndex",
             "tiered SimHashIndex", "ShardedSimHashIndex",

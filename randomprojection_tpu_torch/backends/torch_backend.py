@@ -23,6 +23,18 @@ matrix is the integer hash stream that the JAX package's kernels use under
 ``interpret=True`` — portable, so unlike the JAX backend this one runs
 lazy models off the TPU.
 
+Meshes (``mesh=``, ``data_axis=``, ``feature_axis=``; the JAX backend's
+options).  Each mesh position computes its block of a batch on its device
+(``parallel.sharded.run_sharded``): DP splits rows over ``data_axis``,
+DP×TP also splits columns over ``feature_axis`` and adds each row block's
+partials in feature order (across processes, one ``all_reduce``).  Dense
+and split2 matrices are drawn into the mesh's layout
+(``materialize_sharded``); the lazy route runs one fused kernel a
+position with its feature shard's ``block_offset``, on a column view of
+the batch, and one mask cache a (device, feature shard) serves its data
+shards.  A batch lands on the mesh's first device; the result is one
+tensor there (in a job of several processes, the rows this process holds).
+
 Devices.  ``device=None`` (the default) means the card: with no card the
 backend raises rather than run on the CPU.  The CPU runs only when asked
 (``backend_options={'device': 'cpu'}``), and the fused wrappers then take
@@ -165,6 +177,7 @@ class TorchBackend(ProjectionBackend):
         precision: Optional[str] = None,
         materialization: str = "dense",
         mesh: Optional[object] = None,
+        data_axis: str = "data",
         feature_axis: Optional[str] = None,
         dispatch_steps: int = 1,
         transform_dma: Optional[bool] = None,
@@ -174,16 +187,28 @@ class TorchBackend(ProjectionBackend):
         from randomprojection_tpu_torch.ops.precision import (
             default_matmul_precision,
         )
+        from randomprojection_tpu_torch.parallel.mesh import Mesh
 
-        # options of the JAX backend that later slices port; refuse them
-        # rather than silently run something else
-        for name, value in (("mesh", mesh), ("feature_axis", feature_axis)):
-            if value is not None:
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(
+                f"mesh must be a parallel.Mesh (make_mesh, global_mesh), got "
+                f"{mesh!r}")
+        if feature_axis is not None and mesh is None:
+            raise ValueError(
+                f"feature_axis={feature_axis!r} needs a mesh with that axis")
+        for name, axis in (("data_axis", data_axis),
+                           ("feature_axis", feature_axis)):
+            if mesh is not None and axis is not None \
+                    and axis not in mesh.axis_names:
                 raise ValueError(
-                    f"{name}={value!r} is not ported yet (ROADMAP A10b, the "
-                    "projection half of the scale-out); the torch backend "
-                    f"takes {name}=None only"
-                )
+                    f"{name}={axis!r} is not an axis of the mesh "
+                    f"{list(mesh.axis_names)}")
+        if mesh is not None and device is not None:
+            raise ValueError("pass device= or mesh=, not both: a mesh names "
+                             "its devices")
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.feature_axis = feature_axis
         # execution knobs, not spec fields (the spec defines the matrix):
         # they change how a lazy transform runs, never what it computes
         if int(dispatch_steps) < 1:
@@ -203,7 +228,16 @@ class TorchBackend(ProjectionBackend):
         #: from the shape alone, so the TPU kernel's DMA switch has no
         #: counterpart here
         self.transform_dma = transform_dma
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.home()  # where a batch lands
+            if feature_axis is not None:
+                # new_group is collective: every process of the job makes
+                # the mesh's groups here, in the same order
+                from randomprojection_tpu_torch.parallel import distributed
+
+                distributed.process_groups(mesh, feature_axis)
         if compute_dtype not in _COMPUTE_DTYPES:
             raise ValueError(
                 f"compute_dtype must be one of {_COMPUTE_DTYPES}, got {compute_dtype!r}"
@@ -239,6 +273,12 @@ class TorchBackend(ProjectionBackend):
                 "kernel's x route is chosen by plan_project from the shape "
                 "alone, so the option is ignored", transform_dma,
             )
+        if mesh is not None and self.dispatch_steps > 1:
+            logger.warning(
+                "dispatch_steps is ignored on the mesh path (each mesh "
+                "position launches its own kernel; only the single-device "
+                "lazy route chains row blocks through one dispatch)"
+            )
 
     def _einsum_precision(self) -> str:
         """Precision for plain products ('split2' applies only to the mask
@@ -270,19 +310,37 @@ class TorchBackend(ProjectionBackend):
                     "materialization='lazy' needs n_components to be a "
                     f"multiple of 8, got {spec.n_components}"
                 )
+            if self.feature_axis is not None:
+                from randomprojection_tpu_torch.ops.fused_kernels import (
+                    BLOCK_D,
+                )
+
+                fshards = self.mesh.shape[self.feature_axis]
+                if spec.n_features % (fshards * BLOCK_D):
+                    # each TP shard regenerates its own BLOCK_D-aligned
+                    # column blocks; a ragged shard would pad mid-matrix
+                    # and redefine the block streams against one device
+                    raise ValueError(
+                        "materialization='lazy' under feature-axis TP needs "
+                        "n_features divisible by feature_shards*BLOCK_D = "
+                        f"{fshards}*{BLOCK_D}, got {spec.n_features}"
+                    )
             return _LazyMask(
                 spec.seed, spec.density if spec.kind == "sparse" else 1.0
             )
 
         key = _matrix_key(spec.seed, self.device)
         k, d = spec.n_components, spec.n_features
+        if self.precision == "split2" and spec.kind not in ("sparse",
+                                                             "rademacher"):
+            raise ValueError(
+                "precision='split2' relies on the ±1/0 mask being exact "
+                "in bf16 and supports kind='sparse'/'rademacher' only; "
+                f"got {spec.kind!r} (use precision='high' for gaussian)"
+            )
+        if self.mesh is not None:
+            return self._materialize_sharded(spec, key)
         if self.precision == "split2":
-            if spec.kind not in ("sparse", "rademacher"):
-                raise ValueError(
-                    "precision='split2' relies on the ±1/0 mask being exact "
-                    "in bf16 and supports kind='sparse'/'rademacher' only; "
-                    f"got {spec.kind!r} (use precision='high' for gaussian)"
-                )
             density = float(spec.density) if spec.kind == "sparse" else 1.0
             scale = 1.0 / math.sqrt(density * k)
             # R entries are exactly ±scale (or 0) in float32, so dividing
@@ -298,24 +356,67 @@ class TorchBackend(ProjectionBackend):
                                          self._dtype)
         return kernels.rademacher_matrix(key, k, d, self._dtype)
 
+    def _materialize_sharded(self, spec: ProjectionSpec, key):
+        """The dense or split2 state drawn into the mesh's layout: under a
+        feature axis each device draws only its column shard
+        (``materialize_sharded``), equal to the one-device matrix's columns
+        bit for bit."""
+        import functools
+
+        import torch
+
+        from randomprojection_tpu_torch.ops import kernels
+        from randomprojection_tpu_torch.parallel.sharded import (
+            materialize_sharded,
+        )
+
+        density = float(spec.density) if spec.kind == "sparse" else 1.0
+        if self.precision == "split2":
+            # R entries are exactly ±scale (or 0) in float32, so dividing
+            # by the same float32 scale gives exact ±1/0
+            scale = 1.0 / math.sqrt(density * spec.n_components)
+            R = materialize_sharded(
+                functools.partial(kernels.sparse_block, density=density), key,
+                spec.n_components, spec.n_features, self.mesh,
+                feature_axis=self.feature_axis, dtype=torch.float32)
+            return _SplitMask(R.map(lambda b: (b / torch.tensor(
+                scale, dtype=torch.float32, device=b.device)).to(
+                    torch.bfloat16)), scale)
+        block_fn = {
+            "gaussian": kernels.gaussian_block,
+            "sparse": functools.partial(kernels.sparse_block,
+                                        density=density),
+            "rademacher": kernels.rademacher_block,
+        }[spec.kind]
+        return materialize_sharded(block_fn, key, spec.n_components,
+                                   spec.n_features, self.mesh,
+                                   feature_axis=self.feature_axis,
+                                   dtype=self._dtype)
+
+    def _lay_out(self, t):
+        """A whole matrix on the mesh's layout (as it is without a mesh)."""
+        if self.mesh is None:
+            return t
+        from randomprojection_tpu_torch.parallel.sharded import shard_columns
+
+        return shard_columns(t, self.mesh, self.feature_axis)
+
     def split_state(self, mask, scale: float) -> _SplitMask:
         """A split2 state from a host ±1/0 mask and its scale."""
         import torch
 
-        return _SplitMask(
+        return _SplitMask(self._lay_out(
             torch.from_numpy(np.ascontiguousarray(mask, dtype=np.float32)).to(
                 self.device, torch.bfloat16
-            ),
-            scale,
-        )
+            )), scale)
 
     def dense_state(self, components):
         """A dense state from a host ``(k, d)`` matrix."""
         import torch
 
-        return torch.from_numpy(
+        return self._lay_out(torch.from_numpy(
             np.ascontiguousarray(components, dtype=np.float32)
-        ).to(self.device, self._dtype)
+        ).to(self.device, self._dtype))
 
     def _host_tensor(self, X, *, allow_bf16: bool):
         """Densify + apply the dtype policy on the host (bf16 passes through
@@ -380,6 +481,9 @@ class TorchBackend(ProjectionBackend):
         from randomprojection_tpu_torch.utils.observability import annotate
 
         allow_bf16 = spec.dtype == "bfloat16"
+        if self.mesh is not None:
+            # the dispatch lays the batch out over the mesh
+            return X
         if self.device.type == "cpu":
             return self._prepare_rows(X, allow_bf16=allow_bf16)[0]
         with annotate("rp:stream/h2d_prefetch"):
@@ -391,6 +495,44 @@ class TorchBackend(ProjectionBackend):
                 t = self._host_tensor(X, allow_bf16=allow_bf16)
             return stage_upload(t, self.device)
 
+    def _project_mesh(self, x, state, spec: ProjectionSpec):
+        """The mesh routes (``parallel.sharded``): dense and split2 through
+        the sharded projectors, lazy through one fused kernel a position."""
+        import torch
+
+        from randomprojection_tpu_torch.parallel import sharded
+
+        axes = dict(data_axis=self.data_axis, feature_axis=self.feature_axis)
+        if isinstance(state, _SplitMask):
+            return sharded.make_sharded_split2_projector(self.mesh, **axes)(
+                x, state.mask, state.scale)
+        if not isinstance(state, _LazyMask):
+            return sharded.make_sharded_projector(
+                self.mesh, precision=self._einsum_precision(), **axes)(x, state)
+        from randomprojection_tpu_torch.ops import fused_kernels as fk
+
+        mode = "bf16" if x.dtype == torch.bfloat16 else self._lazy_mxu_mode()
+        k = spec.n_components
+        masks = {}
+
+        def partial(pos, xb, out):
+            j, q = self.mesh.axis_index(pos, self.feature_axis)
+            offset = j * (spec.n_features // q) // fk.BLOCK_D
+            mask = None
+            if xb.is_cuda:
+                # one mask cache a (device, feature shard), shared by the
+                # shard's row blocks
+                mask = masks.get((str(xb.device), j))
+                if mask is None:
+                    mask = masks[str(xb.device), j] = fk.rp_mask_cache(
+                        state.seed, k, xb.shape[1], state.density,
+                        block_offset=offset, device=xb.device)
+            return fk.fused_sparse_project(
+                xb, state.seed, k, state.density, block_offset=offset,
+                mxu_mode=mode, mask=mask, out=out)
+
+        return sharded.run_sharded(self.mesh, x, k, partial, **axes)
+
     def _project(self, x, state, spec: ProjectionSpec):
         import torch
 
@@ -398,7 +540,9 @@ class TorchBackend(ProjectionBackend):
         from randomprojection_tpu_torch.ops.precision import matmul_nt
         from randomprojection_tpu_torch.ops.split_matmul import split2_project
 
-        if isinstance(state, _SplitMask):
+        if self.mesh is not None:
+            y = self._project_mesh(x, state, spec)
+        elif isinstance(state, _SplitMask):
             y = split2_project(x, state.mask, state.scale)
         elif isinstance(state, _LazyMask):
             # bf16 input (only when the spec's dtype policy allowed it)
@@ -478,13 +622,13 @@ class TorchBackend(ProjectionBackend):
         bitorder='little')`` (pad bits of a ragged last byte are zero).
 
         The dense route takes one float32 product under the precision
-        policy; the lazy and split2 routes compute their coordinates as
-        ``transform`` does.  Output ``(n, ceil(k/8))`` uint8: a tensor for a
+        policy; the lazy and split2 routes, and every route under a mesh,
+        compute their coordinates as ``transform`` does.  Output ``(n, ceil(k/8))`` uint8: a tensor for a
         tensor input or ``materialize=False`` (the streaming pipeline),
         else a host array."""
         from randomprojection_tpu_torch.ops.precision import matmul_nt
 
-        if isinstance(state, (_LazyMask, _SplitMask)):
+        if isinstance(state, (_LazyMask, _SplitMask)) or self.mesh is not None:
             y, device_resident = self._transform_impl(X, state, spec)
         else:
             x, device_resident = self._prepare_rows(
@@ -509,8 +653,15 @@ class TorchBackend(ProjectionBackend):
                 state.seed, spec.n_components, spec.n_features, state.density,
                 device=self.device,
             )
+        from randomprojection_tpu_torch.parallel.sharded import Sharded
+
         if isinstance(state, _SplitMask):
-            return state.mask.float() * state.scale
+            mask = state.mask
+            if isinstance(mask, Sharded):
+                mask = mask.whole(self.device)
+            return mask.float() * state.scale
+        if isinstance(state, Sharded):
+            state = state.whole(self.device)
         return state.float()
 
     def inverse_components(self, state, spec: ProjectionSpec) -> np.ndarray:

@@ -382,14 +382,14 @@ __device__ __forceinline__ void load_parts(const uint8_t* xs, int row, int c,
 }
 
 // The cp.async route: the producer warpgroup's 128 threads copy one stage
-// of x (64 rows x 64 columns) in 4-byte pieces into the swizzled layout a
-// TMA load gives, zero past n and d.  float32: one element a piece; bf16
-// (d even): a pair.
+// of x (64 rows x 64 columns, rows ldx elements apart) in 4-byte pieces
+// into the swizzled layout a TMA load gives, zero past n and d.  float32:
+// one element a piece; bf16 (d and ldx even): a pair.
 template <int MODE>
 __device__ __forceinline__ void copy_x_stage(uint32_t xs, const void* x,
                                              int64_t n, int64_t d,
-                                             int64_t row0, int64_t col0,
-                                             int pt) {
+                                             int64_t ldx, int64_t row0,
+                                             int64_t col0, int pt) {
   if constexpr (MODE == 2) {
     const uint16_t* xb = static_cast<const uint16_t*>(x);
 #pragma unroll 4
@@ -398,7 +398,7 @@ __device__ __forceinline__ void copy_x_stage(uint32_t xs, const void* x,
       const int r = e >> 5, c = (e & 31) * 2;
       const int64_t gr = row0 + r, gc = col0 + c;
       const bool ok = gr < n && gc < d;
-      cp_async_4(xs + swz(r, c * 2), ok ? xb + gr * d + gc : xb, ok ? 4 : 0);
+      cp_async_4(xs + swz(r, c * 2), ok ? xb + gr * ldx + gc : xb, ok ? 4 : 0);
     }
   } else {
     const float* xf = static_cast<const float*>(x);
@@ -409,7 +409,7 @@ __device__ __forceinline__ void copy_x_stage(uint32_t xs, const void* x,
       const int64_t gr = row0 + r, gc = col0 + c;
       const bool ok = gr < n && gc < d;
       cp_async_4(xs + (c >> 5) * (kTileM * 128) + swz(r, (c & 31) * 4),
-                 ok ? xf + gr * d + gc : xf, ok ? 4 : 0);
+                 ok ? xf + gr * ldx + gc : xf, ok ? 4 : 0);
     }
   }
 }
@@ -419,8 +419,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     fused_project_kernel(const __grid_constant__ CUtensorMap x_map,
                          const __grid_constant__ CUtensorMap m_map,
                          const void* __restrict__ x, float* __restrict__ y,
-                         int64_t n, int64_t d, int k, int slices, int tiles,
-                         int stages, int use_tma, float scale) {
+                         int64_t n, int64_t d, int64_t ldx, int k,
+                         int slices, int tiles, int stages, int use_tma,
+                         float scale) {
   constexpr int kParts = MODE == 0 ? 3 : (MODE == 1 ? 2 : 1);
   constexpr int kCtaN = 2 * WN;
   constexpr int kXBytes = x_stage_bytes(MODE);
@@ -472,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load_2d(xs + kXBytes, &m_map, full(st), kb * kStepD, col0);
         }
         if (!use_tma) {
-          copy_x_stage<MODE>(xs, x, n, d, row0,
+          copy_x_stage<MODE>(xs, x, n, d, ldx, row0,
                              static_cast<int64_t>(kb) * kStepD, pt);
           cp_async_arrive(full(st));
         }
@@ -726,35 +727,35 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
 
 template <int MODE, int WN>
 cudaError_t launch(const CUtensorMap& xm, const CUtensorMap& mm, const void* x,
-                   float* y, int64_t n, int64_t d, int k, int slices,
-                   int tiles, int stages, int use_tma, float scale, int grid,
-                   cudaStream_t s) {
+                   float* y, int64_t n, int64_t d, int64_t ldx, int k,
+                   int slices, int tiles, int stages, int use_tma, float scale,
+                   int grid, cudaStream_t s) {
   const int smem = smem_bytes(2 * WN, MODE, stages);
   cudaError_t e = cudaFuncSetAttribute(
       fused_project_kernel<MODE, WN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   fused_project_kernel<MODE, WN><<<grid, kThreads, smem, s>>>(
-      xm, mm, x, y, n, d, k, slices, tiles, stages, use_tma, scale);
+      xm, mm, x, y, n, d, ldx, k, slices, tiles, stages, use_tma, scale);
   return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t launch_mode(int cta_n, const CUtensorMap& xm,
                         const CUtensorMap& mm, const void* x, float* y,
-                        int64_t n, int64_t d, int k, int slices, int tiles,
-                        int stages, int use_tma, float scale, int grid,
-                        cudaStream_t s) {
+                        int64_t n, int64_t d, int64_t ldx, int k, int slices,
+                        int tiles, int stages, int use_tma, float scale,
+                        int grid, cudaStream_t s) {
   switch (cta_n) {
     case 64:
-      return launch<MODE, 32>(xm, mm, x, y, n, d, k, slices, tiles, stages,
-                              use_tma, scale, grid, s);
+      return launch<MODE, 32>(xm, mm, x, y, n, d, ldx, k, slices, tiles,
+                              stages, use_tma, scale, grid, s);
     case 128:
-      return launch<MODE, 64>(xm, mm, x, y, n, d, k, slices, tiles, stages,
-                              use_tma, scale, grid, s);
+      return launch<MODE, 64>(xm, mm, x, y, n, d, ldx, k, slices, tiles,
+                              stages, use_tma, scale, grid, s);
     case 256:
-      return launch<MODE, 128>(xm, mm, x, y, n, d, k, slices, tiles, stages,
-                               use_tma, scale, grid, s);
+      return launch<MODE, 128>(xm, mm, x, y, n, d, ldx, k, slices, tiles,
+                               stages, use_tma, scale, grid, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -790,22 +791,24 @@ int rp_mask_cache(void* out, int k, int d, int dp, uint32_t seed,
 
 // Y (n x k, float32) = scale * X (n x d) . M^T, M read from the mask cache
 // (k x dp bf16).  x is float32 for modes 0 and 1 and bfloat16 for mode 2,
-// contiguous.  The plan (cta_n, stages, the TMA or cp.async route, the
-// grid) comes from the wrapper's planner; a plan the kernel cannot run is
-// refused with cudaErrorInvalidValue.  Returns cudaGetLastError() after
-// the launch.
+// its rows ldx >= d elements apart (ldx = d: contiguous; a column shard of
+// a wider batch passes the batch's row length, so it is read in place).
+// The plan (cta_n, stages, the TMA or cp.async route, the grid) comes from
+// the wrapper's planner; a plan the kernel cannot run is refused with
+// cudaErrorInvalidValue.  Returns cudaGetLastError() after the launch.
 int rp_fused_project(const void* x, const void* mask, void* y, int64_t n,
-                     int64_t d, int64_t dp, int k, float scale, int mode,
-                     int cta_n, int stages, int use_tma, int grid,
+                     int64_t d, int64_t ldx, int64_t dp, int k, float scale,
+                     int mode, int cta_n, int stages, int use_tma, int grid,
                      void* stream) {
   const int item = mode == 2 ? 2 : 4;
   if (mode < 0 || mode > 2 || stages < 2 || stages > kMaxStages ||
       (cta_n != 64 && cta_n != 128 && cta_n != kSliceN) || n <= 0 ||
-      d <= 0 || k <= 0 || k % 8 || grid <= 0 || dp % kStepD || dp < d ||
-      smem_bytes(cta_n, mode, stages) > kSmemLimit ||
-      (use_tma && ((d * item) % 16 || reinterpret_cast<uintptr_t>(x) % 16)) ||
+      d <= 0 || ldx < d || k <= 0 || k % 8 || grid <= 0 || dp % kStepD ||
+      dp < d || smem_bytes(cta_n, mode, stages) > kSmemLimit ||
+      (use_tma && ((d * item) % 16 || (ldx * item) % 16 ||
+                   reinterpret_cast<uintptr_t>(x) % 16)) ||
       (!use_tma && mode == 2 &&
-       (d % 2 || reinterpret_cast<uintptr_t>(x) % 4)) ||
+       (d % 2 || ldx % 2 || reinterpret_cast<uintptr_t>(x) % 4)) ||
       reinterpret_cast<uintptr_t>(mask) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -814,7 +817,7 @@ int rp_fused_project(const void* x, const void* mask, void* y, int64_t n,
       !encode(&xm,
               mode == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-              x, d, n, d * item, 128 / item, kTileM)) {
+              x, d, n, ldx * item, 128 / item, kTileM)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!encode(&mm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, mask, dp, k, dp * 2,
@@ -829,16 +832,16 @@ int rp_fused_project(const void* x, const void* mask, void* y, int64_t n,
   cudaError_t e;
   switch (mode) {
     case 0:
-      e = launch_mode<0>(cta_n, xm, mm, x, out, n, d, k, slices, tiles, stages,
-                         use_tma, scale, grid, s);
+      e = launch_mode<0>(cta_n, xm, mm, x, out, n, d, ldx, k, slices, tiles,
+                         stages, use_tma, scale, grid, s);
       break;
     case 1:
-      e = launch_mode<1>(cta_n, xm, mm, x, out, n, d, k, slices, tiles, stages,
-                         use_tma, scale, grid, s);
+      e = launch_mode<1>(cta_n, xm, mm, x, out, n, d, ldx, k, slices, tiles,
+                         stages, use_tma, scale, grid, s);
       break;
     default:
-      e = launch_mode<2>(cta_n, xm, mm, x, out, n, d, k, slices, tiles, stages,
-                         use_tma, scale, grid, s);
+      e = launch_mode<2>(cta_n, xm, mm, x, out, n, d, ldx, k, slices, tiles,
+                         stages, use_tma, scale, grid, s);
       break;
   }
   return static_cast<int>(e);

@@ -48,7 +48,10 @@ import scipy.sparse as sp
 from randomprojection_tpu_torch.models.base import BaseRandomProjection, ParamsMixin
 from randomprojection_tpu_torch.ops import topk_kernels
 from randomprojection_tpu_torch.parallel.mesh import concrete_device
-from randomprojection_tpu_torch.parallel.sharded import row_bucket
+from randomprojection_tpu_torch.parallel.sharded import (
+    row_bucket,
+    token_balanced_bounds,
+)
 # a tensor's copy to the host: pinned memory, non_blocking, an event
 # behind it on a card; .result(None) waits for that copy alone
 from randomprojection_tpu_torch.streaming import _HostFetch
@@ -1163,6 +1166,41 @@ def _flat_layout(X):
             X.data.astype(np.float32, copy=False))
 
 
+def _flat_mesh_layout(X, p: int):
+    """Token-balanced host layout of one CSR batch over ``p`` data shards
+    (the reference's, bit for bit): rows partition at
+    ``token_balanced_bounds`` cuts, so the padded token width ``t_pad``
+    tracks ``nnz/p``; shards own unequal row ranges, each scatters into its
+    own ``rows_blk``-row block (the bucketed most rows any shard owns), and
+    ``perm`` maps the block-concatenated output back to global row order.
+    Returns ``(rows_l, idx, vals, rows_blk, t_pad, perm)``, the first three
+    ``(p, t_pad)`` (pad tokens carry value 0) and ``perm`` ``(n,)`` int32."""
+    n = X.shape[0]
+    indptr = X.indptr.astype(np.int64, copy=False)
+    bounds_rows = token_balanced_bounds(indptr, p)
+    tok_bounds = indptr[bounds_rows]
+    rows_per = np.diff(bounds_rows)
+    counts = np.diff(tok_bounds)
+    rows_blk = row_bucket(int(max(rows_per.max(), 1)))
+    t_pad = row_bucket(int(max(counts.max(), 1)))
+    rows_l = np.zeros((p, t_pad), np.int32)
+    idx_s = np.zeros((p, t_pad), np.int32)
+    vals_s = np.zeros((p, t_pad), np.float32)
+    row_sizes = np.diff(indptr)
+    perm = np.empty(n, np.int64)
+    for s in range(p):
+        r0, r1 = int(bounds_rows[s]), int(bounds_rows[s + 1])
+        lo, hi = int(tok_bounds[s]), int(tok_bounds[s + 1])
+        c = hi - lo
+        rows_l[s, :c] = np.repeat(
+            np.arange(r1 - r0, dtype=np.int32), row_sizes[r0:r1]
+        )
+        idx_s[s, :c] = X.indices[lo:hi]
+        vals_s[s, :c] = X.data[lo:hi]
+        perm[r0:r1] = s * rows_blk + np.arange(r1 - r0)
+    return rows_l, idx_s, vals_s, rows_blk, t_pad, perm.astype(np.int32)
+
+
 class CountSketch(ParamsMixin):
     """Count-Sketch / hashing-trick projection ``(n, d) → (n, k)``.
 
@@ -1190,22 +1228,22 @@ class CountSketch(ParamsMixin):
 
     On the card the scatter routes sum in the order the atomics land, so
     they agree with the host to float32 rounding, not bit for bit.
-    ``mesh=`` is not ported yet (ROADMAP A10b, the projection half of
-    the scale-out).
+
+    ``mesh=`` (a ``parallel.Mesh`` of this process) row-shards the device
+    routes over ``data_axis`` (DP, no collective, as the reference):
+    dense rows split as ``parallel.sharded.Layout`` splits them, CSR
+    batches at token-balanced row cuts (``_flat_mesh_layout``), each shard
+    sketched on its device with its own tables, then gathered back to row
+    order on the mesh's first device.
     """
 
     def __init__(self, n_components, *, random_state=None, backend="auto",
                  backend_options: Optional[dict] = None,
-                 use_mxu: Optional[bool] = None, mesh=None):
+                 use_mxu: Optional[bool] = None, mesh=None,
+                 data_axis: str = "data"):
         if not isinstance(n_components, numbers.Integral) or n_components <= 0:
             raise ValueError(
                 f"n_components must be a positive int, got {n_components!r}"
-            )
-        if mesh is not None:
-            raise ValueError(
-                f"mesh={mesh!r} is not ported yet (ROADMAP A10b, the "
-                "projection half of the scale-out); CountSketch takes "
-                "mesh=None only"
             )
         self.n_components = int(n_components)
         self.random_state = random_state
@@ -1214,7 +1252,10 @@ class CountSketch(ParamsMixin):
         # None = the one-hot product when its mask fits the cap; False =
         # force the scatter; True = require the one-hot product
         self.use_mxu = use_mxu
+        # DP row-sharding over a mesh (config 5 is a "100M docs on v5e-8"
+        # workload): rows shard over data_axis, tables on every device
         self.mesh = mesh
+        self.data_axis = data_axis
 
     def fit_schema(self, n_samples: int, n_features: int, dtype=np.float64):
         if n_features <= 0:
@@ -1257,6 +1298,22 @@ class CountSketch(ParamsMixin):
                     f"'torch' or 'auto'), got backend={self.backend!r}"
                 )
             self._device = None
+        elif self.mesh is not None:
+            from randomprojection_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(self.mesh, Mesh):
+                raise ValueError(
+                    "mesh must be a parallel.Mesh (make_mesh), got "
+                    f"{self.mesh!r}")
+            if "device" in opts:
+                raise ValueError("pass backend_options={'device': ...} or "
+                                 "mesh=, not both: a mesh names its devices")
+            if self.mesh.ranks is not None:
+                raise ValueError(
+                    "CountSketch's mesh is this process's (make_mesh): DP "
+                    "needs no collective, so a job of several processes "
+                    "runs one sketch a process over its host_row_range")
+            self._device = self.mesh.home()
         else:
             self._device = resolve_device(opts.get("device"))
         for key in ("_dev_tables", "_dev_mask"):
@@ -1268,8 +1325,8 @@ class CountSketch(ParamsMixin):
 
     def set_params(self, **params):
         super().set_params(**params)
-        if {"use_mxu", "backend", "backend_options"} & params.keys() and \
-                hasattr(self, "h_"):
+        if {"use_mxu", "backend", "backend_options", "mesh",
+                "data_axis"} & params.keys() and hasattr(self, "h_"):
             self._resolve_execution()
         return self
 
@@ -1322,24 +1379,29 @@ class CountSketch(ParamsMixin):
     # of bf16) the scatter wins on memory
     _MXU_MASK_BYTES_CAP = 64 << 20
 
-    def _upload(self, a):
-        """A host array on the device, ready on the current stream (staged
-        on the card's copy stream, ``ops.staging``)."""
+    def _upload(self, a, device=None):
+        """A host array on ``device`` (the sketch's), ready on the current
+        stream (staged on the card's copy stream, ``ops.staging``)."""
         import torch
 
         from randomprojection_tpu_torch.ops.staging import stage_upload
 
+        device = self._device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self._device.type == "cpu":
+        if device.type == "cpu":
             return t
-        return stage_upload(t, self._device).wait()
+        return stage_upload(t, device).wait()
 
-    def _device_tables(self):
-        """``h_`` and ``s_`` (as float32) on the device, uploaded once a fit."""
-        t = self.__dict__.get("_dev_tables")
+    def _device_tables(self, device=None):
+        """``h_`` and ``s_`` (as float32) on ``device`` (the sketch's),
+        uploaded once a fit and device."""
+        device = self._device if device is None else device
+        tables = self.__dict__.setdefault("_dev_tables", {})
+        t = tables.get(str(device))
         if t is None:
-            t = (self._upload(self.h_), self._upload(self.s_.astype(np.float32)))
-            self.__dict__["_dev_tables"] = t
+            t = tables[str(device)] = (
+                self._upload(self.h_, device),
+                self._upload(self.s_.astype(np.float32), device))
         return t
 
     def _mxu_route(self) -> bool:
@@ -1354,25 +1416,25 @@ class CountSketch(ParamsMixin):
             )
         return fits_cap if self.use_mxu is None else bool(self.use_mxu)
 
-    def _onehot_mask(self):
-        """``M (k, d)`` bf16 with ``M[h(j), j] = s(j)``, built on the device
-        once a fit."""
+    def _onehot_mask(self, device=None):
+        """``M (k, d)`` bf16 with ``M[h(j), j] = s(j)``, built on ``device``
+        (the sketch's) once a fit and device."""
         import torch
 
-        m = self.__dict__.get("_dev_mask")
+        device = self._device if device is None else device
+        masks = self.__dict__.setdefault("_dev_mask", {})
+        m = masks.get(str(device))
         if m is None:
-            h, s = self._device_tables()
+            h, s = self._device_tables(device)
             m = torch.zeros((self.n_components_, self.n_features_in_),
-                            dtype=torch.float32, device=self._device)
-            m[h.long(), torch.arange(self.n_features_in_, device=self._device)] = s
-            m = m.to(torch.bfloat16)
-            self.__dict__["_dev_mask"] = m
+                            dtype=torch.float32, device=device)
+            m[h.long(), torch.arange(self.n_features_in_, device=device)] = s
+            m = masks[str(device)] = m.to(torch.bfloat16)
         return m
 
-    def _transform_dense_device(self, X):
-        """Dense rows on the device: float64 (and other non-float32 dtypes)
-        stay on the host, exact; float32 runs the one-hot product or the
-        scatter.  Returns a device tensor (or the host array)."""
+    def _sketch_dense(self, x):
+        """The dense float32 sketch of ``x`` on its device: the one-hot
+        product or the scatter."""
         import torch
 
         from randomprojection_tpu_torch.ops.precision import mm_f32acc
@@ -1380,6 +1442,21 @@ class CountSketch(ParamsMixin):
             split_f32_to_bf16_triple,
         )
 
+        if self._mxu_route():
+            mt = self._onehot_mask(x.device).t()
+            # three exact bf16 parts: each product with ±1 is exact, the
+            # sums are float32
+            return sum(mm_f32acc(p, mt) for p in split_f32_to_bf16_triple(x))
+        h, s = self._device_tables(x.device)
+        y = torch.zeros((x.shape[0], self.n_components_), dtype=torch.float32,
+                        device=x.device)
+        return y.index_add_(1, h, x * s)
+
+    def _transform_dense_device(self, X):
+        """Dense rows on the device: float64 (and other non-float32 dtypes)
+        stay on the host, exact; float32 runs the one-hot product or the
+        scatter, under a mesh each row block on its device.  Returns a
+        device tensor (or the host array)."""
         if X.dtype != np.float32:
             if self.use_mxu:
                 raise ValueError(
@@ -1389,32 +1466,33 @@ class CountSketch(ParamsMixin):
                 )
             return self._transform_dense_np(X)
         x = self._upload(X)
-        if self._mxu_route():
-            mt = self._onehot_mask().t()
-            # three exact bf16 parts: each product with ±1 is exact, the
-            # sums are float32
-            return sum(mm_f32acc(p, mt) for p in split_f32_to_bf16_triple(x))
-        h, s = self._device_tables()
-        y = torch.zeros((x.shape[0], self.n_components_), dtype=torch.float32,
-                        device=self._device)
-        return y.index_add_(1, h, x * s)
+        if self.mesh is None:
+            return self._sketch_dense(x)
+        from randomprojection_tpu_torch.parallel.sharded import run_sharded
+
+        return run_sharded(self.mesh, x, self.n_components_,
+                           lambda pos, xb, out: self._sketch_dense(xb),
+                           data_axis=self.data_axis)
 
     def _csr_on_device(self, X) -> bool:
         """Device CSR eligibility: the torch backend, float32 data (float64
-        stays on the host, exact) and a flat output index ``n·k`` that fits
-        int32, as the reference's gate."""
+        stays on the host, exact) and a flat output index that fits int32,
+        as the reference's gate: ``n·k`` rows, and under a mesh the row
+        bucket (the token-balanced cuts may hand one shard every row)."""
+        n = (X.shape[0] if self.mesh is None
+             else row_bucket(max(X.shape[0], 1), self.mesh, self.data_axis))
         return (self._use_device and X.dtype == np.float32
-                and X.shape[0] * self.n_components_ < 2**31)
+                and n * self.n_components_ < 2**31)
 
     def _flat_dispatch(self, rows_dev, idx_dev, vals_dev, n: int):
-        """Gather the resident tables at the tokens, scatter-add into the
-        flat ``(n·k)`` accumulator (``index_add_``)."""
+        """Gather the tables resident on the tokens' device, scatter-add
+        into the flat ``(n·k)`` accumulator (``index_add_``)."""
         import torch
 
         k = self.n_components_
-        h, s = self._device_tables()
+        h, s = self._device_tables(rows_dev.device)
         flat = rows_dev.long() * k + h.index_select(0, idx_dev)
-        y = torch.zeros(n * k, dtype=torch.float32, device=self._device)
+        y = torch.zeros(n * k, dtype=torch.float32, device=rows_dev.device)
         y.index_add_(0, flat, vals_dev * s.index_select(0, idx_dev))
         return y.reshape(n, k)
 
@@ -1422,9 +1500,31 @@ class CountSketch(ParamsMixin):
         """Sketch a float32 CSR batch on the device (config 5's hot loop):
         per batch only the tokens' ``(row, idx, val)`` cross, the
         2^20-wide input never materializes, and the tables stay resident.
-        Returns a device tensor."""
-        return self._flat_dispatch(*map(self._upload, _flat_layout(X)),
-                                   X.shape[0])
+        Under a mesh each data shard sketches its token-balanced row range
+        into its own row block on its device, and one gather (``perm``)
+        restores row order on the sketch's device.  Returns a device
+        tensor."""
+        if self.mesh is None:
+            return self._flat_dispatch(*map(self._upload, _flat_layout(X)),
+                                       X.shape[0])
+        import torch
+
+        from randomprojection_tpu_torch.parallel.mesh import data_axis_devices
+
+        devices = data_axis_devices(self.mesh, self.data_axis)
+        rows_l, idx_s, vals_s, rows_blk, _, perm = _flat_mesh_layout(
+            X, len(devices))
+        # only each shard's real tokens go up: its padding adds zeros
+        counts = np.diff(X.indptr[token_balanced_bounds(X.indptr,
+                                                        len(devices))])
+        blocks = [
+            self._flat_dispatch(
+                *(self._upload(a[s, :c], dev) for a in (rows_l, idx_s, vals_s)),
+                rows_blk).to(self._device)
+            for s, (dev, c) in enumerate(zip(devices, counts))
+        ]
+        return torch.cat(blocks).index_select(
+            0, self._upload(perm.astype(np.int64)))
 
     def _transform_csr(self, X):
         """The host scatter (float64 and the numpy backend): exact."""
@@ -1453,9 +1553,11 @@ class CountSketch(ParamsMixin):
         card each operand goes up on the card's copy stream with an event
         behind it (``ops.staging.stage_upload``), and the
         dispatch makes its stream wait for them.  Batches the device CSR
-        routes do not serve are returned unchanged."""
+        routes do not serve, and every batch under a mesh (laid out at
+        dispatch, as the reference does), are returned unchanged."""
         self._check_is_fitted()
-        if not sp.issparse(X) or self.use_mxu:
+        if not sp.issparse(X) or self.use_mxu or self.mesh is not None:
+            # a mesh lays the batch out at dispatch
             return X
         X = X.tocsr()
         self._check_width(X)

@@ -322,8 +322,9 @@ def project_smem_bytes(cta_n: int, mxu_mode: str, stages: int) -> int:
 class ProjectPlan:
     """How ``rp_fused_project`` launches: the tile's column width
     ``cta_n`` (two consumer warpgroups of ``cta_n / 2``), the k slices, the
-    ring's stages and shared memory, the x route (``'tma'`` when a row is a
-    multiple of 16 bytes from a 16-byte-aligned base, else ``'cp.async'``),
+    ring's stages and shared memory, the x route (``'tma'`` when a row and
+    the rows' pitch are multiples of 16 bytes from a 16-byte-aligned base,
+    else ``'cp.async'``),
     the padding column bf16 rows of odd width get (the cp.async route
     copies 4-byte pairs), the tiles (64 rows of one slice) and the
     persistent grid."""
@@ -340,10 +341,11 @@ class ProjectPlan:
 
 
 def plan_project(n: int, d: int, k: int, mxu_mode: str, sm_count: int, *,
-                 base_aligned: bool = True) -> ProjectPlan:
+                 base_aligned: bool = True, ldx: int = None) -> ProjectPlan:
     """The launch plan of ``rp_fused_project`` for an ``(n, d)`` batch to
-    ``k`` columns on a card of ``sm_count`` SMs (plain Python, the
-    wrapper's and the tests' single source of the plan)."""
+    ``k`` columns on a card of ``sm_count`` SMs, its rows ``ldx`` elements
+    apart (``None``: ``d``, contiguous) (plain Python, the wrapper's and
+    the tests' single source of the plan)."""
     if mxu_mode not in MXU_MODES:
         raise ValueError(f"unknown mxu_mode {mxu_mode!r}")
     if k <= 0 or k % 8 or d <= 0 or n < 0 or sm_count <= 0:
@@ -354,7 +356,8 @@ def plan_project(n: int, d: int, k: int, mxu_mode: str, sm_count: int, *,
     stages = min(MAX_STAGES, (SMEM_LIMIT - _SMEM_SLACK) // per_stage)
     item = _itemsize(mxu_mode)
     pad = 1 if item == 2 and d % 2 else 0
-    tma = base_aligned and (d * item) % 16 == 0
+    ldx = d if ldx is None else ldx
+    tma = base_aligned and (d * item) % 16 == 0 and (ldx * item) % 16 == 0
     tiles = -(-n // TILE_M) * slices
     return ProjectPlan(
         cta_n=cta_n, slices=slices, stages=stages,
@@ -423,8 +426,8 @@ def _lib():
         p, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                             ctypes.c_uint32)
         lib.rp_fused_project.argtypes = [
-            p, p, p, i64, i64, i64, i32, ctypes.c_float, i32, i32, i32, i32,
-            i32, p,
+            p, p, p, i64, i64, i64, i64, i32, ctypes.c_float, i32, i32, i32,
+            i32, i32, p,
         ]
         lib.rp_fused_project.restype = i32
         geometry = [i32, i32, i32, i32]  # block x, y, grid x, y
@@ -515,6 +518,14 @@ def rp_mask_cache(seed, n_components: int, n_features: int, density: float,
     return out
 
 
+def _row_strided(x) -> bool:
+    """True when ``x``'s rows are contiguous and do not overlap (a
+    contiguous tensor, or a column slice of one): what K1 reads in place."""
+    n, d = x.shape
+    unit = x.stride(1) == 1 or d <= 1
+    return unit and (n <= 1 or x.stride(0) >= d)
+
+
 def _fused_launch(x, seed, n_components: int, density: float, *,
                   block_offset: int, mxu_mode: str, mask=None, out=None):
     """``rp_fused_project``'s body; returns ``(y, plan)`` (the plan's
@@ -525,13 +536,14 @@ def _fused_launch(x, seed, n_components: int, density: float, *,
         raise ValueError("rp_fused_project takes a CUDA tensor")
     density = _validate_project(x, n_components, density, mxu_mode)
     want = torch.bfloat16 if mxu_mode == "bf16" else torch.float32
-    if x.dtype != want or not x.is_contiguous():
+    if x.dtype != want or not _row_strided(x):
         raise ValueError(
-            f"rp_fused_project needs a contiguous 2-D {want} tensor in mode "
-            f"{mxu_mode!r}, got {x.dtype} {tuple(x.shape)} "
-            f"contiguous={x.is_contiguous()}"
+            f"rp_fused_project needs a row-contiguous 2-D {want} tensor in "
+            f"mode {mxu_mode!r} (rows that do not overlap), got {x.dtype} "
+            f"{tuple(x.shape)} strides {x.stride()}"
         )
     n, d = x.shape
+    ldx = x.stride(0) if n > 1 else d
     if out is None:
         y = torch.empty((n, n_components), dtype=torch.float32, device=x.device)
     elif (out.shape != (n, n_components) or out.dtype != torch.float32
@@ -543,16 +555,18 @@ def _fused_launch(x, seed, n_components: int, density: float, *,
     else:
         y = out
     plan = plan_project(n, d, n_components, mxu_mode, _sm_count(x.device),
-                        base_aligned=x.data_ptr() % 16 == 0)
+                        base_aligned=x.data_ptr() % 16 == 0, ldx=ldx)
     if n == 0:
         return y, plan
-    if plan.pad_columns or x.data_ptr() % 4:
-        # bf16 rows of odd width (or a 2-byte-aligned view): a copy with a
-        # zero column, n·2 bytes of padding, so the cp.async route copies
-        # aligned 4-byte pairs; the zero column meets a zero mask column
-        # (d odd is never a multiple of 64, so d + 1 keeps the mask width)
+    if plan.pad_columns or x.data_ptr() % 4 or (mxu_mode == "bf16" and ldx % 2):
+        # bf16 rows of odd width or pitch (or a 2-byte-aligned view): a
+        # contiguous copy, with a zero column where d is odd (n·2 bytes of
+        # padding), so the cp.async route copies aligned 4-byte pairs; the
+        # zero column meets a zero mask column (d odd is never a multiple
+        # of 64, so d + 1 keeps the mask width)
         x = torch.nn.functional.pad(x, (0, plan.pad_columns))
-        plan = plan_project(n, x.shape[1], n_components, mxu_mode,
+        ldx = x.shape[1]
+        plan = plan_project(n, ldx, n_components, mxu_mode,
                             _sm_count(x.device))
     if mask is None:
         mask = rp_mask_cache(seed, n_components, d, density,
@@ -568,7 +582,7 @@ def _fused_launch(x, seed, n_components: int, density: float, *,
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.rp_fused_project(
-            x.data_ptr(), mask.data_ptr(), y.data_ptr(), n, x.shape[1],
+            x.data_ptr(), mask.data_ptr(), y.data_ptr(), n, x.shape[1], ldx,
             plan.mask_columns, n_components,
             1.0 / math.sqrt(density * n_components), _MODE_CODES[mxu_mode],
             plan.cta_n, plan.stages, int(plan.route == "tma"), plan.grid,
@@ -583,8 +597,10 @@ def rp_fused_project(x, seed, n_components: int, density: float, *,
                      block_offset: int = 0, mxu_mode: str = "split2",
                      mask=None, out=None):
     """Launch the fused kernel on ``x``'s card: the mask cache, then the
-    tensor-core product on ``plan_project``'s plan.  ``x``: contiguous CUDA
-    tensor, float32 (``'f32'``, ``'split2'``) or bfloat16 (``'bf16'``).
+    tensor-core product on ``plan_project``'s plan.  ``x``: a CUDA tensor,
+    float32 (``'f32'``, ``'split2'``) or bfloat16 (``'bf16'``), whose rows
+    are contiguous: a column shard of a wider batch (``X[:, lo:hi]``) is
+    read in place, the batch's row length passed as the rows' pitch.
     Returns ``(n, k)`` float32, written into ``out`` when it is given.
     ``mask``: a mask cache that ``rp_mask_cache`` already wrote for the same
     seed, k, d, density and block offset, shared by several launches (the
@@ -646,7 +662,8 @@ def _mode_input(x, mxu_mode: str):
 
 
 def fused_sparse_project(x, seed, n_components: int, density: float, *,
-                         block_offset: int = 0, mxu_mode: str = "f32"):
+                         block_offset: int = 0, mxu_mode: str = "f32",
+                         mask=None, out=None):
     """``Y = X @ R(seed)ᵀ`` with ``R`` regenerated in the kernel, never
     stored.  ``x`` is an ``(n, d)`` float tensor; it is cast to the mode's
     dtype (bfloat16 for ``'bf16'``, else float32).  ``n_components`` must
@@ -658,16 +675,29 @@ def fused_sparse_project(x, seed, n_components: int, density: float, *,
     ``'f32'`` (float32 products), ``'split2'`` (x split hi/lo bf16, two
     products, f32-grade output), ``'bf16'`` (x kept bfloat16, half the x
     bytes).  A CPU tensor is computed by ``fused_project``; a CUDA tensor
-    by the kernel; each validates its arguments as ``_fused_raw`` does.
+    by the kernel, which reads a column shard of a wider batch in place
+    (other layouts are copied first); each validates its arguments as
+    ``_fused_raw`` does.  ``out``: an ``(n, k)`` float32 tensor to write
+    into (a block of rows of a larger output).  ``mask``: on a card, a mask
+    cache ``rp_mask_cache`` wrote for the same seed, k, width, density and
+    block offset, shared by several calls (none is written then).
     """
     x = _mode_input(x, mxu_mode)
     if x.device.type == "cpu":
+        if mask is not None:
+            raise ValueError("a mask cache is the card's; the plain version "
+                             "regenerates its mask")
         y, path = fused_project(x, seed, n_components, density,
                                 block_offset=block_offset,
                                 mxu_mode=mxu_mode), "plain"
+        if out is not None:
+            y = out.copy_(y)
     elif x.device.type == "cuda":
-        y, plan = _fused_launch(x.contiguous(), seed, n_components, density,
-                                block_offset=block_offset, mxu_mode=mxu_mode)
+        if x.dim() == 2 and not _row_strided(x):
+            x = x.contiguous()
+        y, plan = _fused_launch(x, seed, n_components, density,
+                                block_offset=block_offset, mxu_mode=mxu_mode,
+                                mask=mask, out=out)
         path = plan.route
     else:
         raise ValueError(f"no fused kernel for device {x.device}")

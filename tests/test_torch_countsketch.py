@@ -174,8 +174,10 @@ def test_validation_and_the_card_default(monkeypatch):
 
     with pytest.raises(ValueError):
         CountSketch(0)
-    with pytest.raises(ValueError, match="ROADMAP A10"):
-        CountSketch(8, mesh=object())
+    # mesh= is ported (A10b, PR 14): a mesh that is not a parallel.Mesh is
+    # refused at fit, where the sketch resolves its devices
+    with pytest.raises(ValueError, match="parallel.Mesh"):
+        CountSketch(8, mesh=object()).fit_schema(2, 4)
     with pytest.raises(NotFittedError):
         CountSketch(8, backend_options=CPU).transform(np.ones((2, 4)))
     cs = CountSketch(8, random_state=0, backend_options=CPU).fit_schema(10, 16)

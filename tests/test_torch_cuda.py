@@ -1285,3 +1285,118 @@ def test_sharded_lsh_device_rung_at_full_coverage_is_exact(cuda):
     assert np.array_equal(d, want[0])
     assert np.array_equal(i, want[1].astype(np.int64))
     assert pk.LAUNCHES["rp_probe"] == 2 * 8 and pk.GRAPH_REPLAYS == 8
+
+
+# -- the projection half of the scale-out (PR 14) --------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["split2", "f32", "bf16"])
+def test_fused_kernel_at_a_feature_shard_offset(cuda, mode):
+    """K1 at config 3's feature-shard shape (d = 8,192 of 16,384 → 512,
+    block offsets 0 and 16) on 1,024 rows: a column view of the batch read
+    in place, within 1e-5·max|Y| of the plain version at the same offset."""
+    x = _x(1024, 16384, seed=5)
+    if mode == "bf16":
+        x = x.to(torch.bfloat16)
+    for j, offset in enumerate((0, 16)):
+        view = x[:, j * 8192:(j + 1) * 8192]
+        assert not view.is_contiguous()
+        y = fk.rp_fused_project(view, 0, 512, 1 / 128, block_offset=offset,
+                                mxu_mode=mode)
+        torch.cuda.synchronize()
+        want = fk.fused_project(view, 0, 512, 1 / 128, block_offset=offset,
+                                mxu_mode=mode)
+        err = (y - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (offset, err)
+
+
+@pytest.mark.parametrize("mode", ["split2", "bf16"])
+@pytest.mark.parametrize("c0,c1", [(512, 1536), (0, 1100), (3, 1027),
+                                   (1, 700)])
+def test_strided_x_equals_a_contiguous_copy(cuda, mode, c0, c1):
+    """A column slice read with the batch's row pitch (the TMA route where
+    the base and pitch are 16-byte aligned, cp.async elsewhere, bf16 of odd
+    alignment copied first) equals the kernel on a contiguous copy, bit
+    for bit."""
+    x = _x(257, 2048, seed=c0)
+    if mode == "bf16":
+        x = x.to(torch.bfloat16)
+    view = x[:, c0:c1]
+    got = fk.fused_sparse_project(view, 9, 64, 1 / 3, block_offset=1,
+                                  mxu_mode=mode)
+    want = fk.fused_sparse_project(view.contiguous(), 9, 64, 1 / 3,
+                                   block_offset=1, mxu_mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _card_mesh(cuda, shape):
+    from randomprojection_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape, devices=[cuda] * int(np.prod(list(shape.values()))))
+
+
+def test_lazy_dp_mesh_is_bit_exact_on_the_card(cuda):
+    """Lazy DP over 8 positions of the card: one K1 a row block, each
+    writing its rows of one output, one mask cache shared by all; equal to
+    one device bit for bit (K1's rows do not depend on their batch)."""
+    from randomprojection_tpu_torch import SparseRandomProjection
+
+    x = _x(4096, 2048, seed=6)
+    opts = {"materialization": "lazy"}
+    dp = SparseRandomProjection(64, random_state=2, backend_options={
+        **opts, "mesh": _card_mesh(cuda, {"data": 8})}).fit(x)
+    one = SparseRandomProjection(64, random_state=2,
+                                 backend_options=opts).fit(x)
+    want = one.transform(x)
+    fk.reset_launches()
+    got = dp.transform(x)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["rp_fused_project"] == 8
+    assert fk.LAUNCHES["rp_mask_cache"] == 1
+    assert torch.equal(got, want)
+
+
+def test_lazy_dp_tp_mesh_within_tolerance_on_the_card(cuda):
+    """Lazy DP×TP {data 4, feature 2} on the card: 8 K1 launches at block
+    offsets 0 and 2, one mask cache a feature shard, the two partials of a
+    row block added in order; within 1e-5·max|Y| of one device.  Dense and
+    split2 TP too."""
+    from randomprojection_tpu_torch import SparseRandomProjection
+
+    x = _x(4096, 2048, seed=7)
+    mesh = _card_mesh(cuda, {"data": 4, "feature": 2})
+    for opts in ({"materialization": "lazy"}, {}, {"precision": "split2"}):
+        tp = SparseRandomProjection(64, random_state=3, backend_options={
+            **opts, "mesh": mesh, "feature_axis": "feature"}).fit(x)
+        one = SparseRandomProjection(64, random_state=3,
+                                     backend_options=opts).fit(x)
+        fk.reset_launches()
+        got = tp.transform(x)
+        torch.cuda.synchronize()
+        if opts.get("materialization") == "lazy":
+            assert fk.LAUNCHES["rp_fused_project"] == 8
+            assert fk.LAUNCHES["rp_mask_cache"] == 2
+        else:
+            assert fk.LAUNCHES["rp_fused_project"] == 0
+        want = one.transform(x)
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (opts, err)
+
+
+def test_countsketch_mesh_on_the_card(cuda):
+    """CountSketch over 8 positions of the card, dense and CSR, within
+    rtol = atol = 2e-5 of one device."""
+    import scipy.sparse as sp
+
+    from randomprojection_tpu_torch import CountSketch
+
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(1001, 3000)).astype(np.float32)
+    X[np.abs(X) < 1.5] = 0.0
+    mesh = _card_mesh(cuda, {"data": 8})
+    for data in (X, sp.csr_array(X)):
+        m = CountSketch(64, random_state=0, mesh=mesh).fit(data)
+        one = CountSketch(64, random_state=0).fit(data)
+        np.testing.assert_allclose(m.transform(data), one.transform(data),
+                                   rtol=2e-5, atol=2e-5)

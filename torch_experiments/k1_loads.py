@@ -54,7 +54,7 @@ def _library(torch, build, src: Path, name: str) -> ctypes.CDLL:
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(out))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.rp_fused_project.argtypes = [p, p, p, i64, i64, i64, i32,
+    lib.rp_fused_project.argtypes = [p, p, p, i64, i64, i64, i64, i32,
                                      ctypes.c_float, i32, i32, i32, i32, i32, p]
     lib.rp_fused_project.restype = i32
     return lib
@@ -114,7 +114,7 @@ def main() -> int:
         for stages in sorted({2, 3, plan.stages}):
             def launch(name):
                 rc = libs[name].rp_fused_project(
-                    xin.data_ptr(), mask.data_ptr(), y.data_ptr(), N, D,
+                    xin.data_ptr(), mask.data_ptr(), y.data_ptr(), N, D, D,
                     plan.mask_columns, K, 1.0, fk._MODE_CODES[mode],
                     plan.cta_n, stages, 1, plan.grid, stream)
                 if rc:
