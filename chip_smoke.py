@@ -255,7 +255,11 @@ Phases (any failure exits non-zero and prints no result):
    ``CountSketch(256, mesh=make_mesh({"data": 8}, devices=[card] * 8))`` at
    config 5's shape (2^20 buckets, one 65,536-doc batch of 100 tokens from
    a 50,000-word vocabulary) within rtol = atol = 2e-5 of one device, each
-   shard's tokens within one doc's tokens of nnz/8.
+   shard's tokens within one doc's tokens of nnz/8;
+18. rplint over the checked-out port: ``python -m
+   randomprojection_tpu_torch lint --json --jobs 4`` as a subprocess must
+   exit 0 with ``ok`` true; its file count, suppressed findings and wall
+   (the linter's own ``wall_s`` beside the subprocess's) on one line.
 
 ``python3 chip_smoke.py --scale-out`` runs the build and phase 17 alone.
 
@@ -4118,6 +4122,26 @@ def phase_scale_out(torch, fk, scratch: Path) -> dict:
             "unshared_mask_ms": unshared_ms}
 
 
+def phase_lint() -> dict:
+    """Phase 18: the port's linter over the tree it was checked out with,
+    as a user runs it (host code: no card, no kernel)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "randomprojection_tpu_torch", "lint",
+         "--json", "--jobs", "4"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    process_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"lint exited {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    check(rec["ok"] is True and not rec["counts"],
+          f"lint findings: {rec['counts']}")
+    got = {"files": rec["files"], "suppressed": rec["suppressed"],
+           "wall_s": rec["wall_s"], "process_s": round(process_s, 3)}
+    log(f"lint: {json.dumps(got)}")
+    return got
+
+
 def _bound(bytes_s: float, ops_s: float) -> dict:
     return {
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -4267,6 +4291,7 @@ def main() -> int:
                 if got.get(name)}
         rows["rp_fused_project"]["tp_shard"] = scale_out["k1_shard"]
         rows["rp_fused_project"]["tp_rates"] = scale_out["rates"]
+        phase_lint()
         # the entry points whose runs launched each kernel
         for name in ("rp_fused_project", "rp_mask_cache"):
             rows[name]["paths"] = [

@@ -783,6 +783,7 @@ class LSHSimHashIndex(SimHashIndex):
                 hot_parts.append(b[self._to_device(local)])
             else:
                 cold_ids.append(cand[lo:hi])
+                # rplint: allow[RP09] — host gather of a host-resident cold chunk: host_view's .numpy() views a CPU tensor (or passes a memmap on), no device sync
                 cold_parts.append(host_view(b)[local])
         cand_hot = (np.concatenate(hot_ids) if hot_ids
                     else np.empty(0, cand.dtype))
@@ -1045,6 +1046,7 @@ class LSHSimHashIndex(SimHashIndex):
         for b, row0, n in cold:
             lo, hi = np.searchsorted(cold_ids, (row0, row0 + n))
             if hi > lo:
+                # rplint: allow[RP09] — host gather of a host-resident cold chunk: host_view's .numpy() views a CPU tensor (or passes a memmap on), no device sync
                 parts.append(host_view(b)[cold_ids[lo:hi] - row0])
         rows = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
         sync = False
@@ -1271,8 +1273,7 @@ class LSHSimHashIndex(SimHashIndex):
             if not active.any():
                 break
             t1 = time.perf_counter()
-            # the round's overflow verdict, merge and exit bound decide the
-            # next launch: this wait is the orchestration point
+            # rplint: allow[RP03] — host-orchestrated round: the round's overflow verdict, merge and exit bound decide whether and what the NEXT level launches, so this wait IS the orchestration point
             out = self._lsh_device_composite(
                 q_dev, self._to_device(masks[lo:hi].astype(np.int32)[None, :]),
                 self._to_device(active.astype(np.int32)[None, :]), m_eff,

@@ -22,6 +22,8 @@ The counterpart of ``randomprojection_tpu/cli.py``:
 - ``doctor``        the critical-path report of a telemetry JSONL file
                     (alias ``report``), a flight-recorder postmortem
                     (``--postmortem``) or a live endpoint (``--live``)
+- ``lint``          rplint (``analysis/``) over the package: exit 0
+                    clean, 1 findings, 2 internal error
 
 ``--backend auto`` (the default) is the torch backend on ``--device``
 (default ``cuda``): with no card the command exits naming it and never
@@ -29,7 +31,7 @@ carries on on the CPU; ``--device cpu`` asks for the CPU (for ``bench``
 that runs the kernels' plain versions, every timing flagged suspect).
 The live plane's flags (``--openmetrics``, ``--metrics-port``,
 ``--health``, ``--flight-dump``) run as the reference's do.  ``lint`` is
-registered and refuses, naming its ROADMAP item.  ``topk-bench --shards``
+host code and takes no ``--device``.  ``topk-bench --shards``
 and ``loadgen`` serve the sharded tier (``ShardedSimHashIndex`` groups
 behind ``ShardedTopKServer``), every shard on ``--device``.
 ``--debug-nans`` and ``--disable-jit`` set JAX
@@ -48,8 +50,6 @@ import sys
 
 import numpy as np
 
-#: later-slice subcommands: registered, they refuse naming their item
-_LATER_COMMANDS = {"lint": "ROADMAP A14 (rplint)"}
 #: the reference's jax.config switches: no counterpart in torch
 _JAX_FLAGS = ("debug_nans", "disable_jit")
 #: the reference's TPU kernel switches: no counterpart on the card
@@ -492,10 +492,60 @@ def build_parser():
                         "(the kernels' plain versions)")
     _add_observability(q)
 
-    for name, item in _LATER_COMMANDS.items():
-        # their arguments are not parsed: the command refuses whatever
-        # follows it (main)
-        sub.add_parser(name, help=f"not ported yet ({item})")
+    q = sub.add_parser(
+        "lint",
+        help="rplint: AST + flow-sensitive invariant checks "
+             "(rules RP01-RP14)",
+        description="Run the port's static-analysis pass "
+                    "(randomprojection_tpu_torch/analysis/rplint.py) over "
+                    "the installed package: span balance, telemetry.EVENTS "
+                    "registry drift, host syncs in hot-path loops "
+                    "(syntactic AND one call deep, torch's .item()/"
+                    ".tolist()/.cpu()/.numpy()/.synchronize() included), "
+                    "thread/queue hygiene and flow-sensitive shutdown "
+                    "protocol, ops/ determinism (torch's global RNG "
+                    "included), silently-swallowed exceptions, the "
+                    "asynchronous-copy discipline (non_blocking copies "
+                    "ordered by CUDA events, StagedBatch waits, d2h "
+                    "buffers synchronized before they are read), "
+                    "cross-thread shared-state races, lock-order "
+                    "deadlock analysis, resource-lifecycle pairing, "
+                    "durable-commit discipline, and degraded-path "
+                    "contracts.  Exit codes: 0 = no unsuppressed "
+                    "finding (none outside the baseline when one is "
+                    "given), 1 = findings, 2 = internal error "
+                    "(unreadable target, malformed baseline, analysis "
+                    "crash) — a partial run never reports success.  "
+                    "Findings are suppressed per line by an inline "
+                    "`# rplint: allow[RPxx] — reason` pragma.  Pure "
+                    "stdlib AST analysis: never imports or executes the "
+                    "code it checks, and needs no card.",
+    )
+    q.add_argument("paths", nargs="*", metavar="PATH",
+                   help="specific files to lint (default: the whole "
+                        "package plus the registry drift check)")
+    q.add_argument("--json", action="store_true",
+                   help="emit the stable findings record as one JSON "
+                        "object: rplint version, per-finding rule id / "
+                        "path / line / message / severity / pragma "
+                        "state, counts, unresolvable-emit tally")
+    q.add_argument("--baseline", default=None, metavar="JSON",
+                   help="a prior `lint --json` record: fail only on "
+                        "findings NOT in it (matched on rule+path+"
+                        "message, so line drift never re-flags a "
+                        "baselined finding)")
+    q.add_argument("--update-baseline", action="store_true",
+                   help="rewrite the --baseline file in place from the "
+                        "fresh lint record (prunes stale entries, "
+                        "accepts current findings; exit 0)")
+    q.add_argument("--sarif", default=None, metavar="PATH",
+                   help="also write the findings as a SARIF 2.1.0 log "
+                        "to PATH so CI and editors can annotate them "
+                        "inline")
+    q.add_argument("--jobs", type=int, default=None, metavar="N",
+                   help="lint files across N worker processes (default: "
+                        "min(8, cpu count); 1 = serial). Findings stay "
+                        "in deterministic path order either way")
     return p
 
 
@@ -1094,6 +1144,7 @@ def cmd_topk_bench(args):
     direct_qps = len(requests) * args.request_rows / direct_elapsed
 
     def measure_server(server, warmed=lambda: None):
+        threads = []
         try:
             server.query(requests[0])  # warm the coalesced bucket
             warmed()
@@ -1117,6 +1168,11 @@ def cmd_topk_bench(args):
             elapsed = time.perf_counter() - t0
         finally:
             server.close()
+            # a start() or join() that raised leaves started clients
+            # behind: the closed server answers them, and they are joined
+            for t in threads:
+                if t.ident is not None:
+                    t.join()
         return len(requests) * args.request_rows / elapsed, server.stats()
 
     server_qps, server_stats = measure_server(TopKServer(
@@ -1508,10 +1564,25 @@ def cmd_loadgen(args):
     print(json.dumps(record))
 
 
-def _cmd_later(args):
-    raise SystemExit(
-        f"'{args.cmd}' is not ported yet ({_LATER_COMMANDS[args.cmd]})"
-    )
+def cmd_lint(args):
+    """rplint over the package (or explicit paths); returns the exit
+    code — 0 clean, 1 on unsuppressed (non-baselined) findings, 2 on an
+    internal error — so a crashed partial run is never mistaken for a
+    clean tree."""
+    from randomprojection_tpu_torch.analysis import rplint
+
+    argv = list(args.paths)
+    if args.json:
+        argv.append("--json")
+    if args.baseline is not None:
+        argv += ["--baseline", args.baseline]
+    if args.update_baseline:
+        argv.append("--update-baseline")
+    if args.sarif is not None:
+        argv += ["--sarif", args.sarif]
+    if args.jobs is not None:
+        argv += ["--jobs", str(args.jobs)]
+    return rplint.main(argv)
 
 
 def _refuse_flags(args) -> None:
@@ -1538,8 +1609,6 @@ def _refuse_flags(args) -> None:
 def main(argv=None):
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
-    if args.cmd in _LATER_COMMANDS:
-        return _cmd_later(args)
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.cmd == "bench" and args.transform_dma == "auto":
@@ -1670,6 +1739,7 @@ def _run_with_planes(args):
             "recover": cmd_recover,
             "doctor": cmd_doctor,
             "report": cmd_doctor,  # alias
+            "lint": cmd_lint,
         }[args.cmd](args)
         # for commands that wrote no exposition of their own (bench)
         _write_openmetrics(args)

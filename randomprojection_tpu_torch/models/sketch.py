@@ -334,6 +334,7 @@ class SimHashIndex:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cpu":
             return t.clone()
+        # rplint: allow[RP07] — stream order is the wait: the copy is queued on the current stream, every reader of the tensor runs on that stream behind it, and the host allocator keeps the pinned source until the copy has run
         return t.pin_memory().to(device, non_blocking=True)
 
     def _chunk_device(self, chunk):
@@ -897,7 +898,8 @@ class TopKServer:
         # set+sentinel, so every accepted request is queued ahead of the
         # sentinel and served by the drain
         self._submit_lock = threading.Lock()
-        # dispatcher-thread-private tallies, read by stats()
+        # dispatcher-thread-private tallies, read by stats() without the
+        # lock: a snapshot whose fields may be one batch apart
         self._batches = 0
         self._requests = 0
         self._queries = 0
@@ -927,8 +929,7 @@ class TopKServer:
             if self._closed.is_set():
                 return
             self._closed.set()
-            # never blocks: submit() keeps at most max_pending requests
-            # queued under this lock, so the sentinel's slot is free
+            # rplint: allow[RP11] — never blocks by construction: the queue is sized max_pending + 1 and submit() bounds occupancy to max_pending under this same lock, so the sentinel's extra slot is always free
             self._q.put(self._SENTINEL)
         if self._thread is not None:
             self._thread.join()
@@ -980,6 +981,7 @@ class TopKServer:
         """Served batches/requests/queries, the mean rows per coalesced
         dispatch and (once a request has completed) the enqueue→complete
         latency quantiles."""
+        # rplint: allow[RP10] — dispatcher-private monotone int tallies: rebinds are GIL-atomic and stats() is a best-effort snapshot (cross-field staleness acceptable by contract, see the __init__ comment)
         b, r, q = self._batches, self._requests, self._queries
         out = {
             "batches": b,

@@ -515,6 +515,7 @@ class _GraphedTile:
         behind this replay from seeing the next one)."""
         global GRAPH_REPLAYS
         for buf, src in zip(self.inputs, (q, masks, active)):
+            # rplint: allow[RP07] — stream order is the wait: the copy into the graph's input buffer and the replay that reads it are queued on the same stream
             buf.copy_(src, non_blocking=True)
         self.graph.replay()
         credit_launches(launch_counters(), self.launches)
@@ -545,6 +546,7 @@ def capture_tile(q, masks, active, indptr, ids, dead_full, chunks, m: int, *,
         inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
                        for t in (q, masks, active))
         for buf, src in zip(inputs, (q, masks, active)):
+            # rplint: allow[RP07] — stream order is the wait: the copy into the graph's input buffer and the warm-up and capture that read it are queued on the same stream
             buf.copy_(src, non_blocking=True)
         warmup = device_probe_topk(*inputs, *rest, m, cap=cap,
                                    band_bits=band_bits)

@@ -463,6 +463,7 @@ def stage_rows(rows, *, device, pad_to: Optional[int] = None):
     from randomprojection_tpu_torch.ops.staging import stage_upload
 
     staged = stage_upload(bounce, device)
+    # rplint: allow[RP07] — the tensor leaves with its event, unwaited by design: the caller's wait_staged() orders its stream behind the copy before the kernel that reads the rows
     return staged.tensor, staged.event
 
 

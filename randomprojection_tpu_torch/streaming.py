@@ -905,38 +905,33 @@ def stream_transform(
 
     pending: list = []  # [(start_row, n_rows, _HostFetch, in_nbytes, root)]
 
-    def emit(entry):
-        # Yield the batch FIRST; advance/save the cursor (and count the
-        # commit) only after control returns from the yield — i.e. after
-        # the consumer's loop body has completed for this batch.
-        # Committing before the yield would let a crash inside the
-        # consumer silently drop the batch's row range on resume.
-        start_row, n_rows, fetch, in_nbytes, root = entry
+    def emit():
+        # Yield the oldest pending batch FIRST; advance/save the cursor
+        # (and count the commit) only after control returns from the
+        # yield — i.e. after the consumer's loop body has completed for
+        # this batch.  Committing before the yield would let a crash
+        # inside the consumer silently drop the batch's row range on
+        # resume.  The entry leaves ``pending`` only once committed: a
+        # break or a fault leaves it there for the stream's ``finally``,
+        # which abandons its root after the source's threads are joined.
+        start_row, n_rows, fetch, in_nbytes, root = pending[0]
         # re-activate the batch's trace root (created on whichever thread
         # produced the batch) so the d2h span joins its trace
         with telemetry.activate_span(root), \
                 annotate("rp:stream/fetch_d2h"), _stage(stats, "d2h"):
             y = fetch.result(out_dtype)
-        committed = False
-        try:
-            yield start_row, y
-            cursor.rows_done = start_row + n_rows
-            if checkpoint_path is not None:
-                cursor.save(checkpoint_path)
-            with telemetry.activate_span(root):
-                # commit inside the trace so stream.commit correlates
-                if stats is not None:
-                    stats.on_commit(start_row, in_nbytes, y)
-            # the batch's trace ends at commit: production → dispatch →
-            # d2h → consumer ack, one root span per batch
-            telemetry.end_span(root, row=int(start_row), rows=int(n_rows))
-            committed = True
-        finally:
-            if not committed:
-                # consumer broke/crashed mid-yield (or the commit write
-                # failed): close the trace as abandoned.  The CURSOR stays
-                # put by design: resume recomputes this batch.
-                telemetry.end_span(root, row=int(start_row), abandoned=True)
+        yield start_row, y
+        cursor.rows_done = start_row + n_rows
+        if checkpoint_path is not None:
+            cursor.save(checkpoint_path)
+        with telemetry.activate_span(root):
+            # commit inside the trace so stream.commit correlates
+            if stats is not None:
+                stats.on_commit(start_row, in_nbytes, y)
+        # the batch's trace ends at commit: production → dispatch → d2h →
+        # consumer ack, one root span per batch
+        telemetry.end_span(root, row=int(start_row), rows=int(n_rows))
+        pending.pop(0)
 
     batches = iter_traced(source, cursor.rows_done)
     try:
@@ -971,21 +966,25 @@ def stream_transform(
                 pending.append((start_row, n_rows, _HostFetch(y),
                                 batch_nbytes(batch), root))
             if len(pending) >= pipeline_depth:
-                yield from emit(pending.pop(0))
+                yield from emit()
         while pending:
-            yield from emit(pending.pop(0))
+            yield from emit()
     finally:
-        # abandoned mid-flight (break or exception): close the traces of
-        # batches that were dispatched but never reached the consumer —
-        # their work is recomputed on resume
-        for entry in pending:
-            telemetry.end_span(entry[4], row=int(entry[0]), abandoned=True)
-        # deterministic producer shutdown: an ingest source's worker
-        # threads are stopped and joined even when the consumer abandons
-        # the stream mid-flight (break or exception)
-        close = getattr(batches, "close", None)
-        if close is not None:
-            close()
+        try:
+            # deterministic producer shutdown: an ingest source's worker
+            # threads are stopped and joined even when the consumer
+            # abandons the stream mid-flight (break or exception).  This
+            # comes FIRST: a producer's child span of a batch (its
+            # ``enqueue_wait``) may still be open after the hand-off, and
+            # it must end before the batch's root does
+            batches.close()
+        finally:
+            # abandoned mid-flight: close the traces of batches that were
+            # dispatched but never committed — their work is recomputed
+            # on resume
+            for entry in pending:
+                telemetry.end_span(entry[4], row=int(entry[0]),
+                                   abandoned=True)
 
 
 def stream_to_memmap(

@@ -47,7 +47,10 @@ HEALTH_VERDICT_EVENTS = (
 # event names that mark a degraded execution path; the audit reports a
 # count for each even when zero, so "nothing degraded" is an explicit
 # statement, not an absence.  Names come from the central registry
-# (telemetry.EVENTS).
+# (telemetry.EVENTS).  The doctor keeps the reference's watch list, so it
+# reads a reference JSONL the same way; the port itself never emits the
+# kernel-ladder events in it.
+# rplint: allow[RP14] — the port never emits the reference's kernel-ladder events (ROADMAP standing divergences "No VMEM-OOM ladders" and "No scan or dense route on a card index"); the doctor keeps watching them for reference logs
 DEGRADED_EVENTS = (
     EVENTS.BACKEND_VMEM_OOM_RETRY,
     EVENTS.KERNEL_DMA_FALLBACK,

@@ -10,8 +10,9 @@ one-shot output and refuses a changed fingerprint; ``stream-bench
 --device cpu`` prints the reference's JSON keys and runs under each
 live-plane flag; the ops planes' subcommands run on the CPU, and
 ``topk-bench``/``loadgen`` serve shards and replicas through the sharded
-tier; the JAX-only flags and ``lint`` exit non-zero naming why;
-with no card and no ``--device cpu`` a command exits naming the card; ``bench
+tier; the JAX-only flags exit non-zero naming why; ``lint`` (ROADMAP
+A14) runs rplint: exit 0 on the tree, 1 on a seeded file; with no card
+and no ``--device cpu`` a command exits naming the card; ``bench
 --device cpu`` at toy shapes ends with the compact line the reference
 reads, and refuses ``--transform-dma`` but ``auto``.
 """
@@ -191,10 +192,20 @@ def test_live_plane_flags_run_on_the_cpu(capsys, tmp_path, monkeypatch, flag):
 
 
 @pytest.mark.parametrize("cmd,item", [("lint", "A14")])
-def test_later_subcommands_refuse_naming_their_item(cmd, item):
-    with pytest.raises(SystemExit) as info:
-        cli.main([*cmd.split(), "--device", "cpu", "--index-codes", "64"])
-    assert item in str(info.value.code) and "not ported" in str(info.value.code)
+def test_later_subcommands_refuse_naming_their_item(cmd, item, tmp_path,
+                                                    capsys):
+    """No subcommand refuses any more: ``lint``, the last one (ROADMAP
+    item A14), runs rplint over the tree (exit 0) and over a seeded file
+    (exit 1), host code with no ``--device``."""
+    assert cli.main([cmd, "--jobs", "2"]) == 0
+    assert "rplint: clean" in capsys.readouterr().out
+    seeded = tmp_path / "seeded.py"
+    seeded.write_text("import threading\n"
+                      "t = threading.Thread(target=print)\n")
+    assert cli.main([cmd, str(seeded)]) == 1
+    assert "RP04" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        cli.main([cmd, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("cmd", [
@@ -301,10 +312,12 @@ def test_module_entry_point_runs():
     assert r.returncode == 0, r.stderr
     assert int(r.stdout) > 0
     r = subprocess.run(
-        [sys.executable, "-m", "randomprojection_tpu_torch", "lint"],
+        [sys.executable, "-m", "randomprojection_tpu_torch", "lint",
+         "--jobs", "2"],
         capture_output=True, text=True, cwd=REPO, timeout=120,
     )
-    assert r.returncode == 1 and "A14" in r.stderr
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.startswith("rplint: clean — ")
 
 
 @pytest.fixture

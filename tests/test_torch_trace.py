@@ -13,7 +13,9 @@ every sparse format, and ``StreamStats.summary()`` has the reference's
 keys.
 """
 
+import contextlib
 import json
+import time
 
 import numpy as np
 import pytest
@@ -111,6 +113,43 @@ def test_every_span_closes_and_the_reference_reads_it(X, sink, kind, outcome,
         if r["trace_id"] in by_trace:
             assert end["row"] == by_trace[r["trace_id"]]["row"]
             assert not end.get("abandoned")
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+@pytest.mark.parametrize("kind", ["prefetch", "staged"])
+def test_a_held_producer_span_ends_before_its_abandoned_root(
+        X, sink, kind, backend, monkeypatch):
+    """A producer that keeps its ``enqueue_wait`` span open after the
+    hand-off (here for 0.2 s, long past the consumer's break) must still
+    end it before the stream ends the batch's root as abandoned: the
+    stream stops and joins its source before it abandons the roots."""
+    held = telemetry.span
+
+    @contextlib.contextmanager
+    def hold_enqueue_wait(name, **kw):
+        with held(name, **kw) as s:
+            yield s
+            if name == "enqueue_wait":
+                time.sleep(0.2)
+
+    monkeypatch.setattr(telemetry, "span", hold_enqueue_wait)
+    est = GaussianRandomProjection(
+        8, random_state=0, backend=backend,
+        backend_options=CPU if backend == "torch" else None).fit(X)
+    _run(kind, "break", X, est, obs.StreamStats())
+    telemetry.shutdown()
+    events = list(read_events(sink))
+    starts = {e["span_id"]: e for e in events if e["event"] == "span_start"}
+    roots = [e for e in starts.values() if e["parent_id"] is None]
+    end_at = {e["span_id"]: i for i, e in enumerate(events)
+              if e["event"] == "span_end"}
+    assert any(e["name"] == "enqueue_wait" for e in starts.values())
+    for s in starts.values():
+        if s["parent_id"] is not None:
+            assert end_at[s["span_id"]] < end_at[s["parent_id"]], s["name"]
+    tr = build_report(sink)["traces"]
+    assert tr["batches"] + tr["incomplete"] + tr["empty"] == len(roots)
+    assert tr["batches"] == 3 and tr["incomplete"] >= 1
 
 
 def test_children_parent_to_batch_roots_across_threads(X, sink):
