@@ -577,24 +577,28 @@ class TorchBackend(ProjectionBackend):
         return y.to(x.dtype)
 
     def _transform_impl(self, X, state, spec: ProjectionSpec):
-        x, device_resident = self._prepare_rows(
-            X, allow_bf16=spec.dtype == "bfloat16"
-        )
-        telemetry.registry().counter_inc("backend.dispatches")
-        if telemetry.enabled():
-            # inside a streamed transform the dispatch stage span is
-            # active on this thread, so the record joins its batch trace
-            telemetry.emit(
-                telemetry.EVENTS.BACKEND_DISPATCH, kind=spec.kind,
-                rows=int(x.shape[0]), n_features=spec.n_features,
-                n_components=spec.n_components,
-                device_resident=bool(device_resident),
-                **telemetry.trace_fields(),
-            )
+        """One batch's dispatch, the span ``rp:backend/dispatch`` when
+        traced (``rp:backend/prepare`` and ``rp:backend/project`` inside
+        it)."""
         from randomprojection_tpu_torch.utils.observability import annotate
 
-        with annotate("rp:backend/project"):
-            return self._project(x, state, spec), device_resident
+        with annotate("rp:backend/dispatch"):
+            x, device_resident = self._prepare_rows(
+                X, allow_bf16=spec.dtype == "bfloat16"
+            )
+            telemetry.registry().counter_inc("backend.dispatches")
+            if telemetry.enabled():
+                # inside a streamed transform the dispatch stage span is
+                # active on this thread, so the record joins its batch trace
+                telemetry.emit(
+                    telemetry.EVENTS.BACKEND_DISPATCH, kind=spec.kind,
+                    rows=int(x.shape[0]), n_features=spec.n_features,
+                    n_components=spec.n_components,
+                    device_resident=bool(device_resident),
+                    **telemetry.trace_fields(),
+                )
+            with annotate("rp:backend/project"):
+                return self._project(x, state, spec), device_resident
 
     def transform(self, X, state, spec: ProjectionSpec, *, dense_output: bool = True):
         """A tensor in gives a tensor out, on the input's device (a

@@ -22,8 +22,10 @@ seeded ``np.random.default_rng`` draws gaps, sizes and labels), pinned by
 Future.  If the one submitting thread falls behind the schedule by more
 than 0.25 s (``max_lag_s``) the record is flagged ``open_loop_suspect``.
 Backpressure rejects (``RuntimeError`` from ``submit``) are counted per
-label.  Latency is stamped submit to completion through
-``Future.add_done_callback``, so the quantiles are exact order statistics.
+label.  Latency runs from each request's due time (the run's start plus
+its schedule time, so a late submitter counts against the requests it
+delays) to completion through ``Future.add_done_callback``, so the
+quantiles are exact order statistics.
 """
 
 from __future__ import annotations
@@ -237,7 +239,9 @@ def run(server, schedule, *, code_bytes: int, seed: int = 0,
             max_lag = max(max_lag, -delay)
         codes = pool[offset:offset + req.rows]
         offset += req.rows
-        t_sub = time.perf_counter()
+        # latency runs from the request's due time, so a late submitter
+        # counts against the requests it delays
+        t_due = t0 + req.t
         try:
             fut = server.submit(codes, label=req.label)
         except RuntimeError:
@@ -249,9 +253,9 @@ def run(server, schedule, *, code_bytes: int, seed: int = 0,
                 )
             continue
 
-        def _on_done(f, label=req.label, rows=req.rows, t_sub=t_sub):
+        def _on_done(f, label=req.label, rows=req.rows, t_due=t_due):
             nonlocal errors, done_count
-            lat = time.perf_counter() - t_sub
+            lat = time.perf_counter() - t_due
             # f is already done when the callback runs, so f.exception()
             # below cannot block under the lock
             with done_lock:

@@ -56,6 +56,12 @@ from randomprojection_tpu_torch.parallel.sharded import (
 # behind it on a card; .result(None) waits for that copy alone
 from randomprojection_tpu_torch.streaming import _HostFetch
 from randomprojection_tpu_torch.utils import telemetry
+from randomprojection_tpu_torch.utils.observability import (
+    annotate,
+    perf_offset_ns,
+    record_span,
+    recording,
+)
 from randomprojection_tpu_torch.utils.telemetry import EVENTS
 from randomprojection_tpu_torch.utils.validation import NotFittedError, check_array
 
@@ -646,42 +652,45 @@ class SimHashIndex:
         top-k kernel once per chunk (its two passes); the chunks' ``m``
         candidates per query merge on the host.  On a card ``m_eff`` is
         at most ``topk_kernels.MAX_M`` (a ``ValueError`` past it); a CPU
-        index serves any ``m`` with the kernel's plain version."""
-        if not isinstance(m, numbers.Integral) or m <= 0:
-            raise ValueError(f"m must be a positive int, got {m!r}")
-        A = self._check_queries(A)
-        if self.n_codes == 0:
-            raise ValueError("query_topk on an empty index")
-        if self.n_live == 0:
-            raise ValueError(
-                "query_topk on an index whose codes are all deleted "
-                "(tombstoned); compact() or add() live codes first"
-            )
-        # m_eff counts LIVE codes only: tombstoned rows never win, and the
-        # result width never includes sentinel filler
-        m_eff = int(min(m, self.n_live))
-        self._check_m(m_eff)
-        nq = A.shape[0]
-        out_d = np.empty((nq, m_eff), dtype=np.int32)
-        out_i = np.empty((nq, m_eff), dtype=np.int32)
-        # tiles finish one behind: tile i's copy to the host and its merge
-        # ride under tile i+1's kernels
-        pending: list = []
+        index serves any ``m`` with the kernel's plain version.  Traced,
+        a call is the span ``rp:index/query_topk``."""
+        with annotate("rp:index/query_topk"):
+            if not isinstance(m, numbers.Integral) or m <= 0:
+                raise ValueError(f"m must be a positive int, got {m!r}")
+            A = self._check_queries(A)
+            if self.n_codes == 0:
+                raise ValueError("query_topk on an empty index")
+            if self.n_live == 0:
+                raise ValueError(
+                    "query_topk on an index whose codes are all deleted "
+                    "(tombstoned); compact() or add() live codes first"
+                )
+            # m_eff counts LIVE codes only: tombstoned rows never win, and
+            # the result width never includes sentinel filler
+            m_eff = int(min(m, self.n_live))
+            self._check_m(m_eff)
+            nq = A.shape[0]
+            out_d = np.empty((nq, m_eff), dtype=np.int32)
+            out_i = np.empty((nq, m_eff), dtype=np.int32)
+            # tiles finish one behind: tile i's copy to the host and its
+            # merge ride under tile i+1's kernels
+            pending: list = []
 
-        def finish(entry):
-            lo, hi, handles = entry
-            out_d[lo:hi], out_i[lo:hi] = self._topk_finish_tile(handles, m_eff)
+            def finish(entry):
+                lo, hi, handles = entry
+                out_d[lo:hi], out_i[lo:hi] = self._topk_finish_tile(
+                    handles, m_eff)
 
-        for lo in range(0, nq, tile):
-            hi = min(lo + tile, nq)
-            pending.append(
-                (lo, hi, self._topk_dispatch_tile(A[lo:hi], m_eff))
-            )
-            if len(pending) >= 2:
+            for lo in range(0, nq, tile):
+                hi = min(lo + tile, nq)
+                pending.append(
+                    (lo, hi, self._topk_dispatch_tile(A[lo:hi], m_eff))
+                )
+                if len(pending) >= 2:
+                    finish(pending.pop(0))
+            while pending:
                 finish(pending.pop(0))
-        while pending:
-            finish(pending.pop(0))
-        return out_d, out_i
+            return out_d, out_i
 
     def _check_m(self, m_eff: int) -> None:
         """A card index serves ``m`` up to the kernel's ``MAX_M``; past it
@@ -699,57 +708,66 @@ class SimHashIndex:
     def _topk_dispatch_tile(self, a_np, m_eff: int) -> list:
         """Dispatch one query tile against every resident chunk and start
         each result's copy to the host; returns the per-chunk
-        ``(dist, idx)`` fetches for ``_topk_finish_tile``."""
-        a_on = self._on_chunk_devices(a_np)
-        stager = None
-        if self._tier is not None and self._tier.any_cold():
-            from randomprojection_tpu_torch.tiering import _TileStager
+        ``(dist, idx)`` fetches for ``_topk_finish_tile``.  Traced: the
+        span ``rp:index/dispatch_tile``."""
+        with annotate("rp:index/dispatch_tile"):
+            a_on = self._on_chunk_devices(a_np)
+            stager = None
+            if self._tier is not None and self._tier.any_cold():
+                from randomprojection_tpu_torch.tiering import _TileStager
 
-            stager = _TileStager(self._chunks, self._tier, self._sync_upload)
-        handles = []
-        for ci, c in enumerate(self._chunks):
-            # the stager hands back a cold chunk's staged copy (its upload
-            # started under the previous chunk's kernel) and starts the
-            # next cold chunk's upload before this kernel is launched
-            b = stager.resolve(ci) if stager is not None else None
-            d, i = self._chunk_topk(a_on[self._chunk_device(c)], c,
-                                    int(min(m_eff, c.n)), b=b)
-            handles.append((_HostFetch(d), _HostFetch(i)))
-        if stager is not None:
-            stager.finish()
-        telemetry.registry().counter_inc(
-            "simhash.chunk_dispatches", len(self._chunks)
-        )
-        if telemetry.enabled():
-            telemetry.emit(
-                EVENTS.SIMHASH_TOPK_TILE, queries=int(a_np.shape[0]),
-                m=int(m_eff), chunks=len(self._chunks), n_codes=self.n_codes,
-                **telemetry.trace_fields(),
+                stager = _TileStager(self._chunks, self._tier,
+                                     self._sync_upload)
+            handles = []
+            for ci, c in enumerate(self._chunks):
+                # the stager hands back a cold chunk's staged copy (its
+                # upload started under the previous chunk's kernel) and
+                # starts the next cold chunk's upload before this kernel is
+                # launched
+                b = stager.resolve(ci) if stager is not None else None
+                d, i = self._chunk_topk(a_on[self._chunk_device(c)], c,
+                                        int(min(m_eff, c.n)), b=b)
+                handles.append((_HostFetch(d), _HostFetch(i)))
+            if stager is not None:
+                stager.finish()
+            telemetry.registry().counter_inc(
+                "simhash.chunk_dispatches", len(self._chunks)
             )
-        return handles
+            if telemetry.enabled():
+                telemetry.emit(
+                    EVENTS.SIMHASH_TOPK_TILE, queries=int(a_np.shape[0]),
+                    m=int(m_eff), chunks=len(self._chunks),
+                    n_codes=self.n_codes,
+                    **telemetry.trace_fields(),
+                )
+            return handles
 
     def _topk_finish_tile(self, handles: list, m_eff: int):
         """Wait for one tile's per-chunk candidates and merge them across
         chunks under the (distance, lower-id) total order.  Returns
-        ``(dist, idx)`` host arrays, each ``(tile_rows, m_eff)`` int32."""
-        # distances fit 25 bits and ids int32, so (dist << shift) | id is
-        # an exact int64 total-order key
-        shift = max(self.n_codes.bit_length(), 1)
-        cand_d, cand_i = [], []
-        for c, (d, i) in zip(self._chunks, handles):
-            cand_d.append(d.result(None))
-            cand_i.append(i.result(None).astype(np.int64) + c.row0)
-        d = np.concatenate(cand_d, axis=1)
-        i = np.concatenate(cand_i, axis=1)
-        # clamp sentinel ids (empty slots carry id 2^31-1) so they cannot
-        # bleed into the dist bits of the key; their sentinel dist
-        # already orders them last
-        key = (d.astype(np.int64) << shift) | np.minimum(i, (1 << shift) - 1)
-        sel = np.argsort(key, axis=1, kind="stable")[:, :m_eff]
-        return (
-            np.take_along_axis(d, sel, axis=1),
-            np.take_along_axis(i, sel, axis=1).astype(np.int32),
-        )
+        ``(dist, idx)`` host arrays, each ``(tile_rows, m_eff)`` int32.
+        Traced: the host's wait for the card is ``rp:index/wait_tile``,
+        the merge ``rp:index/merge_tile``."""
+        with annotate("rp:index/wait_tile"):
+            got = [(d.result(None), i.result(None)) for d, i in handles]
+        with annotate("rp:index/merge_tile"):
+            # distances fit 25 bits and ids int32, so (dist << shift) | id
+            # is an exact int64 total-order key
+            shift = max(self.n_codes.bit_length(), 1)
+            d = np.concatenate([d for d, _i in got], axis=1)
+            i = np.concatenate([i.astype(np.int64) + c.row0
+                                for c, (_d, i) in zip(self._chunks, got)],
+                               axis=1)
+            # clamp sentinel ids (empty slots carry id 2^31-1) so they
+            # cannot bleed into the dist bits of the key; their sentinel
+            # dist already orders them last
+            key = (d.astype(np.int64) << shift) | np.minimum(
+                i, (1 << shift) - 1)
+            sel = np.argsort(key, axis=1, kind="stable")[:, :m_eff]
+            return (
+                np.take_along_axis(d, sel, axis=1),
+                np.take_along_axis(i, sel, axis=1).astype(np.int32),
+            )
 
     def _sync_upload(self, b):
         """The degraded rung of a staged upload: a cold binding uploaded on
@@ -1044,76 +1062,83 @@ class TopKServer:
 
     def _serve_group(self, batch, probes: Optional[int]) -> None:
         """One coalesced ``query_topk`` for one probe class; unlabelled
-        traffic (``probes=None``) keeps the index's own default."""
-        arr = (
-            batch[0][0]
-            if len(batch) == 1
-            else np.concatenate([req[0] for req in batch], axis=0)
-        )
-        n = arr.shape[0]
-        # bucket-pad the rows so the kernel sees a few plan shapes, not
-        # one per traffic mix (pad rows are scored and dropped)
-        pad_to = row_bucket(n)
-        if pad_to != n:
-            arr = np.pad(arr, ((0, pad_to - n), (0, 0)))
-        index = self._pick_index()
-        t0 = time.perf_counter()
-        kw = {} if probes is None else {"probes": probes}
-        try:
-            d, i = index.query_topk(arr, self.m, tile=pad_to, **kw)
-        except BaseException as e:
-            # every caller sees the exception through its future; the
-            # failed dispatch also lands on the telemetry spine
-            telemetry.registry().counter_inc("serve.topk.errors")
-            telemetry.emit(
-                EVENTS.SERVE_TOPK_ERROR, error=repr(e), rows=int(n),
-                requests=len(batch), m=int(self.m),
+        traffic (``probes=None``) keeps the index's own default.  Traced,
+        the batch is the span ``rp:serve/batch`` and each request's wait
+        from ``submit`` to the dispatch ``rp:serve/queue_wait``."""
+        with annotate("rp:serve/batch"):
+            arr = (
+                batch[0][0]
+                if len(batch) == 1
+                else np.concatenate([req[0] for req in batch], axis=0)
             )
-            for req in batch:
-                fut = req[1]
-                if fut.set_running_or_notify_cancel():
-                    fut.set_exception(e)
-            return
-        wall = time.perf_counter() - t0
-        self._batches += 1
-        self._requests += len(batch)
-        self._queries += n
-        reg = telemetry.registry()
-        reg.counter_inc("serve.topk.batches")
-        reg.counter_inc("serve.topk.requests", len(batch))
-        reg.counter_inc("serve.topk.queries", n)
-        reg.gauge_set("serve.topk.batch_rows", n)
-        tel = telemetry.enabled()
-        if tel:
-            telemetry.emit(
-                EVENTS.SERVE_TOPK_BATCH, rows=int(n), padded=int(pad_to),
-                requests=len(batch), m=int(self.m), wall_s=round(wall, 6),
-                **({} if probes is None else {"probes": int(probes)}),
-            )
-        self._batch_served(index, n, pad_to, len(batch), wall)
-        lo = 0
-        for codes, fut, label, t_enq in batch:
-            hi = lo + codes.shape[0]
-            if fut.set_running_or_notify_cancel():
-                fut.set_result((d[lo:hi], i[lo:hi]))
-            # enqueue (submit), dispatch (t0) and completion stamps
-            t_comp = time.perf_counter()
-            total = t_comp - t_enq
-            queue_wait = t0 - t_enq
-            reg.observe(self._lat_name, total)
-            reg.observe(self._lat_name + ".queue_wait", queue_wait)
-            reg.observe(self._lat_name + ".serve", wall)
-            if label is not None:
-                reg.observe(f"{self._lat_name}.client.{label}", total)
+            n = arr.shape[0]
+            # bucket-pad the rows so the kernel sees a few plan shapes, not
+            # one per traffic mix (pad rows are scored and dropped)
+            pad_to = row_bucket(n)
+            if pad_to != n:
+                arr = np.pad(arr, ((0, pad_to - n), (0, 0)))
+            index = self._pick_index()
+            t0 = time.perf_counter()
+            kw = {} if probes is None else {"probes": probes}
+            try:
+                d, i = index.query_topk(arr, self.m, tile=pad_to, **kw)
+            except BaseException as e:
+                # every caller sees the exception through its future; the
+                # failed dispatch also lands on the telemetry spine
+                telemetry.registry().counter_inc("serve.topk.errors")
+                telemetry.emit(
+                    EVENTS.SERVE_TOPK_ERROR, error=repr(e), rows=int(n),
+                    requests=len(batch), m=int(self.m),
+                )
+                for req in batch:
+                    fut = req[1]
+                    if fut.set_running_or_notify_cancel():
+                        fut.set_exception(e)
+                return
+            wall = time.perf_counter() - t0
+            self._batches += 1
+            self._requests += len(batch)
+            self._queries += n
+            reg = telemetry.registry()
+            reg.counter_inc("serve.topk.batches")
+            tel = telemetry.enabled()
             if tel:
                 telemetry.emit(
-                    EVENTS.SERVE_LATENCY_REQUEST, server=self.name,
-                    label=label, rows=int(hi - lo), m=int(self.m),
-                    queue_wait_s=round(queue_wait, 9),
-                    serve_s=round(wall, 9), total_s=round(total, 9),
+                    EVENTS.SERVE_TOPK_BATCH, rows=int(n), padded=int(pad_to),
+                    requests=len(batch), m=int(self.m), wall_s=round(wall, 6),
                     **({} if probes is None else {"probes": int(probes)}),
                 )
-            lo = hi
+            self._batch_served(index, n, pad_to, len(batch), wall)
+            lo = 0
+            for codes, fut, label, t_enq in batch:
+                hi = lo + codes.shape[0]
+                if fut.set_running_or_notify_cancel():
+                    fut.set_result((d[lo:hi], i[lo:hi]))
+                # enqueue (submit), dispatch (t0) and completion stamps
+                t_comp = time.perf_counter()
+                total = t_comp - t_enq
+                queue_wait = t0 - t_enq
+                reg.observe(self._lat_name, total)
+                reg.observe(self._lat_name + ".queue_wait", queue_wait)
+                reg.observe(self._lat_name + ".serve", wall)
+                if label is not None:
+                    reg.observe(f"{self._lat_name}.client.{label}", total)
+                if tel:
+                    telemetry.emit(
+                        EVENTS.SERVE_LATENCY_REQUEST, server=self.name,
+                        label=label, rows=int(hi - lo), m=int(self.m),
+                        queue_wait_s=round(queue_wait, 9),
+                        serve_s=round(wall, 9), total_s=round(total, 9),
+                        **({} if probes is None else {"probes": int(probes)}),
+                    )
+                lo = hi
+            if recording():
+                # the stamps already taken, on the profiler's clock
+                off = perf_offset_ns()
+                t0_ns = int(t0 * 1e9) + off
+                for req in batch:
+                    t_enq_ns = int(req[3] * 1e9) + off
+                    record_span("rp:serve/queue_wait", t_enq_ns, t0_ns)
 
     def _run(self) -> None:
         device = getattr(self.index, "device", None)

@@ -6,15 +6,20 @@ queue-occupancy gauge, the overlap ratio) on a
 ``telemetry.MetricsRegistry``, double-writing to the process-wide JSONL
 event log when one is configured, ``batch_nbytes``, ``stage``, and the
 profiler hooks on ``torch.profiler``: ``profile_trace`` writes a
-Chrome/Perfetto trace, ``annotate`` names a region in its timeline.
+Chrome/Perfetto trace, ``annotate`` names a region in its timeline and,
+while a profiler records, keeps it in an in-memory span store beside the
+interpreter's collections (``recorded_spans``, ``gc_collections``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import logging
 import os
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -26,7 +31,8 @@ logger = logging.getLogger("randomprojection_tpu_torch")
 
 __all__ = [
     "StreamStats", "batch_nbytes", "profile_trace", "annotate", "logger",
-    "stage",
+    "stage", "recording", "record_span", "perf_offset_ns", "recorded_spans",
+    "dropped_spans", "gc_collections", "clear_spans",
 ]
 
 
@@ -261,16 +267,180 @@ def profile_trace(log_dir: Optional[str]):
 
 
 def annotate(name: str):
-    """Named region visible in profiler timelines
-    (``torch.profiler.record_function``).
+    """The port's program span: a named region visible in profiler
+    timelines (``torch.profiler.record_function``) and kept in the span
+    store (``recorded_spans``).
 
     A shared null context unless a profiler is recording: with none
     active the hot path pays one attribute read, and a numpy-only run
     never imports torch for it."""
-    torch = sys.modules.get("torch")
-    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+    prof = _PROFILER or _bind_profiler()
+    if prof is None or not prof._is_profiler_enabled:
         return _NULL
-    return torch.profiler.record_function(name)
+    return _Span(name)
 
 
 _NULL = contextlib.nullcontext()
+
+# -- the span store --------------------------------------------------------
+#
+# While a profiler records, every program span lands here as ``(name,
+# native thread id, start_ns, end_ns)`` on the profiler's own clock:
+# kineto stamps host events in Unix-epoch nanoseconds, which is
+# ``time.time_ns()``, so a span and its ``record_function`` echo agree.
+# The profiler keeps the ``record_function`` regions of the thread that
+# started it only; the store keeps every thread's (a server's
+# dispatcher, a pipeline's workers).
+# Nothing is written while no profiler records, and nothing here clears
+# the store but ``clear_spans``: a reader that runs after a traced window
+# sees exactly what that window recorded.
+
+#: entries the ring holds before it drops the oldest
+SPAN_CAPACITY = 1 << 20
+
+_PROFILER = None  # ``torch.autograd.profiler`` once torch is imported
+_spans: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
+# re-entrant: a collection's callback may append on a thread that is
+# inside ``_store``
+_spans_lock = threading.RLock()
+_dropped = 0
+# generation -> [collections, summed wall ns], while recording
+_gc_totals = {g: [0, 0] for g in range(3)}
+_gc_open = None  # (generation, start_ns, record_function or None)
+
+
+def _bind_profiler():
+    """``torch.autograd.profiler`` if torch is loaded (bound once)."""
+    global _PROFILER
+    _PROFILER = sys.modules.get("torch.autograd.profiler")
+    return _PROFILER
+
+
+def recording() -> bool:
+    """Whether a profiler records (and so the span store is written)."""
+    prof = _PROFILER or _bind_profiler()
+    return prof is not None and bool(prof._is_profiler_enabled)
+
+
+_thread = threading.local()
+
+
+def _tid() -> int:
+    """This thread's native id, as the profiler names threads (a system
+    call, of microseconds on some hosts: made once a thread)."""
+    try:
+        return _thread.tid
+    except AttributeError:
+        _thread.tid = tid = threading.get_native_id()
+        return tid
+
+
+def _store(name: str, tid: int, start_ns: int, end_ns: int) -> None:
+    global _dropped
+    with _spans_lock:
+        if len(_spans) == _spans.maxlen:
+            _dropped += 1
+        _spans.append((name, tid, start_ns, end_ns))
+
+
+class _Span:
+    """``record_function(name)`` that also stores its interval."""
+
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        import torch
+
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self._rf.__exit__(*exc)
+        _store(self.name, _tid(), self._t0, t1)
+        return False
+
+
+def record_span(name: str, start_ns: int, end_ns: int) -> None:
+    """Store an interval that ``record_function`` cannot hold (it began on
+    another thread), on the profiler's clock (``perf_offset_ns``), under
+    the calling thread.  Dropped while no profiler records."""
+    if recording():
+        _store(name, _tid(), int(start_ns), int(end_ns))
+
+
+def perf_offset_ns() -> int:
+    """Add to ``time.perf_counter()`` nanoseconds to land on the
+    profiler's clock: stamps already taken on ``perf_counter`` become
+    spans with ``int(t * 1e9) + offset``."""
+    return time.time_ns() - time.perf_counter_ns()
+
+
+def recorded_spans() -> list:
+    """The stored spans, oldest first: ``(name, native thread id,
+    start_ns, end_ns)``."""
+    with _spans_lock:
+        return list(_spans)
+
+
+def dropped_spans() -> int:
+    """Spans the full ring dropped since the last ``clear_spans``."""
+    return _dropped
+
+
+def gc_collections() -> dict:
+    """The interpreter's collections while recording: ``{generation:
+    (collections, summed wall ns)}``."""
+    with _spans_lock:
+        return {g: tuple(v) for g, v in _gc_totals.items()}
+
+
+def clear_spans() -> None:
+    """Empty the store, its drop counter and the collection counters."""
+    global _dropped
+    with _spans_lock:
+        _spans.clear()
+        _dropped = 0
+        for v in _gc_totals.values():
+            v[0] = v[1] = 0
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    """The interpreter's collections while a profiler records: counted and
+    timed a generation, and a generation-2 collection (every thread
+    stops) is the span ``rp:gc/gen2`` in the store and the profiler."""
+    global _gc_open
+    prof = _PROFILER or _bind_profiler()
+    if (prof is None or not prof._is_profiler_enabled) and _gc_open is None:
+        return
+    if phase == "start":
+        gen, rf = info["generation"], None
+        if gen == 2:
+            import torch
+
+            rf = torch.profiler.record_function("rp:gc/gen2")
+            rf.__enter__()
+        _gc_open = (gen, time.time_ns(), rf)
+        return
+    if _gc_open is None:
+        return
+    t1 = time.time_ns()
+    gen, t0, rf = _gc_open
+    _gc_open = None
+    if rf is not None:
+        rf.__exit__(None, None, None)
+    with _spans_lock:
+        tot = _gc_totals[gen]
+        tot[0] += 1
+        tot[1] += t1 - t0
+        if gen == 2:
+            _store("rp:gc/gen2", _tid(), t0, t1)
+
+
+if _gc_hook not in gc.callbacks:
+    gc.callbacks.append(_gc_hook)

@@ -112,6 +112,41 @@ def test_run_record_has_the_reference_keys():
     assert got["server"]["requests"] == len(sched) + 1
 
 
+class _StallingServer:
+    """Answers at once, but its first ``submit`` stalls the submitter."""
+
+    def __init__(self, stall_s):
+        self.stall_s = stall_s
+        self.calls = 0
+
+    def submit(self, codes, *, label=None):
+        import time
+        from concurrent.futures import Future
+
+        self.calls += 1
+        if self.calls == 1:
+            time.sleep(self.stall_s)
+        fut = Future()
+        fut.set_result((None, None))
+        return fut
+
+    def stats(self):
+        return {}
+
+
+def test_run_stamps_latency_from_the_due_time():
+    # four requests due within 3 ms; the first submit holds the generator
+    # for 0.2 s, so the three behind it are late by ~0.2 s each and their
+    # latencies say so (stamped from submit they would read ~0)
+    sched = [loadgen.ScheduledRequest(t, "a", 1)
+             for t in (0.0, 0.001, 0.002, 0.003)]
+    rec = loadgen.run(_StallingServer(0.2), sched, code_bytes=8)
+    assert rec["total"]["count"] == 4
+    assert rec["max_lag_s"] >= 0.19
+    assert rec["total"]["p50_ms"] >= 190.0
+    assert rec["total"]["max_ms"] >= 200.0
+
+
 def _loadgen_argv(*extra):
     return ["loadgen", "--rate", "60", "--duration", "0.5",
             "--index-codes", "512", "--code-bytes", "8", "--m", "4",
