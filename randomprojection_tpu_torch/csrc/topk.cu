@@ -77,10 +77,12 @@
 //     16/32/64 queries against tiles of 128 rows, a 32-bit XOR and __popc
 //     a word, the tile's distances through shared memory, one warp a query
 //     testing them against its list.
-//   pass 2 (topk_merge_kernel): one warp per query merges its <= 32 sorted
-//     split lists, one lane per list, into the final m (dist, idx).
-// Row splits exist because a TopKServer batch of 128-640 queries gives too
-// few query tiles to fill 132 SMs.
+//   pass 2 (topk_merge_kernel): one warp per query merges its sorted split
+//     lists, any number of them, into the final m (dist, idx): each lane
+//     owns a run of consecutive lists and offers the least of their heads.
+// Row splits exist because a batch of one to a few hundred queries gives
+// too few query tiles to fill 132 SMs: the planner takes as many as fill
+// whole waves of the card, counting each split's warm-up of its lists.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,7 +94,7 @@ constexpr int kRows = 128;                 // popc route: code rows per tile
 constexpr int kRowsPerThread = kRows / 16;
 constexpr int kChunkWords = 32;            // popc route: words of a row staged per step
 constexpr int kStride = kChunkWords + 1;   // odd: 16 rows in 16 banks
-constexpr int kMaxSplits = 32;             // one merge lane per split
+constexpr int kMaxSplits = 65535;          // a launch's grid y: one split a block row
 constexpr long long kMaxKey = 0x7FFFFFFFFFFFFFFFLL;
 
 constexpr int kTileN = 256;                // wgmma route: code rows per tile
@@ -272,26 +274,46 @@ __global__ void __launch_bounds__(kThreads) topk_scan_kernel(ScanArgs a) {
   }
 }
 
+// One warp a query merges its `splits` ascending lists of m keys.  Lane l
+// owns lists [l L, l L + L), L = ceil(splits / 32), and offers the least of
+// their heads, the first of its lists among equal heads; the warp's least
+// offer is the next key, from the lowest lane that offers it.  Among equal
+// keys, which only the empty slots' sentinel keys can be, the lowest list
+// wins.  A list's read position is kept in shared memory (`warps x splits`
+// 16-bit counters, m <= 65535), so the number of lists is bounded by the
+// scan's grid alone.
 __global__ void topk_merge_kernel(const long long* __restrict__ part,
                                   int64_t nq, int splits, int m,
                                   uint32_t sentinel, int* __restrict__ dist,
                                   int* __restrict__ idx) {
+  extern __shared__ uint16_t merge_pos[];
   const int lane = threadIdx.x & 31;
-  const int64_t q =
-      static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + warp;
   if (q >= nq) return;  // the whole warp leaves together
-  const long long* mine = part + (q * splits + lane) * m;
-  int p = 0;
-  long long head = lane < splits ? mine[0] : kMaxKey;
+  const int per = (splits + 31) / 32;
+  const int s0 = lane * per < splits ? lane * per : splits;
+  const int s1 = s0 + per < splits ? s0 + per : splits;
+  const long long* lists = part + q * splits * m;
+  uint16_t* pos = merge_pos + warp * splits;
+  long long least = kMaxKey;
+  int at = s0;
+  for (int s = s0; s < s1; ++s) {
+    pos[s] = 0;
+    const long long h = __ldg(lists + static_cast<int64_t>(s) * m);
+    if (h < least) {
+      least = h;
+      at = s;
+    }
+  }
   for (int t = 0; t < m; ++t) {
-    long long best = head;
+    long long best = least;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const long long other = __shfl_xor_sync(0xFFFFFFFFu, best, o);
       best = other < best ? other : best;
     }
-    // empty slots carry equal keys in several lists: the lowest lane wins
-    const int src = __ffs(__ballot_sync(0xFFFFFFFFu, head == best)) - 1;
+    const int src = __ffs(__ballot_sync(0xFFFFFFFFu, least == best)) - 1;
     if (lane == 0) {
       int d = static_cast<int>(best >> 32);
       int id = static_cast<int>(best & 0xFFFFFFFFLL);
@@ -302,11 +324,28 @@ __global__ void topk_merge_kernel(const long long* __restrict__ part,
       dist[q * m + t] = d;
       idx[q * m + t] = id;
     }
-    if (lane == src) {
-      ++p;
-      head = p < m ? mine[p] : kMaxKey;
+    if (lane == src) {  // the list taken from moves on; its lane offers anew
+      ++pos[at];
+      least = kMaxKey;
+      for (int s = s0; s < s1; ++s) {
+        const int p = pos[s];
+        const long long h =
+            p < m ? __ldg(lists + static_cast<int64_t>(s) * m + p) : kMaxKey;
+        if (h < least) {
+          least = h;
+          at = s;
+        }
+      }
     }
   }
+}
+
+// The merge's warps a block and their shared memory: eight queries a block
+// where their read positions fit the default 48 KB, fewer past it, one (at
+// most 128 KB) at the largest split counts.
+int merge_warps(int splits) {
+  const int w = static_cast<int>(49152 / (2 * static_cast<int64_t>(splits)));
+  return w < 1 ? 1 : (w > kThreads / 32 ? kThreads / 32 : w);
 }
 
 
@@ -1010,11 +1049,18 @@ int rp_topk_scan(const void* q, const void* codes, const void* dead,
 // Returns cudaGetLastError() after the launch.
 int rp_topk_merge(const void* part, int64_t nq, int splits, int m,
                   int64_t n_bytes, void* dist, void* idx, void* stream) {
-  if (splits < 1 || splits > kMaxSplits || m < 1 || nq < 1)
+  if (splits < 1 || splits > kMaxSplits || m < 1 || m > 65535 || nq < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = kThreads / 32;
+  const int warps = merge_warps(splits);
+  const int smem = warps * splits * static_cast<int>(sizeof(uint16_t));
+  if (smem > 49152) {
+    cudaError_t err = cudaFuncSetAttribute(
+        topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const unsigned blocks = static_cast<unsigned>((nq + warps - 1) / warps);
-  topk_merge_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  topk_merge_kernel<<<blocks, 32 * warps, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(part), nq, splits, m,
       static_cast<uint32_t>(n_bytes * 8 + 1), static_cast<int*>(dist),
       static_cast<int*>(idx));

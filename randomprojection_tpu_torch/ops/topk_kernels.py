@@ -37,9 +37,12 @@ The scan has two routes, and ``plan_fused`` picks one from the shape alone
   tiles of 128 rows), for larger ``m`` up to ``MAX_M``.
 
 Past ``MAX_M``, or past 2²⁴ bits a row (the reference's bound), there is
-no plan and the launcher raises.  The plan also sizes the row splits (at
-most 32): for ``'wgmma'`` the count that leaves the fewest tile steps on
-the longest-running SM with one block an SM, for ``'popc'`` about four
+no plan and the launcher raises.  The plan also sizes the row splits,
+bounded by the row tiles, by ``_SCRATCH_BYTES`` of split lists and by a
+launch's grid (the merge takes any number of lists a query): for
+``'wgmma'``, one block an SM, the count that leaves the fewest tile steps
+on the longest-running SM over whole waves of the card, each split's
+warm-up of its lists counted (``wave_steps``); for ``'popc'`` about four
 blocks an SM.
 """
 
@@ -50,10 +53,12 @@ import functools
 from typing import NamedTuple, Optional
 
 from randomprojection_tpu_torch.ops import _build
+from randomprojection_tpu_torch.utils import observability
 
 __all__ = [
     "LAUNCHES",
     "MAX_M",
+    "SPLIT_WARMUP_TILES",
     "TopkPlan",
     "and_popc_distances",
     "fused_topk",
@@ -65,6 +70,8 @@ __all__ = [
     "stage_rows",
     "topk_plain",
     "wait_staged",
+    "wave_slots",
+    "wave_steps",
 ]
 
 #: kernel launches since the last ``reset_launches()``: an
@@ -77,7 +84,7 @@ MAX_M = 1024  # largest m a plan serves (popc route, tq = 16: 16·1024 keys)
 _MAX_BITS_EXACT = 1 << 24  # the reference's bound on a plannable row width
 _INT32_MAX = (1 << 31) - 1
 _SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
-_MAX_SPLITS = 32  # kMaxSplits: one merge lane per split
+_MAX_SPLITS = 65_535  # kMaxSplits: a launch's grid y, one split a block row
 _SCRATCH_BYTES = 256 << 20  # bound on the (nq, splits, m) int64 split lists
 _PLAIN_BLOCK_ELEMS = 1 << 23  # xor elements per block of the plain version
 _SRC = "topk"
@@ -90,6 +97,14 @@ _MMA_TILE_ROWS = 256  # kTileN
 _MMA_STEP_BYTES = 32  # kStepBytes: one k-step of a row
 _MMA_MAX_STAGES = 8  # kMaxStages
 _MMA_MIN_STAGES = 4  # a shallower ring is taken only where no tile fits this
+#: W, what one row split of the tensor-core scan spends beyond its tiles,
+#: in tile steps: the survivors' inserts while its lists fill, paid once a
+#: block and so once a wave on an SM.  Measured on an H100 80GB HBM3 at
+#: 700 W (torch_experiments/k4_waves.py; PERF.md beside the kernel table):
+#: 1,822, 2,218 and 1,516 steps at 48 and 256 queries over 125M codes and
+#: 2,048 over 2^24, their mean taken; 101 at one query and 88 at an LSH
+#: tile, where one wave holds every split and W decides nothing.
+SPLIT_WARMUP_TILES = 1850
 # kSmemSlack: alignment, barriers, 8 stages' row-liveness bits
 _MMA_SLACK = 1024 + 128 + 8 * 64
 _ROUTE_CODES = {"popc": 0, "wgmma": 1}
@@ -142,14 +157,21 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def wave_steps(q_tiles: int, n_tiles: int, splits: int, sm_count: int) -> int:
+    """Tile steps on the longest-running SM of a tensor-core scan of
+    ``q_tiles × splits`` blocks, one block an SM: its waves, each a split's
+    tiles and the split's warm-up (``SPLIT_WARMUP_TILES``)."""
+    return (-(-q_tiles * splits // sm_count)
+            * (-(-n_tiles // splits) + SPLIT_WARMUP_TILES))
+
+
 def _plan_wgmma(nq: int, rows: int, n_bytes: int, m: int, sm_count: int):
     """The tensor-core route's plan, or None when its lists do not fit
     beside a ring of two stages.  128 queries a block (two consumer
     warpgroups sharing each code tile) where there are more than 64 queries
     and a ring of at least four stages fits beside their lists, else 64;
     the deepest ring that fits, up to 8; then the row splits that leave the
-    fewest tile steps on the longest-running SM with one block an SM, ties
-    to fewer splits (each split warms its lists up anew)."""
+    fewest ``wave_steps``, ties to fewer splits."""
     def deepest(tq):
         return next((s for s in range(_MMA_MAX_STAGES, 1, -1)
                      if smem_bytes("wgmma", tq, m, s, n_bytes) <= _SMEM_LIMIT), 0)
@@ -162,8 +184,15 @@ def _plan_wgmma(nq: int, rows: int, n_bytes: int, m: int, sm_count: int):
     q_tiles = -(-nq // tq)
     n_tiles = -(-rows // _MMA_TILE_ROWS)
     most = min(_MAX_SPLITS, n_tiles, max(1, _SCRATCH_BYTES // (nq * m * 8)))
-    splits = min(range(1, most + 1),
-                 key=lambda s: (-(-q_tiles * s // sm_count) * -(-n_tiles // s), s))
+    splits, best = 1, wave_steps(q_tiles, n_tiles, 1, sm_count)
+    for s in range(2, most + 1):
+        # no count from here on can beat the best: its waves are at least
+        # q_tiles·s / SMs, each at least n_tiles / s + W steps
+        if q_tiles * (n_tiles + s * SPLIT_WARMUP_TILES) > best * sm_count:
+            break
+        steps = wave_steps(q_tiles, n_tiles, s, sm_count)
+        if steps < best:
+            splits, best = s, steps
     tiles_per_split = -(-n_tiles // splits)
     splits = -(-n_tiles // tiles_per_split)
     return TopkPlan("wgmma", tq, splits, tiles_per_split, _MMA_TILE_ROWS,
@@ -172,32 +201,42 @@ def _plan_wgmma(nq: int, rows: int, n_bytes: int, m: int, sm_count: int):
 
 def _plan_popc(nq: int, rows: int, m: int, sm_count: int) -> TopkPlan:
     """The popc route's plan: the largest query tile whose blocks can
-    still reach about four per SM with at most 32 splits (fewer query tiles
-    re-read the codes fewer times), then the splits that reach that count,
-    bounded by the row tiles and by 256 MiB of split lists."""
+    still reach about four per SM (fewer query tiles re-read the codes
+    fewer times), then the splits that reach that count, bounded by the
+    row tiles, by 256 MiB of split lists and by a launch's grid."""
     target = _BLOCKS_PER_SM * sm_count
     n_tiles = -(-rows // _ROWS_PER_TILE)
+    most = min(_MAX_SPLITS, n_tiles, max(1, _SCRATCH_BYTES // (nq * m * 8)))
     for tq in (64, 32, 16):
         if smem_bytes("popc", tq, m) > _SMEM_LIMIT:
             continue
         q_tiles = -(-nq // tq)
-        if q_tiles * _MAX_SPLITS >= target or tq == 16:
+        if q_tiles * most >= target or tq == 16:
             break
-    splits = min(_MAX_SPLITS, n_tiles, -(-target // q_tiles),
-                 max(1, _SCRATCH_BYTES // (nq * m * 8)))
+    splits = min(most, -(-target // q_tiles))
     tiles_per_split = -(-n_tiles // splits)
     splits = -(-n_tiles // tiles_per_split)
     return TopkPlan("popc", tq, splits, tiles_per_split, _ROWS_PER_TILE, 0,
                     smem_bytes("popc", tq, m))
 
 
+def wave_slots(plan: TopkPlan, nq: int, sm_count: int):
+    """``(blocks, slots)`` of a tensor-core scan launch: its grid's blocks
+    and the block slots of its waves, ``ceil(blocks / SMs) · SMs`` (one
+    block an SM)."""
+    blocks = -(-nq // plan.tq) * plan.splits
+    return blocks, -(-blocks // sm_count) * sm_count
+
+
+@functools.lru_cache(maxsize=4096)
 def plan_fused(nq: int, rows: int, n_bytes: int, m: int, *,
                sm_count: int) -> Optional[TopkPlan]:
     """The kernel's configuration for ``nq`` queries against ``rows`` codes
     of ``n_bytes`` on a card of ``sm_count`` SMs, or None when it cannot
     serve the shape (``m > MAX_M``, or rows wider than 2²⁴ bits): the
     tensor-core route where its lists fit in shared memory, else the popc
-    route."""
+    route.  A function of its arguments alone, kept a shape (a serving
+    path asks again for every batch)."""
     if nq <= 0 or rows <= 0 or n_bytes <= 0 or m <= 0:
         return None
     if n_bytes * 8 > _MAX_BITS_EXACT or m > MAX_M:
@@ -392,6 +431,9 @@ def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None):
         )
         _check_launch(lib, rc, f"rp_fused_topk ({plan.route} scan)")
         LAUNCHES[f"rp_fused_topk_{plan.route}"] += 1
+        if plan.route == "wgmma" and observability.recording():
+            observability.count_waves("topk_mma_kernel",
+                                      *wave_slots(plan, nq, _sm_count(dev)))
         rc = lib.rp_topk_merge(part.data_ptr(), nq, plan.splits, m, nb,
                                dist.data_ptr(), idx.data_ptr(), stream)
         _check_launch(lib, rc, "rp_fused_topk (merge)")

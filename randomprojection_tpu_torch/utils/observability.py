@@ -8,7 +8,8 @@ event log when one is configured, ``batch_nbytes``, ``stage``, and the
 profiler hooks on ``torch.profiler``: ``profile_trace`` writes a
 Chrome/Perfetto trace, ``annotate`` names a region in its timeline and,
 while a profiler records, keeps it in an in-memory span store beside the
-interpreter's collections (``recorded_spans``, ``gc_collections``).
+interpreter's collections and the waves of counted kernel launches
+(``recorded_spans``, ``gc_collections``, ``launch_waves``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ logger = logging.getLogger("randomprojection_tpu_torch")
 __all__ = [
     "StreamStats", "batch_nbytes", "profile_trace", "annotate", "logger",
     "stage", "recording", "record_span", "perf_offset_ns", "recorded_spans",
-    "dropped_spans", "gc_collections", "clear_spans",
+    "dropped_spans", "gc_collections", "clear_spans", "count_waves",
+    "launch_waves",
 ]
 
 
@@ -307,6 +309,8 @@ _dropped = 0
 # generation -> [collections, summed wall ns], while recording
 _gc_totals = {g: [0, 0] for g in range(3)}
 _gc_open = None  # (generation, start_ns, record_function or None)
+# kernel -> [launches, blocks, wave slots], while recording
+_waves: dict = {}
 
 
 def _bind_profiler():
@@ -400,14 +404,36 @@ def gc_collections() -> dict:
         return {g: tuple(v) for g, v in _gc_totals.items()}
 
 
+def count_waves(kernel: str, blocks: int, slots: int) -> None:
+    """Count one launch of ``kernel``: its grid's ``blocks`` and the block
+    ``slots`` of its waves (``ceil(blocks / SMs) · SMs`` for a kernel that
+    runs one block an SM).  Dropped while no profiler records."""
+    if not recording():
+        return
+    with _spans_lock:
+        tot = _waves.setdefault(kernel, [0, 0, 0])
+        tot[0] += 1
+        tot[1] += blocks
+        tot[2] += slots
+
+
+def launch_waves() -> dict:
+    """The launches counted while recording: ``{kernel: (launches, blocks,
+    wave slots)}``."""
+    with _spans_lock:
+        return {k: tuple(v) for k, v in _waves.items()}
+
+
 def clear_spans() -> None:
-    """Empty the store, its drop counter and the collection counters."""
+    """Empty the store, its drop counter, the collection counters and the
+    launches' waves."""
     global _dropped
     with _spans_lock:
         _spans.clear()
         _dropped = 0
         for v in _gc_totals.values():
             v[0] = v[1] = 0
+        _waves.clear()
 
 
 def _gc_hook(phase: str, info: dict) -> None:

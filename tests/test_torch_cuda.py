@@ -411,6 +411,92 @@ def test_topk_kernel_matches_plain(cuda, nq, rows, nb, m, n_dead, corpus,
         assert torch.equal(fd, wd) and torch.equal(fi, wi)
 
 
+# (corpus, tombstones, real rows) at 70 queries over 514 row tiles of 256:
+# equal distances across every split boundary, tombstones, and real rows
+# that end short of the rows, leaving the last splits empty
+SPLIT_CASES = [("ties", 1000, 514 * 256 - 5), ("equal", 300, 200 * 256 + 3),
+               ("dup", 40, 514 * 256)]
+
+
+@pytest.mark.parametrize("splits", [33, 132, 257])
+@pytest.mark.parametrize("m", [1, 16, 40])
+@pytest.mark.parametrize("corpus,n_dead,n_real", SPLIT_CASES)
+@pytest.mark.parametrize("route", ["wgmma", "popc"])
+def test_topk_kernel_takes_any_number_of_row_splits(cuda, route, corpus,
+                                                    n_dead, n_real, m, splits):
+    """A forced split count past the merge warp's 32 lanes, and not a
+    multiple of 32: the same lists as the plain version, bit for bit, from
+    one scan and one merge."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    nq, rows = 70, 514 * 256
+    q, codes, dead = _topk_inputs(nq, rows, 32, n_dead, corpus, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = (tk.plan_fused(nq, rows, 32, m, sm_count=sms) if route == "wgmma"
+            else tk._plan_popc(nq, rows, m, sms))
+    assert plan.route == route
+    n_tiles = -(-rows // plan.tile_rows)
+    plan = plan._replace(splits=splits, tiles_per_split=-(-n_tiles // splits))
+    tk.reset_launches()
+    d, i = tk.rp_fused_topk(q, codes, n_real, m, dead=dead, plan=plan)
+    torch.cuda.synchronize()
+    want = {"rp_fused_topk_wgmma": 0, "rp_fused_topk_popc": 0,
+            "rp_topk_merge": 1}
+    want[f"rp_fused_topk_{route}"] = 1
+    assert tk.LAUNCHES == want
+    wd, wi = tk.topk_plain(q, codes, n_real, m, dead=dead)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+@pytest.mark.parametrize("nq,splits,m", [(64, 132, 16), (5, 4096, 16),
+                                         (3, 30_000, 4), (2, 65_535, 2),
+                                         (9, 40, 1024)])
+def test_topk_merge_takes_any_number_of_lists(cuda, nq, splits, m):
+    """The merge alone: ascending lists of distinct keys, with the empty
+    slots' equal sentinel keys at their ends, merged into the m least,
+    the sentinel written for an empty slot."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    g = torch.Generator(device=cuda).manual_seed(nq + splits + m)
+    n_bits = 256
+    dist = torch.randint(0, n_bits + 1, (nq, splits, m), generator=g,
+                         device=cuda, dtype=torch.int64)
+    ids = torch.randperm(nq * splits * m, generator=g, device=cuda).view(
+        nq, splits, m) % (1 << 31)
+    keys = (dist << 32) | ids
+    empty = ((n_bits + 1) << 32) | 0x7FFFFFFF
+    fill = torch.randint(0, m + 1, (nq, splits, 1), generator=g, device=cuda)
+    keys = keys.sort(dim=2).values
+    keys = torch.where(torch.arange(m, device=cuda) < fill, keys, empty)
+    part = keys.contiguous()
+    d = torch.empty((nq, m), dtype=torch.int32, device=cuda)
+    i = torch.empty_like(d)
+    lib = tk._lib()
+    rc = lib.rp_topk_merge(part.data_ptr(), nq, splits, m, n_bits // 8,
+                           d.data_ptr(), i.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    top = part.view(nq, -1).sort(dim=1).values[:, :m]
+    gone = (top >> 32) > n_bits
+    assert torch.equal(d.long(), torch.where(gone, n_bits + 1, top >> 32))
+    assert torch.equal(i.long(), torch.where(gone, 0x7FFFFFFF,
+                                             top & 0xFFFFFFFF))
+
+
+def test_topk_kernel_refuses_splits_past_a_launch_grid(cuda):
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    q, codes, _ = _topk_inputs(4, 3000, 32, 0, "random", cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(4, 3000, 32, 16, sm_count=sms)
+    tk.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tk.rp_fused_topk(q, codes, 3000, 16,
+                         plan=plan._replace(splits=65_536, tiles_per_split=1))
+    assert not any(tk.LAUNCHES.values())
+
+
 def test_topk_kernel_smem_formula_matches_the_source(cuda):
     from randomprojection_tpu_torch.ops import topk_kernels as tk
 

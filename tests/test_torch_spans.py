@@ -6,8 +6,9 @@ Off (no profiler recording) the span store stays empty through a
 batch, the index's ``rp:index/wait_tile`` inside its ``query_topk`` on
 the same thread, the backend's ``rp:backend/dispatch`` around its
 ``prepare`` and ``project``, one ``rp:gc/gen2`` for a forced collection
-with the collection counters, spans on the profiler's own clock, and a
-ring that counts what it drops once full.
+with the collection counters, spans on the profiler's own clock, a
+ring that counts what it drops once full, and the waves of counted kernel
+launches (kept only while a profiler records, cleared with the spans).
 """
 
 import collections
@@ -157,3 +158,27 @@ def test_the_ring_counts_what_it_drops(monkeypatch):
     assert obs.dropped_spans() == 2
     assert [s[0] for s in obs.recorded_spans()] == [
         f"rp:test/{k}" for k in range(2, 6)]
+
+
+def test_launch_waves_are_counted_only_while_recording(monkeypatch):
+    obs.count_waves("k", 132, 132)
+    assert obs.launch_waves() == {}
+    with _traced():
+        obs.count_waves("k", 528, 528)   # four full waves of 132
+        obs.count_waves("k", 32, 132)    # a quarter of one
+        obs.count_waves("other", 133, 264)
+    obs.count_waves("k", 1, 132)
+    assert obs.launch_waves() == {"k": (2, 560, 660), "other": (1, 133, 264)}
+    # off, the one recording() check is all a launch pays
+    checks = []
+    monkeypatch.setattr(obs, "recording", lambda: checks.append(1) or False)
+    obs.count_waves("k", 7, 132)
+    assert checks == [1] and obs.launch_waves()["k"] == (2, 560, 660)
+
+
+def test_launch_waves_clear_with_the_spans():
+    with _traced():
+        obs.count_waves("k", 7, 8)
+    assert obs.launch_waves() == {"k": (1, 7, 8)}
+    obs.clear_spans()
+    assert obs.launch_waves() == {}

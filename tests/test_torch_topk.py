@@ -129,8 +129,10 @@ def test_plan_serves_every_shape_the_reference_plans(nq, rows, nb, m):
     else:
         assert plan.tq in (16, 32, 64) and plan.tile_rows == 128
         assert plan.stages == 0
-    # the grid covers every row, and no split is empty
-    assert 1 <= plan.splits <= 32
+    # the grid covers every row, no split is empty, and the split lists
+    # fit the scratch bound and a launch's grid
+    assert 1 <= plan.splits <= tk._MAX_SPLITS
+    assert nq * plan.splits * m * 8 <= max(tk._SCRATCH_BYTES, nq * m * 8)
     assert plan.splits * plan.tiles_per_split * plan.tile_rows >= rows
     assert (plan.splits - 1) * plan.tiles_per_split * plan.tile_rows < rows
     assert plan.smem_bytes == tk.smem_bytes(plan.route, plan.tq, m,
@@ -199,21 +201,96 @@ def test_plan_aims_at_four_blocks_per_sm_of_the_card(sms):
     assert p.tq == 64 and 4 * sms <= blocks < 4 * sms + 2048 // p.tq
 
 
+def _most_splits(nq, n_tiles, m):
+    """The splits a plan may take: the row tiles, the scratch bound and a
+    launch's grid."""
+    return min(tk._MAX_SPLITS, n_tiles, max(1, tk._SCRATCH_BYTES // (nq * m * 8)))
+
+
 @pytest.mark.parametrize("sms", [H100_SXM_SMS, 114, 78])
 @pytest.mark.parametrize("nq", [2048, 4096, 640, 64])
 def test_wgmma_plan_fills_one_wave_of_the_card(sms, nq):
     """One block an SM: the splits leave the fewest tile steps on the
-    longest-running SM, and no choice of splits does better."""
+    longest-running SM, each split's warm-up counted, and no count the
+    bounds allow does better; a full wave where the row tiles allow."""
     rows = 1 << 24
     p = tk.plan_fused(nq, rows, 32, 16, sm_count=sms)
     q_tiles, n_tiles = -(-nq // p.tq), -(-rows // 256)
 
     def steps(s):
-        return -(-q_tiles * s // sms) * -(-n_tiles // s)
+        return (-(-q_tiles * s // sms)
+                * (-(-n_tiles // s) + tk.SPLIT_WARMUP_TILES))
 
-    assert steps(p.splits) == min(steps(s) for s in range(1, 33))
-    if q_tiles * 32 >= sms:
-        assert q_tiles * p.splits >= sms // 2  # at least half the card busy
+    assert steps(p.splits) == tk.wave_steps(q_tiles, n_tiles, p.splits, sms)
+    assert steps(p.splits) == min(
+        steps(s) for s in range(1, _most_splits(nq, n_tiles, 16) + 1))
+    if q_tiles < sms:
+        assert q_tiles * p.splits > sms - q_tiles  # a full wave, to a tile
+
+
+# the 32-split cap's plan, as the planner had it before the merge took
+# any number of lists: the fewest tile steps on the longest SM, no warm-up
+def _capped_splits(q_tiles, n_tiles, sms):
+    return min(range(1, min(32, n_tiles) + 1),
+               key=lambda s: (-(-q_tiles * s // sms) * -(-n_tiles // s), s))
+
+
+# (queries, codes, m): the open loop's batches over one card's 125M shard,
+# the bulk cell's tile over 1B, and an LSH tile's candidate rows
+@pytest.mark.parametrize("sms", [H100_SXM_SMS, 114, 78])
+@pytest.mark.parametrize("nq,rows,m", [(1, 125_000_000, 16),
+                                       (32, 125_000_000, 16),
+                                       (48, 125_000_000, 16),
+                                       (64, 125_000_000, 16),
+                                       (128, 125_000_000, 16),
+                                       (2048, 10**9, 16),
+                                       (64, 1 << 19, 10)])
+def test_wgmma_plan_at_the_callers_shapes(sms, nq, rows, m):
+    p = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+    assert p.route == "wgmma"
+    q_tiles, n_tiles = -(-nq // p.tq), -(-rows // 256)
+    assert p.splits * p.tiles_per_split >= n_tiles
+    assert (p.splits - 1) * p.tiles_per_split < n_tiles
+    assert nq * p.splits * m * 8 <= tk._SCRATCH_BYTES
+    most = _most_splits(nq, n_tiles, m)
+    best = min(tk.wave_steps(q_tiles, n_tiles, s, sms)
+               for s in range(1, most + 1))
+    assert tk.wave_steps(q_tiles, n_tiles, p.splits, sms) == best
+    if rows == 125_000_000:  # one query tile: every SM, one wave
+        assert q_tiles * p.splits >= sms
+        assert q_tiles * p.splits == sms == p.splits
+    if (nq, rows) == (2048, 10**9):
+        # no more tile steps on the longest SM than the 32-cap plan's
+        capped = _capped_splits(q_tiles, n_tiles, sms)
+        assert tk.wave_steps(q_tiles, n_tiles, p.splits, sms) <= \
+            tk.wave_steps(q_tiles, n_tiles, capped, sms)
+    if (nq, rows) == (64, 1 << 19):
+        # no more splits than the optimum: the least count at the best
+        assert p.splits == min(s for s in range(1, most + 1)
+                               if tk.wave_steps(q_tiles, n_tiles, s, sms) == best)
+
+
+@pytest.mark.parametrize("nq,rows,m", [(1, 1 << 20, 16), (130, 528 * 256, 16),
+                                       (2048, 1 << 24, 16), (7, 100, 3),
+                                       (3, 1 << 22, 1024)])
+def test_wave_slots_count_whole_waves_of_one_block_an_sm(nq, rows, m):
+    """The counter's arithmetic, a pure function of a plan and the SMs."""
+    for sms in (H100_SXM_SMS, 114, 78):
+        p = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+        blocks, slots = tk.wave_slots(p, nq, sms)
+        assert blocks == -(-nq // p.tq) * p.splits
+        assert slots % sms == 0 and blocks <= slots < blocks + sms
+    p = tk.plan_fused(48, 125_000_000, 32, 16, sm_count=H100_SXM_SMS)
+    assert tk.wave_slots(p, 48, H100_SXM_SMS) == (132, 132)
+    assert tk.wave_slots(p._replace(splits=32), 48, H100_SXM_SMS) == (32, 132)
+    assert tk.wave_slots(p._replace(splits=264), 48, H100_SXM_SMS) == (264, 264)
+
+
+def test_plan_is_a_function_of_the_shape_kept_once():
+    args = (48, 125_000_000, 32, 16)
+    assert tk.plan_fused(*args, sm_count=132) is tk.plan_fused(*args,
+                                                               sm_count=132)
+    assert tk.plan_fused(*args, sm_count=114).splits == 114
 
 
 # -- the wrapper's device rule and checks --------------------------------------------

@@ -17,7 +17,7 @@ and times the scan (``rp_topk_scan`` alone, no merge) on the card, in turns
   producer writes no complements): ``no_epilogue`` with one more part out;
 
 at config 4's serving shape (2048 queries × 2²⁴ codes × 32 B, m = 16) and at
-one query tile (64 queries, 32 row splits).  Run from the repository root on
+one query tile (64 queries, the plan's row splits).  Run from the repository root on
 a machine with a card and ``nvcc``::
 
     python3 torch_experiments/k4_parts.py
