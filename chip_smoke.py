@@ -2255,9 +2255,10 @@ def phase_lsh(torch, pk, tk, errs):
                             fallback_density=1.0)
     build_s = time.perf_counter() - t0
     check(index.device.type == "cuda", "LSH index is not on the card")
+    check(index._buckets.dev[1].is_cuda, "LSH buckets are not on the card")
     log(f"lsh: {LSH_N} planted codes x {LSH_BYTES} B made in {data_s:.3f} s; "
         f"index ({LSH_BANDS} bands x {LSH_BAND_BITS} bits) built in "
-        f"{build_s:.3f} s on the host")
+        f"{build_s:.3f} s on the card")
     q0 = queries[:LSH_NQ]
     sets = [queries[(c + 1) * LSH_NQ: (c + 2) * LSH_NQ] for c in range(LSH_CALLS)]
     true_d, true_i = index.query_topk(q0, LSH_M, probes=0)
@@ -2456,7 +2457,7 @@ def phase_probe_shapes(torch, pk, index, queries, errs):
             lsh.band_keys(q, plan).astype(np.int32),
             np.asarray(masks, np.int32)[None, :], np.ones((1, nq), np.int32),
             np.stack([ip.astype(np.int32) for ip in bk._indptr]),
-            np.stack(bk._ids))]
+            np.stack(bk.ids))]
         cap = 1 << 25
         st = _hold_probe(torch, pk, errs, planes, cap, f"rp_probe_gather {what}")
     # the last shape again: no race between the two launches' blocks

@@ -12,7 +12,11 @@ re-ranks only the candidates.
   packed code form band ``j``'s key (little-endian within each byte).
 - **Banded CSR buckets** (``BandedBuckets``): per band, a counting-sorted
   ``indptr (2^b + 1) → ids`` layout with ids ascending within every
-  bucket, kept on the host; ``add`` merges new rows incrementally.
+  bucket; ``add`` merges new rows incrementally.  It is built and grown
+  on the index's device (``probe_kernels.fold_band_csr``: a stable sort a
+  band), where the device rung reads it; the host keeps the indptr that
+  sizes a tile, and makes its ids and the band keys only when a host path
+  reads them.
 - **Multi-probe** (``probe_masks``): each band probes its exact bucket and
   the nearest ``P-1`` perturbations, XOR masks in (popcount, ascending
   value) order.  ``P ≥ 2^b`` probes every bucket: the candidate set is
@@ -68,9 +72,15 @@ layout).  The reference's host-select rung for a re-rank that overflowed the TPU
 scoped VMEM has no counterpart: the card's kernel plans fit by
 construction.
 
+Traced (``utils/observability``): a bucket build's band is the span
+``rp:lsh/build``, a call ``rp:lsh/query_topk``, a device-rung tile
+``rp:lsh/size_tile``, ``rp:lsh/dispatch_tile``, ``rp:lsh/wait_tile`` and
+``rp:lsh/finish_tile``, and each probe launch is counted
+(``count_probe``).
+
 Telemetry: ``index.lsh.dispatch``, ``index.lsh.fallback`` (with its
-reason), ``index.lsh.build``, ``index.lsh.device_dispatch``,
-``index.lsh.device_upload`` and ``index.lsh.adaptive`` events, and the
+reason), ``index.lsh.build``, ``index.lsh.device_dispatch`` and
+``index.lsh.adaptive`` events, and the
 ``index.lsh.*`` counters and ``index.lsh.probe.{host,dispatch}_s``
 histograms on the process registry.
 """
@@ -91,7 +101,8 @@ from randomprojection_tpu_torch.ops import probe_kernels, topk_kernels
 from randomprojection_tpu_torch.serving.sharded_index import ShardedSimHashIndex
 # a tensor's copy to the host, started at dispatch and read one tile behind
 from randomprojection_tpu_torch.streaming import _HostFetch
-from randomprojection_tpu_torch.utils import telemetry
+from randomprojection_tpu_torch.utils import observability, telemetry
+from randomprojection_tpu_torch.utils.observability import annotate
 from randomprojection_tpu_torch.utils.telemetry import EVENTS
 
 __all__ = [
@@ -113,6 +124,14 @@ _KEY_EXTRACT_BLOCK = 1 << 16
 _INT32_MAX = np.int32(2**31 - 1)
 
 _PROBE_PATHS = ("auto", "host", "device")
+
+# tiles a query_topk dispatches before it finishes the oldest: a device-rung
+# tile of 64 queries over 125M codes takes ~0.7 ms on an H100, so eight
+# queued behind the one running keep ~5.5 ms of work on the card against
+# the host's stalls (its own work a tile is ~0.4 ms; on an H100's host a
+# tile's dispatch now and then stalls for 2-20 ms); each queued tile holds
+# only its pinned copies
+_TILES_AHEAD = 8
 
 
 def _check_probe_path(probe_path) -> str:
@@ -218,15 +237,15 @@ def band_keys(codes, plan: BandPlan) -> np.ndarray:
     if codes.ndim != 2:
         raise ValueError(f"codes must be (n, nbytes), got {codes.shape}")
     n = codes.shape[0]
-    b = plan.band_bits
-    out = np.empty((plan.bands, n), np.uint32)
+    b, bands = plan.band_bits, plan.bands
+    out = np.empty((bands, n), np.uint32)
     w = np.uint32(1) << np.arange(b, dtype=np.uint32)
     for lo in range(0, n, _KEY_EXTRACT_BLOCK):
         hi = min(lo + _KEY_EXTRACT_BLOCK, n)
         bits = np.unpackbits(codes[lo:hi], axis=1, bitorder="little")
-        for j in range(plan.bands):
-            sl = bits[:, j * b: (j + 1) * b].astype(np.uint32)
-            out[j, lo:hi] = (sl * w[None, :]).sum(axis=1, dtype=np.uint32)
+        # every band at once: a query tile's keys are one product
+        sl = bits[:, : bands * b].reshape(hi - lo, bands, b).astype(np.uint32)
+        out[:, lo:hi] = (sl * w).sum(axis=2, dtype=np.uint32).T
     return out
 
 
@@ -254,77 +273,83 @@ def probe_masks(band_bits: int, probes: int) -> np.ndarray:
 class BandedBuckets:
     """Per-band CSR inverted bucket index over one index's id space.
 
-    Per band: ``indptr`` ``(2^b + 1,)`` int64 and ``ids`` ``(n,)`` int32,
+    Per band: ``indptr`` ``(2^b + 1,)`` int64 (a row of ``_indptr``) and
+    ``ids`` ``(n,)`` int32,
     counting-sorted by bucket with ids ASCENDING within every bucket (what
     makes candidate unions id-sorted and the re-rank's tie rule exact).
-    ``keys`` ``(bands, n)`` uint32 holds every row's band keys in id order,
-    which ``compact()``'s id remap folds without re-extraction."""
 
-    __slots__ = ("plan", "n", "keys", "_indptr", "_ids")
+    The CSR is built and grown where it is folded
+    (``probe_kernels.fold_band_csr``: a stable sort a band), and lives there
+    as ``dev`` (``indptr`` ``(bands, 2^b + 1)`` and ``ids`` ``(bands, n)``,
+    int32 tensors), which the device rung reads as they are.  The host
+    keeps the indptr, which sizes a tile; the host ``ids`` (the host rung)
+    and ``keys`` ``(bands, n)`` uint32 (every row's band keys in id order,
+    for a snapshot) are made from ``dev`` and the folded code planes when
+    first read."""
+
+    __slots__ = ("plan", "n", "_keys", "_indptr", "_ids", "dev", "_folded",
+                 "_probed")
 
     def __init__(self, plan: BandPlan):
         self.plan = plan
         self.n = 0
-        self.keys = np.empty((plan.bands, 0), np.uint32)
+        self._keys = np.empty((plan.bands, 0), np.uint32)
         nb = 1 << plan.band_bits
-        self._indptr = [np.zeros(nb + 1, np.int64) for _ in range(plan.bands)]
+        self._indptr = np.zeros((plan.bands, nb + 1), np.int64)
         self._ids = [np.empty(0, np.int32) for _ in range(plan.bands)]
+        self.dev = None
+        # the code planes folded, in id order
+        self._folded: list = []
+        # mask set -> each bucket's probed total a band (``gathered``)
+        self._probed: dict = {}
 
-    @classmethod
-    def from_keys(cls, plan: BandPlan, keys: np.ndarray) -> "BandedBuckets":
-        """Rebuild from a key matrix (one counting sort a band, no code
-        bytes touched)."""
-        keys = np.ascontiguousarray(keys, dtype=np.uint32)
-        if keys.ndim != 2 or keys.shape[0] != plan.bands:
-            raise ValueError(f"keys must be ({plan.bands}, n), got {keys.shape}")
-        b = cls(plan)
-        b._append_keys(keys)
-        return b
+    @property
+    def keys(self) -> np.ndarray:
+        if self._keys is None:
+            self._keys = np.concatenate(
+                [_host_band_keys(c, self.plan) for c in self._folded], axis=1)
+        return self._keys
 
-    def add(self, codes) -> int:
+    @property
+    def ids(self) -> list:
+        """Each band's id runs on the host (copied from ``dev`` once)."""
+        if self._ids is None:
+            self._ids = list(self.dev[1].cpu().numpy())
+        return self._ids
+
+    def add(self, codes, device=None) -> int:
         """Fold new rows (local ids ``[n, n+rows)``) into every band's CSR:
-        keys of the NEW rows only, spliced in with a vectorized merge.
-        Returns the number of rows folded."""
-        new_keys = band_keys(codes, self.plan)
-        self._append_keys(new_keys)
-        return new_keys.shape[1]
+        ``codes`` a uint8 host array (copied) or tensor (kept for the
+        keys), folded on ``device`` (the codes' own by default; the first
+        fold's for every later one).  The host takes the new indptr and
+        drops its ids and keys.  Returns the number of rows folded."""
+        import torch
 
-    def _append_keys(self, new_keys: np.ndarray) -> None:
-        m = new_keys.shape[1]
-        if m == 0:
-            return
-        row0 = self.n
-        if row0 + m > 2**31 - 1:
+        if not isinstance(codes, torch.Tensor):
+            codes = torch.from_numpy(np.array(codes, dtype=np.uint8))
+        if codes.ndim != 2:
+            raise ValueError(
+                f"codes must be (n, nbytes), got {tuple(codes.shape)}")
+        m = int(codes.shape[0])
+        if self.n + m > 2**31 - 1:
             raise ValueError(
                 "BandedBuckets ids are int32; "
-                f"have {row0}, adding {m} would overflow"
+                f"have {self.n}, adding {m} would overflow"
             )
-        nb = 1 << self.plan.band_bits
-        for j in range(self.plan.bands):
-            k = new_keys[j].astype(np.int64)
-            counts = np.bincount(k, minlength=nb)
-            csum = np.concatenate(([0], np.cumsum(counts)))
-            old_indptr = self._indptr[j]
-            old_ids = self._ids[j]
-            old_counts = np.diff(old_indptr)
-            indptr = old_indptr + csum
-            out = np.empty(old_ids.size + m, np.int32)
-            if old_ids.size:
-                # old bucket k's run shifts right by the new rows landing in
-                # buckets < k
-                shift = np.repeat(csum[:-1], old_counts)
-                out[np.arange(old_ids.size, dtype=np.int64) + shift] = old_ids
-            # a stable sort groups new rows by bucket in id order, and every
-            # new id exceeds every old one: ids stay ascending in a bucket
-            order = np.argsort(k, kind="stable")
-            grp_start = np.repeat(csum[:-1], counts)
-            within = np.arange(m, dtype=np.int64) - grp_start
-            dest = np.repeat(indptr[:-1] + old_counts, counts) + within
-            out[dest] = (row0 + order).astype(np.int32)
-            self._indptr[j] = indptr
-            self._ids[j] = out
-        self.keys = np.concatenate([self.keys, new_keys], axis=1)
+        if not m:
+            return 0
+        ip, ids = self.dev if self.dev is not None else (None, None)
+        if ids is not None:
+            device = ids.device
+        self.dev = probe_kernels.fold_band_csr(
+            ip, ids, codes if device is None else codes.to(device), self.n,
+            self.plan.bands, self.plan.band_bits)
+        self._indptr = self.dev[0].cpu().numpy().astype(np.int64)
+        self._ids = self._keys = None
+        self._probed = {}
+        self._folded.append(codes)
         self.n += m
+        return m
 
     def candidates(self, qkeys: np.ndarray, masks: np.ndarray):
         """Union candidate ids of one query tile: bucket ``qkey ^ mask`` of
@@ -333,6 +358,7 @@ class BandedBuckets:
         int32, ``gathered`` the count before dedup."""
         parts = []
         gathered = 0
+        ids = self.ids
         for j in range(self.plan.bands):
             buckets = (
                 (qkeys[j][:, None] ^ masks[None, :]).ravel().astype(np.int64)
@@ -347,7 +373,7 @@ class BandedBuckets:
             take = np.repeat(starts - csum[:-1], lens) + np.arange(
                 total, dtype=np.int64
             )
-            parts.append(self._ids[j][take])
+            parts.append(ids[j][take])
             gathered += total
         if not parts:
             return np.empty(0, np.int32), 0
@@ -355,7 +381,14 @@ class BandedBuckets:
 
     def gathered(self, qkeys: np.ndarray, masks: np.ndarray) -> int:
         """``candidates``'s ``gathered`` count alone: the probed runs'
-        lengths summed, with no id read."""
+        lengths summed, with no id read.  Where a mask set's table of
+        every bucket's probed total is small (``_PROBED_TABLE_ENTRIES``),
+        one lookup a (query, band) in it, made once a mask set; else two
+        lookups a run."""
+        table = self._probed_totals(masks)
+        if table is not None:
+            return int(np.take_along_axis(table, qkeys.astype(np.int64),
+                                          1).sum())
         total = 0
         for j in range(self.plan.bands):
             buckets = (
@@ -365,10 +398,64 @@ class BandedBuckets:
             total += int((indptr[buckets + 1] - indptr[buckets]).sum())
         return total
 
+    def _probed_totals(self, masks: np.ndarray):
+        """``(bands, 2^b)`` int32: bucket ``k``'s total over the runs
+        ``k ^ mask`` (at most the rows, as the masks are distinct), for
+        the last few mask sets; None where the table would pass
+        ``_PROBED_TABLE_ENTRIES`` entries of work a band."""
+        nb = 1 << self.plan.band_bits
+        if masks.size * nb > _PROBED_TABLE_ENTRIES:
+            return None
+        key = masks.tobytes()
+        table = self._probed.get(key)
+        if table is None:
+            counts = np.diff(self._indptr, axis=1).astype(np.int32)
+            table = np.zeros_like(counts)
+            for mk in masks:
+                table += _xor_buckets(counts, int(mk))
+            if len(self._probed) >= 4:
+                self._probed.pop(next(iter(self._probed)))
+            self._probed[key] = table
+        return table
+
     def bucket_ids(self, band: int, key: int) -> np.ndarray:
         """One bucket's id run (ascending)."""
         indptr = self._indptr[band]
-        return self._ids[band][indptr[key]: indptr[key + 1]].copy()
+        return self.ids[band][indptr[key]: indptr[key + 1]].copy()
+
+
+def _xor_buckets(plane: np.ndarray, mask: int) -> np.ndarray:
+    """``plane[:, k ^ mask]`` for every bucket ``k`` of a ``(bands, 2^b)``
+    plane: a set bit ``i`` of the mask swaps the halves of every block of
+    ``2^(i+1)`` buckets (a strided copy, no gather)."""
+    bands, nb = plane.shape
+    for i in range(nb.bit_length() - 1):
+        if mask >> i & 1:
+            plane = plane.reshape(bands, -1, 2, 1 << i)[:, :, ::-1]
+            plane = plane.reshape(bands, nb)
+    return plane
+
+
+# the work a band (masks x buckets) of the largest probed-total table
+# ``BandedBuckets.gathered`` makes: 32 masks of 20-bit bands
+_PROBED_TABLE_ENTRIES = 1 << 25
+
+# rows whose band keys cross from the card to the host at once
+_HOST_KEYS_BLOCK = 1 << 24
+
+
+def _host_band_keys(codes, plan: BandPlan) -> np.ndarray:
+    """``band_keys`` of a code plane on its device, made there a block of
+    rows at a time: ``(bands, n)`` uint32 on the host."""
+    n = int(codes.shape[0])
+    out = np.empty((plan.bands, n), np.uint32)
+    for lo in range(0, n, _HOST_KEYS_BLOCK):
+        hi = min(lo + _HOST_KEYS_BLOCK, n)
+        for j in range(plan.bands):
+            # rplint: allow[RP03] — the keys of a snapshot, made once on the codes' device and copied to the host block by block: a maintenance path, never a query's
+            out[j, lo:hi] = probe_kernels.band_key(
+                codes[lo:hi], j, plan.band_bits).cpu().numpy().view(np.uint32)
+    return out
 
 
 def _binding_key(b) -> int:
@@ -400,6 +487,22 @@ def _merge_topm_rows(bd, bg, nd, ng, sentinel: int):
     )
 
 
+def _packed(stat, d, gid):
+    """A device tile's stats and ``(dist, gid)`` planes as one int32 plane,
+    for one copy to the host (``_unpacked`` splits it)."""
+    import torch
+
+    return torch.cat([stat, d.reshape(-1), gid.reshape(-1)])
+
+
+def _unpacked(out: np.ndarray, nq: int, m: int):
+    """``(stats (8,), dist (nq, m), gid (nq, m))`` of a ``_packed`` plane
+    on the host (anything after them is left)."""
+    k = nq * m
+    return (out[:8], out[8: 8 + k].reshape(nq, m),
+            out[8 + k: 8 + 2 * k].reshape(nq, m))
+
+
 def _level_size(band_bits: int, f: int) -> int:
     """Masks of ``band_bits`` bits with popcount ``f``: popcount level
     ``f``'s full size."""
@@ -423,7 +526,8 @@ class LSHSimHashIndex(SimHashIndex):
     The bucket index follows every mutation: ``add`` folds new rows
     incrementally (through the base index's ``_codes_appended`` hook),
     ``delete`` needs no bucket work (tombstones are masked at the
-    re-rank), and ``compact`` folds the id remap.  Single-device: one
+    re-rank), and ``compact`` builds it anew over the compacted chunk.
+    Single-device: one
     banded index is one shard (``LSHShardedSimHashIndex`` shards a
     corpus)."""
 
@@ -446,14 +550,12 @@ class LSHSimHashIndex(SimHashIndex):
         self.probe_path = _check_probe_path(probe_path)
         self.adaptive = bool(adaptive)
         self.candidate_budget = _check_budget(candidate_budget)
-        self._lsh_suspend = False
         self._masks_cache: dict = {}
-        # device-side probe state: the CSR mirror follows a revision clock
-        # bumped by every bucket mutation, the tombstone plane the
+        # device-side probe state: a revision clock bumped by every bucket
+        # mutation (it keys the captured tiles), the tombstone plane the
         # (n_codes, tombstone revision) pair.  Set before the base
         # constructor, whose upload fires the append hook.
         self._lsh_dev_rev = 0
-        self._lsh_dev_csr = None        # (rev, indptr, ids)
         self._lsh_dev_masks: dict = {}  # probes -> (1, P) int32
         self._lsh_dev_dead = None       # (key, dead)
         self._lsh_dev_active: dict = {}  # tile rows -> (1, tq) int32 ones
@@ -471,12 +573,11 @@ class LSHSimHashIndex(SimHashIndex):
     # -- bucket maintenance (hooks off the base mutation paths) ---------------
 
     def _codes_appended(self, codes, row0: int) -> None:
-        if not self._lsh_suspend:
-            self._lsh_fold(_host_rows(codes))
+        self._lsh_fold(codes)
 
     def _lsh_buckets_changed(self) -> None:
-        """Invalidate the device CSR mirror and the captured tiles: the
-        next device dispatch re-uploads the CSR from the host buckets."""
+        """A new bucket revision: the captured tiles bake the CSR in, so
+        they go."""
         self._lsh_dev_rev += 1
         self._lsh_graphs.clear()
 
@@ -499,8 +600,15 @@ class LSHSimHashIndex(SimHashIndex):
         pointers in, so they go."""
         self._lsh_graphs.clear()
 
-    def _lsh_fold(self, codes: np.ndarray) -> None:
-        rows = self._buckets.add(codes)
+    def _lsh_fold(self, codes) -> None:
+        """Fold the chunk just appended into the buckets, on the index's
+        device.  An untiered index folds the chunk as it lies there; a tier
+        moves chunks between the device and the host, so a tiered index
+        folds a host copy of the rows (kept for the band keys)."""
+        if self._tier is None:
+            rows = self._buckets.add(self._chunks[-1].b)
+        else:
+            rows = self._buckets.add(_host_rows(codes), device=self.device)
         self._lsh_buckets_changed()
         telemetry.registry().counter_inc("index.lsh.builds")
         telemetry.emit(
@@ -509,33 +617,11 @@ class LSHSimHashIndex(SimHashIndex):
         )
 
     def _rebuild_from_host(self, codes: np.ndarray) -> None:
-        # a wholesale replacement starts the bucket index over, unless
-        # compact() is folding the id remap itself (suspended)
-        if not self._lsh_suspend:
-            self._buckets = BandedBuckets(self.band_plan)
-            self._lsh_buckets_changed()
-        super()._rebuild_from_host(codes)
-
-    def compact(self) -> np.ndarray:
-        """The base ``compact``, then the returned old→new id mapping folded
-        through the bucket index: surviving rows keep their band keys
-        (``keys[:, mapping]``), renumbered, with no re-hash."""
-        old_keys = self._buckets.keys
-        self._lsh_suspend = True
-        try:
-            mapping = super().compact()
-        finally:
-            self._lsh_suspend = False
-        self._buckets = BandedBuckets.from_keys(self.band_plan,
-                                                old_keys[:, mapping])
+        # a wholesale replacement (``compact``) starts the bucket index
+        # over; the new chunk's upload folds it anew
+        self._buckets = BandedBuckets(self.band_plan)
         self._lsh_buckets_changed()
-        telemetry.registry().counter_inc("index.lsh.builds")
-        telemetry.emit(
-            EVENTS.INDEX_LSH_BUILD, rows=int(self._buckets.n),
-            n=int(self._buckets.n), bands=self.band_plan.bands,
-            band_bits=self.band_plan.band_bits, remapped=True,
-        )
-        return mapping
+        super()._rebuild_from_host(codes)
 
     # -- durable persistence (durable.save_index's extra hook) ----------------
 
@@ -583,6 +669,8 @@ class LSHSimHashIndex(SimHashIndex):
             "probe_buckets": reg.counter("index.lsh.probe_buckets"),
             "builds": reg.counter("index.lsh.builds"),
             "device_dispatches": reg.counter("index.lsh.device.dispatches"),
+            # the reference's count of CSR uploads: the port builds the CSR
+            # where it serves it, so none happens and the key reads 0
             "device_uploads": reg.counter("index.lsh.device.uploads"),
             "adaptive_tiles": reg.counter("index.lsh.adaptive.tiles"),
         }
@@ -608,7 +696,14 @@ class LSHSimHashIndex(SimHashIndex):
         Under PARTIAL probes an answer depends on the (query set, tile):
         grouping a query with other queries can only enlarge its candidate
         set, so answers can only get closer, and at full coverage grouping
-        does not matter."""
+        does not matter.
+
+        Traced, a call is the span ``rp:lsh/query_topk`` and a device-rung
+        tile ``rp:lsh/size_tile`` (its runs counted on the host),
+        ``rp:lsh/dispatch_tile`` (staging, the replay, the copies started),
+        ``rp:lsh/wait_tile`` and ``rp:lsh/finish_tile`` (the ladder and
+        the copy-out); each probe launch is counted
+        (``observability.count_probe``)."""
         p = _check_probes(probes, self.probes)
         if p == 0:
             return super().query_topk(A, m, tile=tile)
@@ -638,8 +733,8 @@ class LSHSimHashIndex(SimHashIndex):
         nq = A.shape[0]
         out_d = np.empty((nq, m_eff), dtype=np.int32)
         out_i = np.empty((nq, m_eff), dtype=np.int32)
-        # tiles finish one behind: tile i's copy to the host and its ladder
-        # ride under tile i+1's probe and kernels
+        # tiles finish _TILES_AHEAD behind: tile i's copy to the host and its
+        # ladder ride under the later tiles' probe and kernels
         pending: list = []
 
         def finish(entry):
@@ -655,17 +750,18 @@ class LSHSimHashIndex(SimHashIndex):
             out_d[lo:hi] = d
             out_i[lo:hi] = i
 
-        for lo in range(0, nq, tile):
-            hi = min(lo + tile, nq)
-            kind, payload = self._lsh_tile_entry(
-                A[lo:hi], m_eff, masks, p, tile, device, adaptive_eff,
-                budget_eff,
-            )
-            pending.append((lo, hi, kind, payload))
-            if len(pending) >= 2:
+        with annotate("rp:lsh/query_topk"):
+            for lo in range(0, nq, tile):
+                hi = min(lo + tile, nq)
+                kind, payload = self._lsh_tile_entry(
+                    A[lo:hi], m_eff, masks, p, tile, device, adaptive_eff,
+                    budget_eff,
+                )
+                pending.append((lo, hi, kind, payload))
+                if len(pending) > _TILES_AHEAD:
+                    finish(pending.pop(0))
+            while pending:
                 finish(pending.pop(0))
-        while pending:
-            finish(pending.pop(0))
         return out_d, out_i
 
     # -- the host rung -----------------------------------------------------------
@@ -875,31 +971,12 @@ class LSHSimHashIndex(SimHashIndex):
         return int(tile)
 
     def _lsh_device_csr(self):
-        """The banded CSR on the index's device: ``indptr`` ``(bands, 2^b +
-        1)`` int32 (ids are int32, so offsets fit) and ``ids`` ``(bands,
-        n)`` int32 (every row keys into every band, so each band holds
-        exactly ``n`` ids).  Cached against the bucket revision; an upload
-        emits ``index.lsh.device_upload``."""
-        cached = self._lsh_dev_csr
-        if cached is not None and cached[0] == self._lsh_dev_rev:
-            return cached[1], cached[2]
-        t0 = time.perf_counter()
-        b = self._buckets
-        indptr = np.stack([ip.astype(np.int32) for ip in b._indptr])
-        ids = np.stack(b._ids)
-        indptr_dev = self._to_device(indptr)
-        ids_dev = self._to_device(ids)
-        self._lsh_dev_csr = (self._lsh_dev_rev, indptr_dev, ids_dev)
-        telemetry.registry().counter_inc("index.lsh.device.uploads")
-        if telemetry.enabled():
-            telemetry.emit(
-                EVENTS.INDEX_LSH_DEVICE_UPLOAD, rows=int(b.n),
-                bands=self.band_plan.bands, band_bits=self.band_plan.band_bits,
-                bytes=int(indptr.nbytes + ids.nbytes),
-                wall_s=round(time.perf_counter() - t0, 6),
-                **telemetry.trace_fields(),
-            )
-        return indptr_dev, ids_dev
+        """The banded CSR on the index's device, where it is built:
+        ``indptr`` ``(bands, 2^b + 1)`` int32 (ids are int32, so offsets
+        fit) and ``ids`` ``(bands, n)`` int32 (every row keys into every
+        band, so each band holds exactly ``n`` ids).  A query reaches it
+        only once a row is folded (an empty index refuses first)."""
+        return self._buckets.dev
 
     def _lsh_device_dead(self):
         """The full tombstone plane on the device (``(n_codes,)`` uint8,
@@ -1123,7 +1200,8 @@ class LSHSimHashIndex(SimHashIndex):
         nq = int(a.shape[0])
         reg = telemetry.registry()
         t0 = time.perf_counter()
-        cap = self._lsh_device_cap(a, masks, m_eff, planned=planned)
+        with annotate("rp:lsh/size_tile"):
+            cap = self._lsh_device_cap(a, masks, m_eff, planned=planned)
         if cap is None:
             reg.counter_inc("index.lsh.fallbacks")
             telemetry.emit(
@@ -1133,20 +1211,22 @@ class LSHSimHashIndex(SimHashIndex):
                 **telemetry.trace_fields(),
             )
             return "exact", self._topk_dispatch_tile(a, m_eff)
-        masks_dev = self._lsh_device_masks(masks)
-        act_dev = self._lsh_device_ones(nq)
-        # the device rung's host wall: sizing and upload prep only
-        reg.observe("index.lsh.probe.host_s", time.perf_counter() - t0)
-        t1 = time.perf_counter()
-        # the copies to the host are queued right behind the tile's work on
-        # the same stream: the next replay of the same graph (the next tile
-        # of the pipeline) overwrites its outputs only after they landed
-        fetches = self._lsh_device_composite(
-            a, masks_dev, act_dev, m_eff, cap,
-            fetch=lambda d, gid, stat, _cnt: (_HostFetch(d), _HostFetch(gid),
-                                              _HostFetch(stat)),
-        )
-        payload = (*fetches, nq, p, tile, a)
+        with annotate("rp:lsh/dispatch_tile"):
+            masks_dev = self._lsh_device_masks(masks)
+            act_dev = self._lsh_device_ones(nq)
+            # the device rung's host wall: sizing and upload prep only
+            reg.observe("index.lsh.probe.host_s", time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            # the tile's stats and planes go to the host as one copy, queued
+            # right behind its work on the same stream: the next replay of
+            # the same graph (the next tile of the pipeline) overwrites its
+            # outputs only after they landed
+            fetch = self._lsh_device_composite(
+                a, masks_dev, act_dev, m_eff, cap,
+                fetch=lambda d, gid, stat, _cnt: _HostFetch(_packed(
+                    stat, d, gid)),
+            )
+        payload = (fetch, nq, p, tile, a, cap)
         reg.observe("index.lsh.probe.dispatch_s", time.perf_counter() - t1)
         return "lsh_dev", payload
 
@@ -1156,38 +1236,42 @@ class LSHSimHashIndex(SimHashIndex):
         → ``device_budget``, fewer live candidates than ``m_eff`` →
         ``starved``, a union denser than the threshold → ``dense``; each
         serves the tile through the exact path."""
-        d, gid, stat, nq, p, tile, a = payload
-        stat = stat.result(None)
-        overflow = int(stat[1]) != 0
-        n_cand = int(stat[2])
-        reg = telemetry.registry()
-        dense = n_cand > self.fallback_density * self.n_live
-        if overflow or n_cand < m_eff or dense:
-            reason = ("device_budget" if overflow
-                      else "starved" if n_cand < m_eff else "dense")
-            reg.counter_inc("index.lsh.fallbacks")
-            telemetry.emit(
-                EVENTS.INDEX_LSH_FALLBACK, reason=reason, queries=nq,
-                probes=int(p), candidates=n_cand, n_live=int(self.n_live),
-                threshold=self.fallback_density,
-                **telemetry.trace_fields(),
-            )
-            return SimHashIndex.query_topk(self, a, m_eff, tile=tile)
-        frac = n_cand / max(self.n_live, 1)
-        reg.counter_inc("index.lsh.dispatches")
-        reg.counter_inc("index.lsh.device.dispatches")
-        reg.counter_inc("index.lsh.probe_buckets",
-                        nq * self.band_plan.bands * p)
-        reg.counter_inc("index.lsh.candidates", n_cand)
-        reg.gauge_set("index.lsh.candidate_fraction", frac)
-        if telemetry.enabled():
-            telemetry.emit(
-                EVENTS.INDEX_LSH_DEVICE_DISPATCH, queries=nq, m=int(m_eff),
-                probes=int(p), bands=self.band_plan.bands, candidates=n_cand,
-                gathered=int(stat[0]), candidate_fraction=round(frac, 6),
-                **telemetry.trace_fields(),
-            )
-        return d.result(None), gid.result(None)
+        fetch, nq, p, tile, a, cap = payload
+        with annotate("rp:lsh/wait_tile"):
+            out = fetch.result(None)
+        with annotate("rp:lsh/finish_tile"):
+            stat, d, gid = _unpacked(out, nq, m_eff)
+            observability.count_probe(nq, self.band_plan.bands, p, stat[0], cap)
+            overflow = int(stat[1]) != 0
+            n_cand = int(stat[2])
+            reg = telemetry.registry()
+            dense = n_cand > self.fallback_density * self.n_live
+            if overflow or n_cand < m_eff or dense:
+                reason = ("device_budget" if overflow
+                          else "starved" if n_cand < m_eff else "dense")
+                reg.counter_inc("index.lsh.fallbacks")
+                telemetry.emit(
+                    EVENTS.INDEX_LSH_FALLBACK, reason=reason, queries=nq,
+                    probes=int(p), candidates=n_cand, n_live=int(self.n_live),
+                    threshold=self.fallback_density,
+                    **telemetry.trace_fields(),
+                )
+                return SimHashIndex.query_topk(self, a, m_eff, tile=tile)
+            frac = n_cand / max(self.n_live, 1)
+            reg.counter_inc("index.lsh.dispatches")
+            reg.counter_inc("index.lsh.device.dispatches")
+            reg.counter_inc("index.lsh.probe_buckets",
+                            nq * self.band_plan.bands * p)
+            reg.counter_inc("index.lsh.candidates", n_cand)
+            reg.gauge_set("index.lsh.candidate_fraction", frac)
+            if telemetry.enabled():
+                telemetry.emit(
+                    EVENTS.INDEX_LSH_DEVICE_DISPATCH, queries=nq, m=int(m_eff),
+                    probes=int(p), bands=self.band_plan.bands, candidates=n_cand,
+                    gathered=int(stat[0]), candidate_fraction=round(frac, 6),
+                    **telemetry.trace_fields(),
+                )
+            return d, gid
 
     def _lsh_tile_entry(self, a, m_eff: int, masks: np.ndarray, p: int,
                         tile: int, device: bool, adaptive: bool,
@@ -1267,7 +1351,7 @@ class LSHSimHashIndex(SimHashIndex):
 
         def fetch(d, gid, stat, cnt):
             # the round's outputs in one copy to the host
-            return torch.cat([stat, d.reshape(-1), gid.reshape(-1), cnt]).cpu()
+            return torch.cat([_packed(stat, d, gid), cnt]).cpu()
 
         for f, (lo, hi) in enumerate(levels):
             if not active.any():
@@ -1279,9 +1363,8 @@ class LSHSimHashIndex(SimHashIndex):
                 self._to_device(active.astype(np.int32)[None, :]), m_eff,
                 caps[f], fetch,
             ).numpy()
-            stat = out[:8]
-            nd = out[8: 8 + nq * m_eff].reshape(nq, m_eff)
-            ng = out[8 + nq * m_eff: 8 + 2 * nq * m_eff].reshape(nq, m_eff)
+            stat, nd, ng = _unpacked(out, nq, m_eff)
+            observability.count_probe(nq, bands, hi - lo, stat[0], caps[f])
             cnt = out[8 + 2 * nq * m_eff:]
             reg.observe("index.lsh.probe.dispatch_s", time.perf_counter() - t1)
             rounds += 1

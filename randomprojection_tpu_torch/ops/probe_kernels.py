@@ -25,6 +25,14 @@ and with no host sync:
    ids on the device.  Ascending slot order is ascending global id, so
    K4's lower-local-id tie rule is the documented lower-global-id rule.
 
+The bucket index
+----------------
+``fold_band_csr`` builds (and grows) the banded CSR the walk reads on the
+codes' own device, a band at a time: ``band_key`` over every row, a
+stable sort, a bincount's cumulative sum, with no copy of the codes to
+the host (``ann.lsh.BandedBuckets.add``, for every index: on a card or
+on the CPU).
+
 Kernel and plain version
 ------------------------
 ``rp_probe_gather`` launches the two kernels of ``csrc/probe.cu`` (the
@@ -84,9 +92,11 @@ __all__ = [
     "MAX_CAP",
     "ProbePlan",
     "TileGraphs",
+    "band_key",
     "capture_tile",
     "device_band_keys",
     "device_probe_topk",
+    "fold_band_csr",
     "gather_rows",
     "plan_probe",
     "probe_gather",
@@ -200,11 +210,31 @@ def runs_cap(total: int, m: int) -> int:
     return _ceil_pow2(max(int(total), 4 * int(m), 128))
 
 
+def band_key(codes, band: int, band_bits: int):
+    """Band ``band``'s key of every row of a packed uint8 code plane on its
+    device: ``(n,)`` int32, the row's code bits ``[j·b, (j+1)·b)``.  Bits
+    are little-endian within each byte and bytes in order, so the key is
+    the bytes that hold the band read as a little-endian integer, shifted
+    and masked (at most 4 bytes for ``b ≤ 20``): a few passes over the
+    rows, for a bucket build over many rows (``device_band_keys`` makes a
+    query tile's keys in fewer launches)."""
+    import torch
+
+    lo = band * band_bits
+    first, shift = lo >> 3, lo & 7
+    acc = codes[:, first].to(torch.int64)
+    for t in range(1, ((shift + band_bits - 1) >> 3) + 1):
+        acc |= codes[:, first + t].to(torch.int64) << (8 * t)
+    return ((acc >> shift) & ((1 << band_bits) - 1)).to(torch.int32)
+
+
 def device_band_keys(codes, bands: int, band_bits: int):
     """Band keys of a packed uint8 code tile on its device: ``(bands, n)``
     int32, key ``j`` of a row being its code bits ``[j·b, (j+1)·b)``,
     little-endian within each byte (equal to the host
-    ``ann.lsh.band_keys``)."""
+    ``ann.lsh.band_keys`` and to ``band_key``).  The tile's bits unpacked
+    whole: a handful of launches, the least for the few rows of a query
+    tile."""
     import torch
 
     n = codes.shape[0]
@@ -215,6 +245,63 @@ def device_band_keys(codes, bands: int, band_bits: int):
         band_bits, dtype=torch.int32, device=codes.device)
     keys = (bits.reshape(n, bands, band_bits) * w).sum(dim=2, dtype=torch.int32)
     return keys.T.contiguous()
+
+
+#: rows whose band keys are made at once by ``fold_band_csr``: bounds its
+#: int64 temporaries (256 MiB each) however large the fold
+_KEY_BLOCK = 1 << 25
+
+
+def fold_band_csr(indptr, ids, codes, row0: int, bands: int, band_bits: int):
+    """Fold code rows ``row0, row0 + 1, ...`` into a banded CSR on the
+    codes' device, in the reference's layout (ids ascending within each
+    bucket).  ``indptr`` ``(bands, 2^b + 1)`` int32 and
+    ``ids`` ``(bands, n_old)`` int32 are the CSR so far (None: empty),
+    every id below ``row0``; ``codes`` ``(m, n_bytes)`` uint8.  Returns the
+    new ``(indptr, ids)``.
+
+    A band at a time: its keys, a stable sort of them (new rows grouped by
+    bucket, ids ascending), and the offsets from a bincount's cumulative
+    sum.  Bucket ``k``'s old run moves right by the new rows of the buckets
+    below ``k``, and the new rows of ``k`` follow its old run, so ids stay
+    ascending in every bucket.  Traced, a band is the span
+    ``rp:lsh/build``."""
+    import torch
+
+    from randomprojection_tpu_torch.utils.observability import annotate
+
+    dev = codes.device
+    nb = 1 << band_bits
+    m = int(codes.shape[0])
+    n_old = 0 if ids is None else int(ids.shape[1])
+    out_ip = torch.empty((bands, nb + 1), dtype=torch.int32, device=dev)
+    out_ids = torch.empty((bands, n_old + m), dtype=torch.int32, device=dev)
+    key = torch.empty(m, dtype=torch.int32, device=dev)
+    for j in range(bands):
+        with annotate("rp:lsh/build"):
+            for lo in range(0, m, _KEY_BLOCK):
+                key[lo:lo + _KEY_BLOCK] = band_key(codes[lo:lo + _KEY_BLOCK],
+                                                   j, band_bits)
+            srt = torch.sort(key, stable=True)
+            csum = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+            torch.cumsum(torch.bincount(key, minlength=nb), 0, out=csum[1:])
+            if n_old == 0:
+                out_ip[j] = csum
+                out_ids[j] = srt.indices + row0
+                continue
+            old_ip = indptr[j].long()
+            out_ip[j] = old_ip + csum
+            old_counts = old_ip.diff()
+            shift = torch.repeat_interleave(csum[:-1], old_counts,
+                                            output_size=n_old)
+            shift += torch.arange(n_old, device=dev)
+            out_ids[j].scatter_(0, shift, ids[j])
+            # the new row at sorted position r, of bucket k, lands right
+            # after k's old run: old_ip[k + 1] + r
+            dest = old_ip[srt.values.long() + 1]
+            dest += torch.arange(m, device=dev)
+            out_ids[j].scatter_(0, dest, (srt.indices + row0).to(torch.int32))
+    return out_ip, out_ids
 
 
 def _validate(qkeys, masks, active, indptr, ids, cap):

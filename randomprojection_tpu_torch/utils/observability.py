@@ -8,8 +8,9 @@ event log when one is configured, ``batch_nbytes``, ``stage``, and the
 profiler hooks on ``torch.profiler``: ``profile_trace`` writes a
 Chrome/Perfetto trace, ``annotate`` names a region in its timeline and,
 while a profiler records, keeps it in an in-memory span store beside the
-interpreter's collections and the waves of counted kernel launches
-(``recorded_spans``, ``gc_collections``, ``launch_waves``).
+interpreter's collections, the waves of counted kernel launches and the
+LSH tier's probe launches (``recorded_spans``, ``gc_collections``,
+``launch_waves``, ``probe_launches``).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ __all__ = [
     "StreamStats", "batch_nbytes", "profile_trace", "annotate", "logger",
     "stage", "recording", "record_span", "perf_offset_ns", "recorded_spans",
     "dropped_spans", "gc_collections", "clear_spans", "count_waves",
-    "launch_waves",
+    "launch_waves", "count_probe", "probe_launches",
 ]
 
 
@@ -311,6 +312,8 @@ _gc_totals = {g: [0, 0] for g in range(3)}
 _gc_open = None  # (generation, start_ns, record_function or None)
 # kernel -> [launches, blocks, wave slots], while recording
 _waves: dict = {}
+# (rows, bands, probes, gathered, cap) of each probe launch, while recording
+_probes: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
 
 
 def _bind_profiler():
@@ -424,9 +427,28 @@ def launch_waves() -> dict:
         return {k: tuple(v) for k, v in _waves.items()}
 
 
+def count_probe(rows: int, bands: int, probes: int, gathered: int,
+                cap: int) -> None:
+    """Count one launch of the LSH tier's probe kernel (K5): the tile's
+    query ``rows``, its ``bands`` and ``probes``, the ids its runs
+    ``gathered`` and its slot budget ``cap``.  Dropped while no profiler
+    records."""
+    if recording():
+        with _spans_lock:
+            _probes.append((int(rows), int(bands), int(probes),
+                            int(gathered), int(cap)))
+
+
+def probe_launches() -> list:
+    """The probe launches counted while recording, oldest first: ``(rows,
+    bands, probes, gathered, cap)``."""
+    with _spans_lock:
+        return list(_probes)
+
+
 def clear_spans() -> None:
-    """Empty the store, its drop counter, the collection counters and the
-    launches' waves."""
+    """Empty the store, its drop counter, the collection counters, the
+    launches' waves and the probe launches."""
     global _dropped
     with _spans_lock:
         _spans.clear()
@@ -434,6 +456,7 @@ def clear_spans() -> None:
         for v in _gc_totals.values():
             v[0] = v[1] = 0
         _waves.clear()
+        _probes.clear()
 
 
 def _gc_hook(phase: str, info: dict) -> None:

@@ -597,7 +597,7 @@ def _probe_inputs(rows, nb, bands, band_bits, tq, masks, seed, *, dup=0,
     planes = (lsh.band_keys(q, plan).astype(np.int32),
               np.asarray(masks, np.int32)[None, :], active,
               np.stack([ip.astype(np.int32) for ip in b._indptr]),
-              np.stack(b._ids))
+              np.stack(b.ids))
     return [torch.from_numpy(np.ascontiguousarray(p)).to(device) for p in planes]
 
 
@@ -791,6 +791,92 @@ def test_lsh_unplanned_wide_bands_launch_the_probe_kernel(cuda):
     dev = card.query_topk(A, 7, tile=32, probes=16)
     np.testing.assert_array_equal(dev[0], host[0])
     np.testing.assert_array_equal(dev[1], host[1])
+
+
+def _numpy_band_csr(codes, bands, band_bits):
+    """The banded CSR by numpy alone, for the card's build to meet: a
+    band's keys from the unpacked bits, a stable argsort (ids ascending
+    within each bucket) and the indptr from a bincount."""
+    keys = np.zeros((bands, codes.shape[0]), np.int64)
+    for lo in range(0, codes.shape[0], 1 << 20):
+        bits = np.unpackbits(codes[lo:lo + (1 << 20)], axis=1,
+                             bitorder="little")
+        w = 1 << np.arange(band_bits, dtype=np.int64)
+        for j in range(bands):
+            keys[j, lo:lo + (1 << 20)] = bits[
+                :, j * band_bits:(j + 1) * band_bits] @ w
+    for j in range(bands):
+        counts = np.bincount(keys[j], minlength=1 << band_bits)
+        yield (np.concatenate(([0], np.cumsum(counts))),
+               np.argsort(keys[j], kind="stable"))
+
+
+def test_lsh_card_built_csr_equals_the_host_build_at_2_24_codes(cuda):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(24)
+    codes = torch.randint(0, 256, (1 << 24, 32), generator=g,
+                          dtype=torch.uint8, device=cuda)
+    codes[: 1 << 16] = codes[:1]  # one bucket of every band holds 65,536
+    idx = LSHSimHashIndex(codes, bands=8, band_bits=20)
+    ip, ids = idx._buckets.dev
+    assert ip.is_cuda and ids.is_cuda and idx._buckets._ids is None
+    ip, ids = ip.cpu().numpy(), ids.cpu().numpy()
+    for j, (want_ip, want_ids) in enumerate(
+            _numpy_band_csr(codes.cpu().numpy(), 8, 20)):
+        np.testing.assert_array_equal(ip[j], want_ip)
+        np.testing.assert_array_equal(idx._buckets._indptr[j], want_ip)
+        np.testing.assert_array_equal(ids[j], want_ids)
+
+
+def test_lsh_card_built_index_answers_as_the_host_build(cuda, tmp_path):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex, load_lsh_index
+
+    rng = np.random.default_rng(31)
+    centres = rng.integers(0, 256, size=(2000, 32), dtype=np.uint8)
+    codes = np.repeat(centres, 16, axis=0)
+    codes[np.arange(codes.shape[0]), rng.integers(0, 32, codes.shape[0])] ^= 1
+    A = codes[rng.integers(0, codes.shape[0], 200)] ^ np.uint8(2)
+    kw = dict(bands=8, band_bits=20, probes=16, fallback_density=1.0)
+    card = LSHSimHashIndex(torch.from_numpy(codes[:20000]).to(cuda), **kw)
+    cpu = LSHSimHashIndex(codes[:20000], device="cpu", **kw)
+    assert card._buckets.dev[1].is_cuda and not cpu._buckets.dev[1].is_cuda
+
+    def same(n):
+        for j, (want_ip, want_ids) in enumerate(
+                _numpy_band_csr(card_codes(n), 8, 20)):
+            np.testing.assert_array_equal(
+                card._buckets.dev[0][j].cpu().numpy(), want_ip)
+            np.testing.assert_array_equal(
+                card._buckets.dev[1][j].cpu().numpy(), want_ids)
+        for path in ("auto", "host"):
+            got = card.query_topk(A, 10, tile=64, probe_path=path)
+            want = cpu.query_topk(A, 10, tile=64, probe_path="host")
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+
+    def card_codes(n):
+        return np.concatenate([c.b.cpu().numpy() for c in card._chunks])[:n]
+
+    same(20000)
+    for idx in (card, cpu):
+        idx.add(codes[20000:])
+    assert card._buckets.dev[1].is_cuda and card._buckets.n == 32000
+    same(32000)
+    for idx in (card, cpu):
+        idx.delete(np.arange(0, 32000, 3))
+    same(32000)
+    card.save(str(tmp_path / "snap"))
+    back = load_lsh_index(str(tmp_path / "snap"))
+    assert back._buckets.dev[1].is_cuda
+    np.testing.assert_array_equal(back._buckets.keys, cpu._buckets.keys)
+    np.testing.assert_array_equal(back.query_topk(A, 10, tile=64)[1],
+                                  cpu.query_topk(A, 10, tile=64)[1])
+    for idx in (card, cpu):
+        idx.compact()
+    assert card._buckets.dev[1].is_cuda and card._buckets.n == cpu.n_codes
+    same(cpu.n_codes)
 
 
 # -- the threefry matrices, snapshots and durable ingest on the card ------------

@@ -68,7 +68,7 @@ def _planes(b, plan, q, masks, inactive=()):
     return (lsh.band_keys(q, plan).astype(np.int32),
             np.asarray(masks, np.int32)[None, :], active,
             np.stack([ip.astype(np.int32) for ip in b._indptr]),
-            np.stack(b._ids))
+            np.stack(b.ids))
 
 
 # (rows, bytes, bands, band_bits, queries, masks, cap, repeated rows,

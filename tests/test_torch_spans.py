@@ -9,6 +9,9 @@ the same thread, the backend's ``rp:backend/dispatch`` around its
 with the collection counters, spans on the profiler's own clock, a
 ring that counts what it drops once full, and the waves of counted kernel
 launches (kept only while a profiler records, cleared with the spans).
+The LSH tier's spans (a call, and a device-rung tile's sizing, dispatch,
+wait and ladder on its thread), a card build's span a band, and the probe
+launches it counts: present under a profiler, absent without one.
 """
 
 import collections
@@ -182,3 +185,58 @@ def test_launch_waves_clear_with_the_spans():
     assert obs.launch_waves() == {"k": (1, 7, 8)}
     obs.clear_spans()
     assert obs.launch_waves() == {}
+
+
+def _lsh_index(**kw):
+    from randomprojection_tpu_torch.ann import LSHSimHashIndex
+
+    return LSHSimHashIndex(_codes(4000, 24, 5), device="cpu", bands=8,
+                           band_bits=20, fallback_density=1.0, **kw)
+
+
+def test_the_lsh_tier_spans_and_probe_launches_under_a_profiler():
+    with _traced():
+        idx = _lsh_index()
+        q = _codes(40, 24, 6)
+        idx.query_topk(q, 5, tile=16, probes=3, probe_path="device")
+    calls = _named("rp:lsh/query_topk")
+    assert len(calls) == 1
+    _n, tid, c0, c1 = calls[0]
+    for name in ("rp:lsh/size_tile", "rp:lsh/dispatch_tile",
+                 "rp:lsh/wait_tile", "rp:lsh/finish_tile"):
+        spans = _named(name)
+        assert len(spans) == 3, name  # tiles of 16, 16 and 8 queries
+        assert all(s[1] == tid and c0 <= s[2] <= s[3] <= c1 for s in spans)
+    # a tile's wait comes before its ladder
+    waits, ladders = _named("rp:lsh/wait_tile"), _named("rp:lsh/finish_tile")
+    assert all(w[3] <= f[2] for w, f in zip(waits, ladders))
+    launches = obs.probe_launches()
+    assert [(r, b, p) for r, b, p, _g, _c in launches] == [
+        (16, 8, 3), (16, 8, 3), (8, 8, 3)]
+    # the runs' total sizes the slot budget: the gathered ids fit it
+    assert all(0 < g <= c for _r, _b, _p, g, c in launches)
+    obs.clear_spans()
+    assert obs.probe_launches() == []
+
+
+def test_the_card_build_is_a_span_a_band():
+    from randomprojection_tpu_torch.ann import lsh
+
+    plan = lsh.BandPlan(64, bands=3, band_bits=20)
+    with _traced():
+        lsh.BandedBuckets(plan).add(torch.from_numpy(_codes(500, 8, 7)))
+    assert len(_named("rp:lsh/build")) == 3
+
+
+def test_off_the_lsh_tier_stores_nothing(monkeypatch):
+    idx = _lsh_index()
+    idx.query_topk(_codes(40, 24, 6), 5, tile=16, probes=3,
+                   probe_path="device")
+    obs.count_probe(16, 8, 3, 100, 128)
+    assert obs.recorded_spans() == [] and obs.probe_launches() == []
+    # off, a span is the shared null context and a launch one check
+    assert obs.annotate("rp:lsh/query_topk") is obs._NULL
+    checks = []
+    monkeypatch.setattr(obs, "recording", lambda: checks.append(1) or False)
+    obs.count_probe(16, 8, 3, 100, 128)
+    assert checks == [1] and obs.probe_launches() == []
