@@ -76,7 +76,8 @@ Traced (``utils/observability``): a bucket build's band is the span
 ``rp:lsh/build``, a call ``rp:lsh/query_topk``, a device-rung tile
 ``rp:lsh/size_tile``, ``rp:lsh/dispatch_tile``, ``rp:lsh/wait_tile`` and
 ``rp:lsh/finish_tile``, and each probe launch is counted
-(``count_probe``).
+(``count_probe``), as is each re-rank's tensor-core scan
+(``count_survivors``, from the counts it leaves in the tile's stats).
 
 Telemetry: ``index.lsh.dispatch``, ``index.lsh.fallback`` (with its
 reason), ``index.lsh.build``, ``index.lsh.device_dispatch`` and
@@ -493,6 +494,23 @@ def _packed(stat, d, gid):
     import torch
 
     return torch.cat([stat, d.reshape(-1), gid.reshape(-1)])
+
+
+def _count_rerank(nq: int, cap: int, n_bytes: int, m: int, stat,
+                  device) -> None:
+    """Count a device tile's re-rank (``observability.count_survivors``)
+    while a profiler records: its query rows times the splits of its K4
+    plan, and the keys and merges the scan added to the tile's stats
+    (``probe_kernels.rerank_counts``).  A graph replay launches K4 where
+    the host does not see it; a tile whose stats carry no keys took its
+    re-rank eagerly (the tiered rung), which counts itself."""
+    if not observability.recording() or device.type != "cuda":
+        return
+    keys, merges = probe_kernels.rerank_counts(stat)
+    plan = topk_kernels.plan_fused(nq, cap, n_bytes, m,
+                                   sm_count=topk_kernels._sm_count(device))
+    if keys and plan is not None and plan.route == "wgmma":
+        observability.count_survivors(nq * plan.splits, (keys, merges))
 
 
 def _unpacked(out: np.ndarray, nq: int, m: int):
@@ -1242,6 +1260,7 @@ class LSHSimHashIndex(SimHashIndex):
         with annotate("rp:lsh/finish_tile"):
             stat, d, gid = _unpacked(out, nq, m_eff)
             observability.count_probe(nq, self.band_plan.bands, p, stat[0], cap)
+            _count_rerank(nq, cap, self.n_bytes, m_eff, stat, self.device)
             overflow = int(stat[1]) != 0
             n_cand = int(stat[2])
             reg = telemetry.registry()
@@ -1365,6 +1384,7 @@ class LSHSimHashIndex(SimHashIndex):
             ).numpy()
             stat, nd, ng = _unpacked(out, nq, m_eff)
             observability.count_probe(nq, bands, hi - lo, stat[0], caps[f])
+            _count_rerank(nq, caps[f], self.n_bytes, m_eff, stat, self.device)
             cnt = out[8 + 2 * nq * m_eff:]
             reg.observe("index.lsh.probe.dispatch_s", time.perf_counter() - t1)
             rounds += 1

@@ -23,11 +23,14 @@
 // (2.3 ms).  Beside it stand the selection's register compares on the
 // CUDA cores (3.4e10 of them, 2.4 ms at the integer rate), the shared
 // memory the products and the staging read and write (about 64 KB a tile,
-// 2.4 ms) and the survivors' inserts, a list's warm-up in every row split.
-// Measured on an H100 (PERF.md; torch_experiments/k4_parts.py takes the
-// parts out one at a time): about half the time is products, staging and
-// compares, which overlap only in part, and half the survivors' path, in
-// which one warp's insert holds its whole warpgroup at the next product.
+// 2.4 ms) and the survivors' path, a list's warm-up in every row split:
+// each split's lists start empty, so a list takes about m (1 + ln(N / m))
+// keys over a split of N rows, most of them in its first tiles.  Measured
+// on an H100 (PERF.md; torch_experiments/k4_parts.py takes the parts out
+// one at a time): with one sorted insert a survivor, in which the warp
+// serialised on each key while its warpgroup waited at the next product,
+// that path was about half the time at 2048 x 2^24 and nearly all of it at
+// an LSH tile (64 queries over ~2^20 candidates, ~32 tiles a split).
 //
 // What the design does about it.  The TPU grid walks query tiles and loops
 // over every row block inside one program, carrying the running top-m in
@@ -35,9 +38,9 @@
 // split), and a second small launch merges each query's splits.  There are
 // two scan routes, chosen by the planner from the shape alone
 // (ops/topk_kernels.py::plan_fused):
-//   route "wgmma" (topk_mma_kernel), every shape whose lists fit beside the
-//     ring: a block holds 64 or 128 queries (one or two consumer
-//     warpgroups) and scans its split's rows in tiles of 256.
+//   route "wgmma" (topk_mma_kernel), every shape whose lists and buffers
+//     fit beside the ring: a block holds 64 or 128 queries (one or two
+//     consumer warpgroups) and scans its split's rows in tiles of 256.
 //     * The product on the tensor cores.  wgmma m64n256k256 .b1 .and.popc
 //       gives popc(a & b); with A = [q, ~q] and B = [~c, c] two steps sum to
 //       popc(q & ~c) + popc(~q & c) = popc(q ^ c), the distance itself, in
@@ -60,12 +63,23 @@
 //       is one compare a pair (a running minimum, then one test a row).
 //       Ids only ascend inside a block's scan, so a later row at the
 //       threshold's distance never displaces a listed one: the strict
-//       compare on 32 bits is enough.  Only survivors touch shared memory:
-//       a warp votes, and for each survivor looks the code row up in the
-//       tile's liveness bits and inserts (dist << 32 | id) into the
-//       query's sorted list, which the warp owns; thresholds are read
-//       again after each insert.  The lists (TQ x m keys) go to a scratch
-//       buffer.
+//       compare on 32 bits is enough.  Only survivors touch shared memory,
+//       and a register at a time, not a key at a time: each query row
+//       has an unsorted buffer of up to `buf` keys (32 where m <= 32,
+//       planned with the ring) beside its sorted list, and the lanes whose
+//       distance passes and whose code row is live (the tile's liveness
+//       bits) write (dist << 32 | id) into their rows' buffers together,
+//       at slots from a vote and a count over the four lanes of a row.
+//       Before an append could overflow a row's buffer, the warp merges
+//       it: the buffer sorted across the warp (bitonic, shuffles), merged
+//       with the list, the m least kept, the threshold read back (a list
+//       of more than 32 keys is merged by ranks, in place).  Thresholds
+//       only tighten, so one left stale between merges lets more keys into
+//       a buffer and never loses one; every buffer is merged at the end of
+//       the split.  The lists (TQ x m keys) go to a scratch buffer.
+//       Measured (PERF.md): the survivors' path of a 2048-query tile over
+//       1B planted codes fell from 100 of 330 ms to 64 of 302; the scan's
+//       time follows its code size, so the merges are out of line.
 //     * Rows that never enter.  The producer reads the tile's 256
 //       tombstone bytes with its copies and leaves, beside the stage, a
 //       bit a row (live: below n_real and not tombstoned) and a flag; a
@@ -103,6 +117,7 @@ constexpr int kMaxStages = 8;
 constexpr int kProducerThreads = 128;
 constexpr int kSmemLimit = 232448;         // dynamic shared memory a block can use
 constexpr int kLiveBytes = 64;             // a stage's row-liveness bits (32) and flag
+constexpr int kMinBuf = 8;                 // the least keys a row's buffer holds
 constexpr int kSmemSlack =                 // 1024-byte alignment, barriers, liveness
     1024 + 128 + kMaxStages * kLiveBytes;
 
@@ -478,7 +493,9 @@ struct MmaArgs {
   int splits;
   int tiles_per_split;
   int stages;
+  int buf;              // keys a row's buffer holds, kMinBuf..32
   uint32_t sentinel;    // n_bytes * 8 + 1
+  unsigned long long* counts;  // nullptr, or [keys buffered, merges] to add to
 };
 
 constexpr int kCodeStage = 2 * kTileN * kStepBytes;  // a tile's k-step, and its complement
@@ -490,11 +507,13 @@ __host__ __device__ constexpr int mma_q_slots(int64_t n_bytes, int stages) {
   return n_bytes > kStepBytes ? stages : 1;
 }
 
+// the ring, the queries' slots, the lists and the buffers (a key of
+// padding a row)
 __host__ __device__ constexpr int64_t mma_smem_bytes(int tq, int m, int stages,
-                                                     int64_t n_bytes) {
+                                                     int buf, int64_t n_bytes) {
   return kSmemSlack + static_cast<int64_t>(stages) * kCodeStage +
          static_cast<int64_t>(mma_q_slots(n_bytes, stages)) * 2 * tq * kStepBytes +
-         static_cast<int64_t>(tq) * m * 8;
+         static_cast<int64_t>(tq) * (m + buf + 1) * 8;
 }
 
 // 16 bytes global -> shared, zero-filled when src_bytes is 0
@@ -558,41 +577,79 @@ __device__ __forceinline__ void complement16(uint8_t* dst, const uint8_t* src) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(~v.x, ~v.y, ~v.z, ~v.w);
 }
 
-// Insert key into the ascending list of m <= 32 keys unless it is past the
-// last: lane j holds list[j], a vote finds the place, the tail moves up by
-// one.  The whole warp calls it with the same key.
-__device__ __forceinline__ void insert_small(long long* list, int m,
-                                             long long key, int lane) {
-  const long long v = lane < m ? list[lane] : kMaxKey;
-  const int at = __popc(__ballot_sync(0xFFFFFFFFu, v < key));
-  if (at >= m) return;
-  __syncwarp();
-  if (lane >= at && lane < m - 1) list[lane + 1] = v;
-  if (lane == at) list[at] = key;
-  __syncwarp();
-}
-
-// The survivors of one accumulator register across the warp.  `hit`: this
-// lane's distance d beat its row's threshold and its code row is live; lane
-// 4g + t holds query row row_w + g and chunk row r0 + col + 2t.  The whole
-// warp inserts them into their queries' lists.
-__device__ __forceinline__ void take_survivors(long long* lists, int m,
-                                               int64_t r0, bool hit, int d,
-                                               int col, int row_w, int lane) {
-  unsigned mask = __ballot_sync(0xFFFFFFFFu, hit);
-  while (mask) {
-    const int src = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int dd = __shfl_sync(0xFFFFFFFFu, d, src);
-    const long long key = (static_cast<long long>(dd) << 32) |
-                          (r0 + col + 2 * (src & 3));
-    long long* list = lists + static_cast<int64_t>(row_w + (src >> 2)) * m;
-    if (m <= 32) {
-      insert_small(list, m, key, lane);
-    } else if (key < list[m - 1]) {
-      insert_key(list, m, key, lane);
+// One key a lane, sorted ascending across the warp (bitonic, shuffles).
+__device__ __forceinline__ long long warp_sort(long long v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const long long o = __shfl_xor_sync(0xFFFFFFFFu, v, j);
+      // the lower lane of a pair keeps the least in an ascending run
+      v = (((lane & j) == 0) == ((lane & k) == 0)) ? (o < v ? o : v)
+                                                   : (o > v ? o : v);
     }
   }
+  return v;
+}
+
+// The m least of a row's ascending list (m <= 32) and the n keys of its
+// buffer, back into the list: the buffer sorted across the warp, then the
+// list against it reversed (the least of each pair: the 32 least of both,
+// in a bitonic run), then that run merged.  Returns the new m-th key's
+// distance.  The whole warp calls it with the same arguments.
+__device__ __noinline__ int merge_small(long long* list, const long long* buf,
+                                       int m, int n, int lane) {
+  const long long b = warp_sort(lane < n ? buf[lane] : kMaxKey, lane);
+  const long long l = lane < m ? list[lane] : kMaxKey;
+  const long long r = __shfl_sync(0xFFFFFFFFu, b, 31 - lane);
+  long long v = l < r ? l : r;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const long long o = __shfl_xor_sync(0xFFFFFFFFu, v, j);
+    v = (lane & j) ? (o > v ? o : v) : (o < v ? o : v);
+  }
+  if (lane < m) list[lane] = v;
+  const long long last = __shfl_sync(0xFFFFFFFFu, v, m - 1);
+  __syncwarp();  // the buffer is read before its row's next appends
+  return static_cast<int>(last >> 32);
+}
+
+// Keys of the ascending a[0, n) below key.
+__device__ __forceinline__ int rank_below(const long long* a, int n,
+                                          long long key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// merge_small for any m: the buffer sorted across the warp and written
+// back, then each key goes to its own index plus its rank in the other
+// sequence (the two hold no equal keys: ids differ, and a buffer key is
+// never an empty slot's).  The list moves in place from the top down, 32
+// keys a step, as no key moves below its index.
+__device__ __noinline__ int merge_large(long long* list, long long* buf,
+                                        int m, int n, int lane) {
+  const long long b = warp_sort(lane < n ? buf[lane] : kMaxKey, lane);
+  __syncwarp();
+  if (lane < n) buf[lane] = b;
+  __syncwarp();
+  const int at_b = lane < n ? lane + rank_below(list, m, b) : m;
+  for (int base = (m - 1) & ~31; base >= 0; base -= 32) {
+    const int i = base + lane;
+    const long long v = i < m ? list[i] : 0;
+    const int at = i < m ? i + rank_below(buf, n, v) : m;
+    __syncwarp();
+    if (at < m) list[at] = v;
+    __syncwarp();
+  }
+  if (at_b < m) list[at_b] = b;
+  __syncwarp();
+  const long long last = list[m - 1];
+  __syncwarp();
+  return static_cast<int>(last >> 32);
 }
 
 // acc[BASE + i] for a run-time i in [0, 32): a tree of selects, so the
@@ -611,19 +668,23 @@ __device__ __forceinline__ int pick32(const int (&acc)[128], int i) {
   return (i & 1) ? v[1] : v[0];
 }
 
-// What a consumer thread carries from tile to tile: the thresholds of its
-// two query rows (the distance of each row's m-th best) with where to read
-// them again after an insert, and the current tile's liveness bits (bit c
-// of the 256: code row c of the tile is below n_real and not tombstoned).
+// What a consumer warp carries from tile to tile.  The warp owns 16 query
+// rows, each with an ascending list of m keys and an unsorted buffer of up
+// to `buf` keys beside it (`stride` = buf + 1 keys apart, so that rows
+// appending at the same slot fall in different banks).  Lane 4g + t holds
+// rows g and g + 8 of the warp (its "half" 0 and 1): each row's threshold
+// (the distance of its list's m-th key, -1 past nq) and its buffer's count,
+// the same in the row's four lanes; and the current tile's liveness bits
+// (bit c of the 256: code row c of the tile is below n_real and not
+// tombstoned).  `keys` and `merges` count the keys taken into buffers and
+// the merges (the same in every lane).
 struct Selection {
-  int thr0, thr1;
-  const long long* last0;  // the m-th key of row's list, or nullptr past nq
-  const long long* last1;
+  long long* lists;     // the warp's 16 lists
+  long long* bufs;      // the warp's 16 buffers
+  int m, buf, stride;
+  int thr0, thr1, cnt0, cnt1;  // half 0, half 1 (named: never a local array)
+  unsigned long long keys, merges;
   uint4 live_lo, live_hi;
-  __device__ __forceinline__ void refresh() {
-    if (last0 != nullptr) thr0 = static_cast<int>(*last0 >> 32);
-    if (last1 != nullptr) thr1 = static_cast<int>(*last1 >> 32);
-  }
   __device__ __forceinline__ bool live(int c) const {
     const int w = c >> 5;
     const uint32_t a0 = (w & 4) ? live_hi.x : live_lo.x;
@@ -633,38 +694,80 @@ struct Selection {
     const uint32_t b0 = (w & 2) ? a2 : a0, b1 = (w & 2) ? a3 : a1;
     return (((w & 1) ? b1 : b0) >> (c & 31)) & 1u;
   }
+  // merge row r's n buffered keys into its list; the row's lanes take the
+  // new threshold and an empty buffer.  The whole warp calls it.
+  __device__ __forceinline__ void merge(int r, int n, int lane) {
+    __syncwarp();  // the row's appends are seen by every lane
+    long long* list = lists + static_cast<int64_t>(r) * m;
+    long long* b = bufs + static_cast<int64_t>(r) * stride;
+    const int t = m <= 32 ? merge_small(list, b, m, n, lane)
+                          : merge_large(list, b, m, n, lane);
+    if ((lane >> 2) == (r & 7)) {
+      if (r >> 3) {
+        thr1 = t;
+        cnt1 = 0;
+      } else {
+        thr0 = t;
+        cnt0 = 0;
+      }
+    }
+    ++merges;
+  }
 };
 
 // One group of 32 accumulator registers of a tile in which some lane's
-// distance beat its row's threshold: the registers any lane hit, as a bit
-// mask, then each such register's survivors, tested again against the
-// thresholds as they stand after the inserts before it (ties let through),
-// and against the liveness bits.
+// distance beat its row's threshold.  The registers any lane hit, as a bit
+// mask; then, a register at a time, its survivors: a distance at or under
+// its row's threshold as it stands, the code row live (ties pass, since a
+// merge in this tile may have set the threshold from a later row).  They
+// go to their rows' buffers together, each lane at its row's count plus
+// the survivors of the row's lower lanes; a row the register's survivors
+// would overflow is merged first, and its lanes test again.  Between
+// merges a row's threshold is its list's: tightening it at each append
+// (the larger of the list's (m - c)-th distance and the c buffered keys'
+// greatest) let in fewer keys, but cost more than they did (PERF.md).
 template <int BASE>
 __device__ __forceinline__ void take_group(const int (&acc)[128], Selection& t,
-                                           long long* lists, int m, int64_t r0,
-                                           int row_w, int lane) {
+                                           int64_t r0, int lane) {
   unsigned part[4] = {0u, 0u, 0u, 0u};  // four short chains, not one long
 #pragma unroll
   for (int i = 0; i < 32; ++i)
     if (acc[BASE + i] < ((i & 2) ? t.thr1 : t.thr0)) part[i >> 3] |= 1u << i;
   unsigned todo = __reduce_or_sync(
       0xFFFFFFFFu, (part[0] | part[1]) | (part[2] | part[3]));
+  const int row_lanes = lane & ~3;
+  const unsigned below = (1u << (lane & 3)) - 1u;
   while (todo) {
     const int i = __ffs(todo) - 1;
     todo &= todo - 1;
     const int idx = BASE + i;
-    const int col = 8 * (idx >> 2) + (idx & 1);
+    const bool h = idx & 2;  // the register's half: rows g + 8, else g
+    const int col = 8 * (idx >> 2) + (idx & 1) + 2 * (lane & 3);
     const int d = pick32<BASE>(acc, i);
-    // the thresholds may by now come from this tile's own rows, of higher
-    // ids than this register's: a tie must reach the list's full compare
-    const bool hit =
-        d <= ((idx & 2) ? t.thr1 : t.thr0) && t.live(col + 2 * (lane & 3));
-    if (__any_sync(0xFFFFFFFFu, hit)) {
-      take_survivors(lists, m, r0, hit, d, col, row_w + ((idx & 2) ? 8 : 0),
-                     lane);
-      t.refresh();
+    const bool ok = t.live(col);
+    bool hit = ok && d <= (h ? t.thr1 : t.thr0);
+    unsigned mask = __ballot_sync(0xFFFFFFFFu, hit);
+    int n = __popc((mask >> row_lanes) & 0xFu);
+    unsigned full = __ballot_sync(
+        0xFFFFFFFFu, (lane & 3) == 0 && (h ? t.cnt1 : t.cnt0) + n > t.buf);
+    if (full) {
+      do {
+        const int src = __ffs(full) - 1;
+        full &= full - 1;
+        t.merge((src >> 2) + (h ? 8 : 0),
+                __shfl_sync(0xFFFFFFFFu, h ? t.cnt1 : t.cnt0, src), lane);
+      } while (full);
+      hit = ok && d <= (h ? t.thr1 : t.thr0);
+      mask = __ballot_sync(0xFFFFFFFFu, hit);
+      n = __popc((mask >> row_lanes) & 0xFu);
     }
+    const int at = h ? t.cnt1 : t.cnt0;
+    if (hit)
+      t.bufs[static_cast<int64_t>((lane >> 2) + (h ? 8 : 0)) * t.stride + at +
+             __popc((mask >> row_lanes) & below)] =
+          (static_cast<long long>(d) << 32) | (r0 + col);
+    if (h) t.cnt1 = at + n; else t.cnt0 = at + n;
+    t.keys += __popc(mask);
   }
 }
 
@@ -848,15 +951,19 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
     for (int e = lane; e < 16 * a.m; e += 32)
       lists[static_cast<int64_t>(row_w) * a.m + e] = empty_key;
     __syncwarp();
-    // a distance passes when it is below the row's threshold; rows past nq
-    // pass nothing
     Selection t;
-    t.last0 = q0 + row < a.nq
-                  ? lists + static_cast<int64_t>(row) * a.m + a.m - 1 : nullptr;
-    t.last1 = q0 + row + 8 < a.nq
-                  ? lists + static_cast<int64_t>(row + 8) * a.m + a.m - 1 : nullptr;
-    t.thr0 = t.thr1 = 0;
-    t.refresh();  // the empty lists' threshold, n_bits + 1: every distance passes
+    t.lists = lists + static_cast<int64_t>(row_w) * a.m;
+    t.bufs = lists + static_cast<int64_t>(tq) * a.m +
+             static_cast<int64_t>(row_w) * (a.buf + 1);
+    t.m = a.m;
+    t.buf = a.buf;
+    t.stride = a.buf + 1;
+    // the empty lists' threshold, n_bits + 1: every distance passes; rows
+    // past nq pass nothing
+    t.thr0 = q0 + row < a.nq ? static_cast<int>(a.sentinel) : -1;
+    t.thr1 = q0 + row + 8 < a.nq ? static_cast<int>(a.sentinel) : -1;
+    t.cnt0 = t.cnt1 = 0;
+    t.keys = t.merges = 0;
     int acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0;
@@ -926,13 +1033,22 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
           const unsigned groups = __reduce_or_sync(
               0xFFFFFFFFu, (hit[0] ? 1u : 0u) | (hit[1] ? 2u : 0u) |
                                (hit[2] ? 4u : 0u) | (hit[3] ? 8u : 0u));
-          if (groups & 1u) take_group<0>(acc, t, lists, a.m, r0, row_w, lane);
-          if (groups & 2u) take_group<32>(acc, t, lists, a.m, r0, row_w, lane);
-          if (groups & 4u) take_group<64>(acc, t, lists, a.m, r0, row_w, lane);
-          if (groups & 8u) take_group<96>(acc, t, lists, a.m, r0, row_w, lane);
+          if (groups & 1u) take_group<0>(acc, t, r0, lane);
+          if (groups & 2u) take_group<32>(acc, t, r0, lane);
+          if (groups & 4u) take_group<64>(acc, t, r0, lane);
+          if (groups & 8u) take_group<96>(acc, t, r0, lane);
           __syncwarp();
         }
       }
+    }
+    // the split's last buffered keys
+    for (int r = 0; r < 16; ++r) {
+      const int n = __shfl_sync(0xFFFFFFFFu, r < 8 ? t.cnt0 : t.cnt1, 4 * (r & 7));
+      if (n > 0) t.merge(r, n, lane);
+    }
+    if (a.counts != nullptr && lane == 0) {
+      atomicAdd(a.counts, t.keys);
+      atomicAdd(a.counts + 1, t.merges);
     }
     __syncwarp();
     for (int r = 0; r < 16; ++r) {
@@ -948,7 +1064,7 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
 template <int LD>
 int launch_mma(const MmaArgs& a, int tq, cudaStream_t s) {
   const int smem =
-      static_cast<int>(mma_smem_bytes(tq, a.m, a.stages, a.n_bytes));
+      static_cast<int>(mma_smem_bytes(tq, a.m, a.stages, a.buf, a.n_bytes));
   cudaError_t err = cudaFuncSetAttribute(
       topk_mma_kernel<LD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -985,14 +1101,16 @@ extern "C" {
 // into part (nq x splits x m int64).  q (nq x n_bytes), codes (rows x
 // n_bytes) and dead (rows, or null) are contiguous uint8 on the card.
 // route 1 is the tensor-core scan (tq 64 or 128, `stages` ring stages,
-// tiles of 256 rows), route 0 the CUDA-core scan (tq 16, 32 or 64, tiles of
-// 128 rows; `stages` unused); the plan comes from the wrapper's planner and
+// buffers of `buf` keys a row, tiles of 256 rows; `counts`, when not null,
+// two uint64 to which it adds the keys its rows buffered and the merges),
+// route 0 the CUDA-core scan (tq 16, 32 or 64, tiles of 128 rows; `stages`,
+// `buf` and `counts` unused); the plan comes from the wrapper's planner and
 // one the kernel cannot run is refused with cudaErrorInvalidValue.  Returns
 // cudaGetLastError() after the launch.
 int rp_topk_scan(const void* q, const void* codes, const void* dead,
                  int64_t nq, int64_t rows, int64_t n_real, int64_t n_bytes,
-                 int m, int route, int tq, int stages, int splits,
-                 int tiles_per_split, void* part, void* stream) {
+                 int m, int route, int tq, int stages, int buf, int splits,
+                 int tiles_per_split, void* part, void* counts, void* stream) {
   const int tile_rows = route == 1 ? kTileN : kRows;
   if (splits < 1 || splits > kMaxSplits || m < 1 || nq < 1 ||
       static_cast<int64_t>(splits) * tiles_per_split * tile_rows < rows)
@@ -1002,7 +1120,8 @@ int rp_topk_scan(const void* q, const void* codes, const void* dead,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if ((tq != 64 && tq != 128) || stages < 2 || stages > kMaxStages ||
-        mma_smem_bytes(tq, m, stages, n_bytes) > kSmemLimit)
+        buf < kMinBuf || buf > 32 ||
+        mma_smem_bytes(tq, m, stages, buf, n_bytes) > kSmemLimit)
       return static_cast<int>(cudaErrorInvalidValue);
     MmaArgs a;
     a.q = static_cast<const uint8_t*>(q);
@@ -1017,7 +1136,9 @@ int rp_topk_scan(const void* q, const void* codes, const void* dead,
     a.splits = splits;
     a.tiles_per_split = tiles_per_split;
     a.stages = stages;
+    a.buf = buf;
     a.sentinel = static_cast<uint32_t>(n_bytes * 8 + 1);
+    a.counts = static_cast<unsigned long long*>(counts);
     if (n_bytes % 16 == 0 && both % 16 == 0) return launch_mma<0>(a, tq, s);
     if (n_bytes % 4 == 0 && both % 4 == 0) return launch_mma<1>(a, tq, s);
     return launch_mma<2>(a, tq, s);
@@ -1069,9 +1190,9 @@ int rp_topk_merge(const void* part, int64_t nq, int splits, int m,
 
 // Dynamic shared memory of one pass-1 block (the planner checks the same
 // formulas against the card's 227 KB).
-int64_t rp_topk_smem_bytes(int route, int tq, int m, int stages,
+int64_t rp_topk_smem_bytes(int route, int tq, int m, int stages, int buf,
                            int64_t n_bytes) {
-  return route == 1 ? mma_smem_bytes(tq, m, stages, n_bytes)
+  return route == 1 ? mma_smem_bytes(tq, m, stages, buf, n_bytes)
                     : static_cast<int64_t>(scan_smem_bytes(tq, m));
 }
 

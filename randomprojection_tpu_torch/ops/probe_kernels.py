@@ -101,6 +101,7 @@ __all__ = [
     "plan_probe",
     "probe_gather",
     "probe_plain",
+    "rerank_counts",
     "reset_launches",
     "rp_probe_gather",
     "runs_cap",
@@ -505,13 +506,28 @@ def device_probe_topk(q, masks, active, indptr, ids, dead_full, chunks, m: int,
     over global ids, ``chunks`` ``[(codes, row0, rows), ...]`` the resident
     code chunks.  Returns device tensors ``(dist (tq, m), gid (tq, m),
     stats (8,), counts (tq,))``, ``stats = [gathered, overflow,
-    live_candidates, 0, ...]``; the caller applies the fallback ladder
+    live_candidates, 0, k4_keys, k4_merges]`` (the last two int64, each in
+    two words: ``rerank_counts``); the caller applies the fallback ladder
     (overflow, starved, dense) before trusting the tile."""
+    import torch
+
     s, sc, dead_c, stat, cnt = device_probe_slots(
         q, masks, active, indptr, ids, dead_full, cap=cap, band_bits=band_bits)
     # each live id lies in exactly one chunk's rows; dead slots keep any row
-    d, gid = rerank_slots(q, gather_rows(chunks, sc), s, dead_c, m)
+    d, gid = rerank_slots(q, gather_rows(chunks, sc), s, dead_c, m,
+                          counts=stat[4:].view(torch.int64) if stat.is_cuda
+                          else None)
     return d, gid, stat, cnt
+
+
+def rerank_counts(stats) -> tuple:
+    """``(keys, merges)`` that the re-rank's tensor-core scan added to a
+    tile's stats (words 4–7, two int64; 0 where none ran on the card), from
+    the stats on the host as int32."""
+    import numpy as np
+
+    keys, merges = np.ascontiguousarray(stats[4:8]).view(np.int64)
+    return int(keys), int(merges)
 
 
 def device_probe_slots(q, masks, active, indptr, ids, dead_full, *, cap: int,
@@ -537,15 +553,16 @@ def device_probe_slots(q, masks, active, indptr, ids, dead_full, *, cap: int,
     return s, sc, dead_c, stat, cnt
 
 
-def rerank_slots(q, rows, s, dead, m: int):
+def rerank_slots(q, rows, s, dead, m: int, *, counts=None):
     """K4 over gathered slot rows (``rows`` ``(cap, n_bytes)``, ``dead``
     the slots that may not win) and the winners' global ids from the
     sorted slots ``s``: ``(dist (tq, m), gid (tq, m))``, empty slots
-    ``(n_bits + 1, 2³¹−1)``."""
+    ``(n_bits + 1, 2³¹−1)``.  ``counts`` as ``fused_topk``'s."""
     import torch
 
     cap = int(s.shape[0])
-    d, idx = topk_kernels.fused_topk(q, rows, cap, m, dead=dead.to(torch.uint8))
+    d, idx = topk_kernels.fused_topk(q, rows, cap, m, dead=dead.to(torch.uint8),
+                                     counts=counts)
     gid = torch.where(idx >= cap, _INT32_MAX, s[idx.long().clamp(0, cap - 1)])
     return d, gid
 

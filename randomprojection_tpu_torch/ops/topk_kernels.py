@@ -28,11 +28,14 @@ The scan has two routes, and ``plan_fused`` picks one from the shape alone
 * ``'wgmma'``: the distance product on the tensor cores (1-bit ``wgmma``
   ``.and.popc`` on the packed bytes and their complements,
   ``popc(q & ~c) + popc(~q & c)``; ``and_popc_distances`` is that identity
-  in torch ops), selection from the accumulator registers.  A block holds
-  ``tq`` = 128 or 64 queries and scans tiles of 256 rows through a ring of
-  2–8 stages.  It takes every width and alignment; its limit is shared
-  memory, the ``tq·m`` int64 keys of its lists beside the ring (m ≤ 378
-  for rows of at most 32 bytes, 370 for wider ones).
+  in torch ops), selection from the accumulator registers, survivors
+  appended a register at a time to a buffer of ``buf`` keys a query row
+  and merged into its sorted list by a warp sort when the buffer would
+  overflow.  A block holds ``tq`` = 128 or 64 queries and scans tiles of
+  256 rows through a ring of 2–8 stages.  It takes every width and
+  alignment; its limit is shared memory, the ``tq·m`` int64 keys of its
+  lists and the ``tq·(buf + 1)`` of its buffers beside the ring (m ≤ 369
+  for rows of at most 32 bytes, 361 for wider ones).
 * ``'popc'``: the scan on the CUDA cores (``tq`` = 16, 32 or 64 queries,
   tiles of 128 rows), for larger ``m`` up to ``MAX_M``.
 
@@ -63,6 +66,7 @@ __all__ = [
     "and_popc_distances",
     "fused_topk",
     "hamming_counts",
+    "mma_scan_plain",
     "plan_fused",
     "reset_launches",
     "rp_fused_topk",
@@ -97,14 +101,17 @@ _MMA_TILE_ROWS = 256  # kTileN
 _MMA_STEP_BYTES = 32  # kStepBytes: one k-step of a row
 _MMA_MAX_STAGES = 8  # kMaxStages
 _MMA_MIN_STAGES = 4  # a shallower ring is taken only where no tile fits this
+_MMA_BUFS = (32, 16, 8)  # keys a row's buffer may hold, the planner's choices
+_MMA_MIN_BUF = _MMA_BUFS[-1]  # kMinBuf
 #: W, what one row split of the tensor-core scan spends beyond its tiles,
-#: in tile steps: the survivors' inserts while its lists fill, paid once a
-#: block and so once a wave on an SM.  Measured on an H100 80GB HBM3 at
-#: 700 W (torch_experiments/k4_waves.py; PERF.md beside the kernel table):
-#: 1,822, 2,218 and 1,516 steps at 48 and 256 queries over 125M codes and
-#: 2,048 over 2^24, their mean taken; 101 at one query and 88 at an LSH
+#: in tile steps: its lists' warm-up (the survivors' buffers filled and
+#: merged while the lists fill), paid once a block and so once a wave on an
+#: SM.  Measured on an H100 80GB HBM3 at 700 W (torch_experiments/
+#: k4_waves.py; PERF.md §6): 1,291, 1,716 and 1,640 steps at 48 and 256
+#: queries over 125M codes and 2,048 over 2^24, their mean taken (1,850
+#: with one sorted insert a survivor); 85 at one query and 70 at an LSH
 #: tile, where one wave holds every split and W decides nothing.
-SPLIT_WARMUP_TILES = 1850
+SPLIT_WARMUP_TILES = 1550
 # kSmemSlack: alignment, barriers, 8 stages' row-liveness bits
 _MMA_SLACK = 1024 + 128 + 8 * 64
 _ROUTE_CODES = {"popc": 0, "wgmma": 1}
@@ -115,7 +122,8 @@ class TopkPlan(NamedTuple):
     ``'popc'``), ``tq`` queries per block, ``splits`` row splits (grid
     ``ceil(nq/tq) × splits``), ``tiles_per_split`` tiles of ``tile_rows``
     rows each split scans, the ring's ``stages`` (0 on the popc route) and
-    the block's dynamic shared memory."""
+    the block's dynamic shared memory; on the tensor-core route ``buf``,
+    the keys each query row's buffer holds (0 on the popc route)."""
 
     route: str
     tq: int
@@ -124,6 +132,7 @@ class TopkPlan(NamedTuple):
     tile_rows: int
     stages: int
     smem_bytes: int
+    buf: int = 0
 
 
 def reset_launches() -> None:
@@ -132,19 +141,21 @@ def reset_launches() -> None:
 
 
 def smem_bytes(route: str, tq: int, m: int, stages: int = 0,
-               n_bytes: int = 32) -> int:
+               n_bytes: int = 32, buf: int = _MMA_MIN_BUF) -> int:
     """Dynamic shared memory of one scan block, the formulas of
     ``csrc/topk.cu``.  ``'popc'`` (``scan_smem_bytes``): the lists, the
     query and code word tiles (rows padded to an odd stride) and the tile's
     distances.  ``'wgmma'`` (``mma_smem_bytes``): alignment, barriers and
     the stages' row-liveness bits; ``stages`` × a 256-row code tile's k-step
     and its complement; the queries' k-step and its complement (one slot
-    where a row is one step, ``n_bytes`` ≤ 32, else a slot a stage); and
-    the lists."""
+    where a row is one step, ``n_bytes`` ≤ 32, else a slot a stage); the
+    lists; and the rows' buffers of ``buf`` keys and one of padding (the
+    least buffer by default: what the route needs at the least)."""
     if route == "wgmma":
         q_slots = stages if n_bytes > _MMA_STEP_BYTES else 1
         return (_MMA_SLACK + stages * 2 * _MMA_TILE_ROWS * _MMA_STEP_BYTES
-                + q_slots * 2 * tq * _MMA_STEP_BYTES + tq * m * 8)
+                + q_slots * 2 * tq * _MMA_STEP_BYTES + tq * m * 8
+                + tq * (buf + 1) * 8)
     return (tq * m * 8 + (tq + _ROWS_PER_TILE) * (_CHUNK_WORDS + 1) * 4
             + tq * _ROWS_PER_TILE * 4)
 
@@ -166,12 +177,14 @@ def wave_steps(q_tiles: int, n_tiles: int, splits: int, sm_count: int) -> int:
 
 
 def _plan_wgmma(nq: int, rows: int, n_bytes: int, m: int, sm_count: int):
-    """The tensor-core route's plan, or None when its lists do not fit
-    beside a ring of two stages.  128 queries a block (two consumer
-    warpgroups sharing each code tile) where there are more than 64 queries
-    and a ring of at least four stages fits beside their lists, else 64;
-    the deepest ring that fits, up to 8; then the row splits that leave the
-    fewest ``wave_steps``, ties to fewer splits."""
+    """The tensor-core route's plan, or None when its lists and the least
+    buffers do not fit beside a ring of two stages.  128 queries a block
+    (two consumer warpgroups sharing each code tile) where there are more
+    than 64 queries and a ring of at least four stages fits beside their
+    lists, else 64; the deepest ring that fits, up to 8, with the least
+    buffers; the largest buffer that keeps that ring (32 keys wherever m is
+    small); then the row splits that leave the fewest ``wave_steps``, ties
+    to fewer splits."""
     def deepest(tq):
         return next((s for s in range(_MMA_MAX_STAGES, 1, -1)
                      if smem_bytes("wgmma", tq, m, s, n_bytes) <= _SMEM_LIMIT), 0)
@@ -181,6 +194,8 @@ def _plan_wgmma(nq: int, rows: int, n_bytes: int, m: int, sm_count: int):
         tq, stages = 128, deepest(128)
     if stages == 0:
         return None
+    buf = next(b for b in _MMA_BUFS
+               if smem_bytes("wgmma", tq, m, stages, n_bytes, b) <= _SMEM_LIMIT)
     q_tiles = -(-nq // tq)
     n_tiles = -(-rows // _MMA_TILE_ROWS)
     most = min(_MAX_SPLITS, n_tiles, max(1, _SCRATCH_BYTES // (nq * m * 8)))
@@ -196,7 +211,8 @@ def _plan_wgmma(nq: int, rows: int, n_bytes: int, m: int, sm_count: int):
     tiles_per_split = -(-n_tiles // splits)
     splits = -(-n_tiles // tiles_per_split)
     return TopkPlan("wgmma", tq, splits, tiles_per_split, _MMA_TILE_ROWS,
-                    stages, smem_bytes("wgmma", tq, m, stages, n_bytes))
+                    stages, smem_bytes("wgmma", tq, m, stages, n_bytes, buf),
+                    buf)
 
 
 def _plan_popc(nq: int, rows: int, m: int, sm_count: int) -> TopkPlan:
@@ -355,6 +371,101 @@ def topk_plain(q, codes, n_real: int, m: int, *, dead=None):
             torch.where(empty, _INT32_MAX, carry & low).to(torch.int32))
 
 
+def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
+                   dead=None):
+    """The tensor-core scan's selection (``topk_mma_kernel``), step for step
+    on the host: the split lists it leaves and the survivors' counts it
+    adds up.  ``plan`` is a ``'wgmma'`` plan (its ``splits``,
+    ``tiles_per_split`` and ``buf``).
+
+    A consumer warp owns 16 query rows; lane ``4g + t`` holds rows ``g``
+    and ``g + 8`` and register ``4j + 2h + e`` the distance of row ``g +
+    8h`` to the tile's code row ``8j + e + 2t``.  A tile with no live row
+    is passed over; in the others each row's least distance in each group
+    of 32 registers is held to its threshold (strictly), then a flagged
+    group's registers any lane holds below its row's threshold are taken
+    in order, their survivors (at or under the threshold as it stands, the
+    code row live) appended to their rows' buffers, a row its register
+    would overflow merged first; a row's threshold is its list's, read
+    again at each merge.  Every buffer is merged at the split's end.  Returns
+    ``(part, keys, merges)``: ``(nq, splits, m)`` int64 keys as the kernel
+    writes them, the keys taken into buffers and the merges."""
+    import numpy as np
+
+    _validate(q, codes, n_real, m, dead)
+    nq, nb = q.shape
+    sentinel = nb * 8 + 1
+    empty = (sentinel << 32) | _INT32_MAX
+    n_tiles = -(-int(n_real) // _MMA_TILE_ROWS)
+    span = n_tiles * _MMA_TILE_ROWS
+    live = np.zeros(span, bool)
+    live[:n_real] = True
+    if dead is not None:
+        live[:n_real] &= dead.cpu().numpy()[:n_real] == 0
+    dist = np.empty((nq, span), np.int64)
+    rows = min(span, codes.shape[0])
+    dist[:, :rows] = hamming_counts(q.cpu(), codes[:rows].cpu()).numpy()
+    # rows past the matrix are staged as zeros: popc(q & ~0) + popc(~q & 0)
+    dist[:, rows:] = hamming_counts(q.cpu(), codes[:0].cpu().new_zeros(
+        (1, nb))).numpy()
+    idx = np.arange(128)
+    lane = np.arange(32)[:, None]
+    half = (idx >> 1) & 1
+    reg_row = (lane >> 2) + 8 * half  # (32, 128): the warp's row
+    reg_col = 8 * (idx >> 2) + (idx & 1) + 2 * (lane & 3)  # the tile's row
+    part = np.full((nq, plan.splits, m), empty, np.int64)
+    keys = merges = 0
+    for w0 in range(0, nq, 16):
+        wr = np.arange(w0, w0 + 16)
+        for split in range(plan.splits):
+            lists = np.full((16, m), empty, np.int64)
+            bufs = [[] for _ in range(16)]
+            thr = np.where(wr < nq, sentinel, -1)
+
+            def merge(r):
+                nonlocal merges
+                both = np.sort(np.concatenate([lists[r], bufs[r]]))
+                lists[r] = both[:m]
+                bufs[r].clear()
+                thr[r] = lists[r, m - 1] >> 32
+                merges += 1
+
+            t0 = split * plan.tiles_per_split
+            for tile in range(t0, min(t0 + plan.tiles_per_split, n_tiles)):
+                r0 = tile * _MMA_TILE_ROWS
+                tl = live[r0:r0 + _MMA_TILE_ROWS]
+                if not tl.any():
+                    continue
+                d_t = np.full((16, _MMA_TILE_ROWS), sentinel, np.int64)
+                d_t[wr < nq] = dist[wr[wr < nq], r0:r0 + _MMA_TILE_ROWS]
+                acc = d_t[reg_row, reg_col]  # (32, 128)
+                # the groups flagged at the tile's start
+                flagged = (acc < thr[reg_row]).reshape(32, 4, 32).any(axis=(0, 2))
+                for k in np.flatnonzero(flagged):
+                    grp = slice(32 * k, 32 * k + 32)
+                    todo = np.flatnonzero((acc[:, grp] < thr[reg_row[:, grp]])
+                                          .any(axis=0)) + 32 * k
+                    for i in todo:
+                        r, c, d = reg_row[:, i], reg_col[:, i], acc[:, i]
+                        hit = tl[c] & (d <= thr[r])
+                        over = [g + 8 * half[i] for g in range(8)
+                                if len(bufs[g + 8 * half[i]])
+                                + hit[4 * g:4 * g + 4].sum() > plan.buf]
+                        for row in over:
+                            merge(row)
+                        if over:
+                            hit = tl[c] & (d <= thr[r])
+                        for ln in np.flatnonzero(hit):
+                            bufs[r[ln]].append((int(d[ln]) << 32) | (r0 + int(c[ln])))
+                        keys += int(hit.sum())
+            for r in range(16):
+                if bufs[r]:
+                    merge(r)
+            ok = wr < nq
+            part[wr[ok], split] = lists[ok]
+    return part, keys, merges
+
+
 # -- the CUDA kernel -------------------------------------------------------------
 
 _DECLARED: set = set()
@@ -365,11 +476,11 @@ def _lib():
     if _SRC not in _DECLARED:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.rp_topk_scan.argtypes = [p, p, p, i64, i64, i64, i64, i32, i32,
-                                     i32, i32, i32, i32, p, p]
+                                     i32, i32, i32, i32, i32, p, p, p]
         lib.rp_topk_scan.restype = i32
         lib.rp_topk_merge.argtypes = [p, i64, i32, i32, i64, p, p, p]
         lib.rp_topk_merge.restype = i32
-        lib.rp_topk_smem_bytes.argtypes = [i32, i32, i32, i32, i64]
+        lib.rp_topk_smem_bytes.argtypes = [i32, i32, i32, i32, i32, i64]
         lib.rp_topk_smem_bytes.restype = i64
         lib.rp_topk_error_string.argtypes = [i32]
         lib.rp_topk_error_string.restype = ctypes.c_char_p
@@ -391,13 +502,19 @@ def _check_launch(lib, rc: int, what: str) -> None:
         )
 
 
-def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None):
+def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None,
+                  counts=None):
     """Launch the kernel's two passes on the tensors' card.  ``q``, ``codes``
     and ``dead`` are contiguous CUDA uint8 tensors on one device.  Returns
     ``(dist, idx)``, each ``(nq, m)`` int32.  ``plan`` overrides
     ``plan_fused``'s choice (the tests hold each route to the plain version
-    with it).  Raises ``ValueError`` for a shape ``plan_fused`` cannot
-    serve."""
+    with it).  ``counts``, a (2,) int64 tensor on the card, receives what a
+    tensor-core scan adds up: the keys its query rows took into their
+    buffers and the buffers' merges (a CUDA graph's caller reads them from
+    its outputs); without it, a tensor-core scan is counted in
+    ``observability.count_survivors`` while a profiler records, and not at
+    all otherwise.  Raises ``ValueError`` for a shape ``plan_fused``
+    cannot serve."""
     import torch
 
     _validate(q, codes, n_real, m, dead)
@@ -422,18 +539,26 @@ def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None):
     part = torch.empty((nq, plan.splits, m), dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
+        mma = plan.route == "wgmma"
+        traced = mma and observability.recording()
+        own = traced and counts is None
+        if own:
+            counts = torch.zeros(2, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rp_topk_scan(
             q.data_ptr(), codes.data_ptr(),
             None if dead is None else dead.data_ptr(), nq, rows, int(n_real),
-            nb, m, _ROUTE_CODES[plan.route], plan.tq, plan.stages,
-            plan.splits, plan.tiles_per_split, part.data_ptr(), stream,
+            nb, m, _ROUTE_CODES[plan.route], plan.tq, plan.stages, plan.buf,
+            plan.splits, plan.tiles_per_split, part.data_ptr(),
+            counts.data_ptr() if mma and counts is not None else None, stream,
         )
         _check_launch(lib, rc, f"rp_fused_topk ({plan.route} scan)")
         LAUNCHES[f"rp_fused_topk_{plan.route}"] += 1
-        if plan.route == "wgmma" and observability.recording():
+        if traced:
             observability.count_waves("topk_mma_kernel",
                                       *wave_slots(plan, nq, _sm_count(dev)))
+        if own:
+            observability.count_survivors(nq * plan.splits, counts)
         rc = lib.rp_topk_merge(part.data_ptr(), nq, plan.splits, m, nb,
                                dist.data_ptr(), idx.data_ptr(), stream)
         _check_launch(lib, rc, "rp_fused_topk (merge)")
@@ -444,7 +569,7 @@ def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None):
 # -- public wrapper ----------------------------------------------------------------
 
 
-def fused_topk(q, codes, n_real: int, m: int, *, dead=None):
+def fused_topk(q, codes, n_real: int, m: int, *, dead=None, counts=None):
     """Exact top-``m`` of one code chunk for a tile of queries.
 
     ``q`` (nq, n_bytes) uint8 packed queries, ``codes`` (rows, n_bytes)
@@ -452,11 +577,13 @@ def fused_topk(q, codes, n_real: int, m: int, *, dead=None):
     (rows,) uint8 tombstone mask (1 = deleted).  Returns ``(dist, idx)``,
     each (nq, m) int32: ascending distance, ties to the lower chunk-local
     id, empty slots ``(n_bits + 1, 2³¹−1)``.  A CPU tensor is computed by
-    ``topk_plain``; a CUDA tensor by the kernel."""
+    ``topk_plain``; a CUDA tensor by the kernel, which adds its survivors'
+    counts to ``counts`` where given (``rp_fused_topk``; the plain version
+    counts nothing)."""
     if q.device.type == "cpu":
         return topk_plain(q, codes, n_real, m, dead=dead)
     if q.device.type == "cuda":
-        return rp_fused_topk(q, codes, n_real, m, dead=dead)
+        return rp_fused_topk(q, codes, n_real, m, dead=dead, counts=counts)
     raise ValueError(f"no top-k kernel for device {q.device}")
 
 

@@ -8,9 +8,10 @@ event log when one is configured, ``batch_nbytes``, ``stage``, and the
 profiler hooks on ``torch.profiler``: ``profile_trace`` writes a
 Chrome/Perfetto trace, ``annotate`` names a region in its timeline and,
 while a profiler records, keeps it in an in-memory span store beside the
-interpreter's collections, the waves of counted kernel launches and the
-LSH tier's probe launches (``recorded_spans``, ``gc_collections``,
-``launch_waves``, ``probe_launches``).
+interpreter's collections, the waves of counted kernel launches, the
+LSH tier's probe launches and the top-k scan's survivors
+(``recorded_spans``, ``gc_collections``, ``launch_waves``,
+``probe_launches``, ``survivor_counts``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ __all__ = [
     "StreamStats", "batch_nbytes", "profile_trace", "annotate", "logger",
     "stage", "recording", "record_span", "perf_offset_ns", "recorded_spans",
     "dropped_spans", "gc_collections", "clear_spans", "count_waves",
-    "launch_waves", "count_probe", "probe_launches",
+    "launch_waves", "count_probe", "probe_launches", "count_survivors",
+    "survivor_counts",
 ]
 
 
@@ -314,6 +316,11 @@ _gc_open = None  # (generation, start_ns, record_function or None)
 _waves: dict = {}
 # (rows, bands, probes, gathered, cap) of each probe launch, while recording
 _probes: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
+# [lists, keys, merges] of the top-k tensor-core scans, while recording; the
+# launches' counts on the card wait in _survivors_pending until read
+_survivors = [0, 0, 0]
+_survivors_pending: list = []
+_PENDING_MAX = 4096  # device counts kept unread before they are read at once
 
 
 def _bind_profiler():
@@ -446,9 +453,46 @@ def probe_launches() -> list:
         return list(_probes)
 
 
+def count_survivors(lists: int, counts) -> None:
+    """Count one tensor-core scan of the top-k kernel (``topk_mma_kernel``):
+    its (query, split) ``lists`` and ``counts``, the keys its query rows
+    took into their buffers and the buffers' merges: two numbers, or a
+    (2,) tensor on the card that the scan fills, read without a wait here
+    and with one copy when ``survivor_counts`` is asked.  Dropped while no
+    profiler records."""
+    if not recording():
+        return
+    with _spans_lock:
+        _survivors[0] += int(lists)
+        if getattr(counts, "is_cuda", False):
+            _survivors_pending.append(counts)
+            if len(_survivors_pending) > _PENDING_MAX:
+                _read_pending()
+        else:
+            _survivors[1] += int(counts[0])
+            _survivors[2] += int(counts[1])
+
+
+def _read_pending() -> None:
+    """Add the device counts waiting to be read (under ``_spans_lock``)."""
+    for t in _survivors_pending:
+        keys, merges = t.tolist()
+        _survivors[1] += int(keys)
+        _survivors[2] += int(merges)
+    _survivors_pending.clear()
+
+
+def survivor_counts() -> tuple:
+    """The top-k tensor-core scans counted while recording: ``(lists,
+    keys, merges)`` summed over them."""
+    with _spans_lock:
+        _read_pending()
+        return tuple(_survivors)
+
+
 def clear_spans() -> None:
     """Empty the store, its drop counter, the collection counters, the
-    launches' waves and the probe launches."""
+    launches' waves, the probe launches and the survivors' counts."""
     global _dropped
     with _spans_lock:
         _spans.clear()
@@ -457,6 +501,8 @@ def clear_spans() -> None:
             v[0] = v[1] = 0
         _waves.clear()
         _probes.clear()
+        _survivors[:] = [0, 0, 0]
+        _survivors_pending.clear()
 
 
 def _gc_hook(phase: str, info: dict) -> None:

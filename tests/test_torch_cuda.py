@@ -448,6 +448,83 @@ def test_topk_kernel_takes_any_number_of_row_splits(cuda, route, corpus,
     assert torch.equal(d, wd) and torch.equal(i, wi)
 
 
+# (corpus, tombstones, real rows) at 70 queries over 514 row tiles of 256
+# that stress the survivors' buffers: every distance equal (each tile
+# overflows every buffer), distances falling in scan order (every row
+# survives), the true neighbours in each split's last tile, tombstones and
+# real rows that end short of the rows
+BUFFER_CASES = [("equal", 0, 514 * 256), ("descending", 0, 514 * 256),
+                ("last", 0, 514 * 256), ("equal", 300, 200 * 256 + 3),
+                ("last", 2000, 514 * 256 - 77)]
+
+
+def _route_max_m():
+    """The largest m the tensor-core route takes at 32-byte rows."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    return max(m for m in range(1, tk.MAX_M + 1)
+               if tk.smem_bytes("wgmma", 64, m, 2, 32) <= 232_448)
+
+
+@pytest.mark.parametrize("splits", [1, 33, 132, 257])
+@pytest.mark.parametrize("m", [1, 10, 16, 32, 33, 40, "max"])
+@pytest.mark.parametrize("corpus,n_dead,n_real", BUFFER_CASES)
+def test_topk_buffers_keep_the_exact_lists(cuda, corpus, n_dead, n_real, m,
+                                           splits):
+    """The tensor-core scan's buffers and merges against the plain top-m,
+    bit for bit, at forced split counts, for m on both sides of a warp's
+    32 lanes up to the route's largest."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    m = _route_max_m() if m == "max" else m
+    nq, rows = 70, 514 * 256
+    q, codes, dead = _topk_inputs(nq, rows, 32, n_dead,
+                                  "random" if corpus == "last" else corpus, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+    assert plan.route == "wgmma"
+    tps = -(-514 // splits)
+    plan = plan._replace(splits=-(-514 // tps), tiles_per_split=tps)
+    if corpus == "last":
+        # each split's last tile holds every query's near copies
+        g = torch.Generator(device=cuda).manual_seed(splits + m)
+        for s in range(plan.splits):
+            t = min((s + 1) * tps, 514) - 1
+            near = q.repeat(4, 1)[: 256]
+            flip = torch.randint(0, 256, near.shape, generator=g, device=cuda,
+                                 dtype=torch.uint8) & torch.randint(
+                0, 256, near.shape, generator=g, device=cuda,
+                dtype=torch.uint8) & 0x11
+            codes[t * 256: t * 256 + near.shape[0]] = near ^ flip
+    d, i = tk.rp_fused_topk(q, codes, n_real, m, dead=dead, plan=plan)
+    torch.cuda.synchronize()
+    wd, wi = tk.topk_plain(q, codes, n_real, m, dead=dead)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+def test_topk_survivor_counts_equal_a_host_count_of_the_scan(cuda):
+    """The keys the scan's rows buffered and its merges, as the kernel adds
+    them up, equal ``mma_scan_plain``'s count of the same scan; the lists
+    equal the plain top-m."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    nq, rows, m = 40, 20_000, 16
+    q, codes, dead = _topk_inputs(nq, rows, 32, 300, "random", cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+    plan = plan._replace(splits=3, tiles_per_split=27)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    d, i = tk.rp_fused_topk(q, codes, rows - 9, m, dead=dead, plan=plan,
+                            counts=counts)
+    torch.cuda.synchronize()
+    part, keys, merges = tk.mma_scan_plain(q.cpu(), codes.cpu(), rows - 9, m,
+                                           plan, dead=dead.cpu())
+    assert counts.tolist() == [keys, merges]
+    assert keys > nq * plan.splits * m and merges >= nq * plan.splits
+    wd, wi = tk.topk_plain(q, codes, rows - 9, m, dead=dead)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
 @pytest.mark.parametrize("nq,splits,m", [(64, 132, 16), (5, 4096, 16),
                                          (3, 30_000, 4), (2, 65_535, 2),
                                          (9, 40, 1024)])
@@ -503,14 +580,16 @@ def test_topk_kernel_smem_formula_matches_the_source(cuda):
     lib = tk._lib()
     for tq in (16, 32, 64):
         for m in (1, 16, 1024):
-            assert lib.rp_topk_smem_bytes(0, tq, m, 0, 32) == \
+            assert lib.rp_topk_smem_bytes(0, tq, m, 0, 0, 32) == \
                 tk.smem_bytes("popc", tq, m)
     for tq in (64, 128):
-        for m in (1, 16, 370):
+        for m in (1, 16, 361):
             for stages in (2, 5, 8):
                 for nb in (3, 32, 36):
-                    assert lib.rp_topk_smem_bytes(1, tq, m, stages, nb) == \
-                        tk.smem_bytes("wgmma", tq, m, stages, nb)
+                    for buf in (8, 16, 32):
+                        assert lib.rp_topk_smem_bytes(1, tq, m, stages, buf,
+                                                      nb) == \
+                            tk.smem_bytes("wgmma", tq, m, stages, nb, buf)
 
 
 def test_topk_kernel_refuses_m_past_its_plan(cuda):

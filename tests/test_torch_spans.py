@@ -7,8 +7,9 @@ batch, the index's ``rp:index/wait_tile`` inside its ``query_topk`` on
 the same thread, the backend's ``rp:backend/dispatch`` around its
 ``prepare`` and ``project``, one ``rp:gc/gen2`` for a forced collection
 with the collection counters, spans on the profiler's own clock, a
-ring that counts what it drops once full, and the waves of counted kernel
-launches (kept only while a profiler records, cleared with the spans).
+ring that counts what it drops once full, the waves of counted kernel
+launches and the top-k scan's survivors' counts (kept only while a
+profiler records, cleared with the spans).
 The LSH tier's spans (a call, and a device-rung tile's sizing, dispatch,
 wait and ladder on its thread), a card build's span a band, and the probe
 launches it counts: present under a profiler, absent without one.
@@ -185,6 +186,84 @@ def test_launch_waves_clear_with_the_spans():
     assert obs.launch_waves() == {"k": (1, 7, 8)}
     obs.clear_spans()
     assert obs.launch_waves() == {}
+
+
+class _CardCounts:
+    """Stands in for the (2,) counts a scan on the card fills: read, with
+    one copy, only when the totals are asked for."""
+
+    is_cuda = True
+
+    def __init__(self, keys, merges):
+        self.values, self.reads = [keys, merges], 0
+
+    def tolist(self):
+        self.reads += 1
+        return list(self.values)
+
+
+def test_survivor_counts_are_kept_only_while_recording(monkeypatch):
+    obs.count_survivors(64, (100, 5))
+    assert obs.survivor_counts() == (0, 0, 0)
+    card = _CardCounts(300, 20)
+    with _traced():
+        obs.count_survivors(64 * 128, (1000, 40))  # a graphed tile's stats
+        obs.count_survivors(48 * 132, card)        # an eager launch
+        assert card.reads == 0
+    obs.count_survivors(1, (1, 1))
+    assert obs.survivor_counts() == (64 * 128 + 48 * 132, 1300, 60)
+    assert card.reads == 1
+    assert obs.survivor_counts() == (64 * 128 + 48 * 132, 1300, 60)
+    assert card.reads == 1  # read once
+    # off, the one recording() check is all a launch pays
+    checks = []
+    monkeypatch.setattr(obs, "recording", lambda: checks.append(1) or False)
+    obs.count_survivors(5, _CardCounts(5, 5))
+    assert checks == [1]
+    assert obs.survivor_counts() == (64 * 128 + 48 * 132, 1300, 60)
+
+
+def test_survivor_counts_clear_with_the_spans():
+    with _traced():
+        obs.count_survivors(16, (32, 2))
+        obs.count_survivors(16, _CardCounts(7, 1))
+    obs.clear_spans()
+    assert obs.survivor_counts() == (0, 0, 0)
+
+
+def test_a_device_tile_counts_its_rerank_from_its_stats(monkeypatch):
+    """The LSH tier's device tile: the keys and merges its re-rank left in
+    words 4-7 of the tile's stats, and its lists from the re-rank's plan,
+    while a profiler records and for a card index only; a tile whose stats
+    carry no keys (its re-rank ran eagerly and counted itself) adds
+    nothing."""
+    from randomprojection_tpu_torch.ann import lsh
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    monkeypatch.setattr(tk, "_sm_count", lambda device: 132)
+    stat = np.zeros(8, np.int32)
+    stat[:3] = (975_000, 0, 960_000)
+    stat[4:8] = np.array([2**33 + 5, 61_000], np.int64).view(np.int32)
+    assert pk.rerank_counts(stat) == (2**33 + 5, 61_000)
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    lsh._count_rerank(64, 1 << 20, 32, 10, stat, card)
+    assert obs.survivor_counts() == (0, 0, 0)
+    splits = tk.plan_fused(64, 1 << 20, 32, 10, sm_count=132).splits
+    with _traced():
+        lsh._count_rerank(64, 1 << 20, 32, 10, stat, card)
+        lsh._count_rerank(64, 1 << 20, 32, 10, stat, cpu)
+        lsh._count_rerank(64, 1 << 20, 32, 10, np.zeros(8, np.int32), card)
+    assert obs.survivor_counts() == (64 * splits, 2**33 + 5, 61_000)
+
+
+def test_a_cpu_index_counts_no_survivors():
+    with _traced():
+        _lsh_index().query_topk(_codes(40, 24, 6), 5, tile=16, probes=3,
+                                probe_path="device")
+        sk.SimHashIndex(_codes(2000, 8, 0), device="cpu").query_topk(
+            _codes(5, 8, 1), 3)
+    assert obs.survivor_counts() == (0, 0, 0)
 
 
 def _lsh_index(**kw):

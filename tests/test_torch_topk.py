@@ -136,35 +136,37 @@ def test_plan_serves_every_shape_the_reference_plans(nq, rows, nb, m):
     assert plan.splits * plan.tiles_per_split * plan.tile_rows >= rows
     assert (plan.splits - 1) * plan.tiles_per_split * plan.tile_rows < rows
     assert plan.smem_bytes == tk.smem_bytes(plan.route, plan.tq, m,
-                                            plan.stages, nb) <= 232_448
+                                            plan.stages, nb,
+                                            plan.buf) <= 232_448
 
 
 @pytest.mark.parametrize("nq,rows,nb,m", SHAPES)
 def test_route_is_chosen_from_the_shape_alone(nq, rows, nb, m):
-    """The tensor-core route wherever its lists fit beside a ring of two
-    stages, whatever the width or alignment; else the popc route."""
+    """The tensor-core route wherever its lists and the least buffers fit
+    beside a ring of two stages, whatever the width or alignment; else the
+    popc route."""
     plan = tk.plan_fused(nq, rows, nb, m, sm_count=H100_SXM_SMS)
     fits = tk.smem_bytes("wgmma", 64, m, 2, nb) <= 232_448
     assert plan.route == ("wgmma" if fits else "popc")
-    assert fits == (m <= (378 if nb <= 32 else 370))
+    assert fits == (m <= (369 if nb <= 32 else 361))
     if fits and nq > 64 and tk.smem_bytes("wgmma", 128, m, 4, nb) <= 232_448:
         assert plan.tq == 128  # two warpgroups share each code tile
     popc = tk._plan_popc(nq, rows, m, H100_SXM_SMS)
     assert popc.route == "popc" and popc.smem_bytes <= 232_448
 
 
-@pytest.mark.parametrize("nb,m,route", [(32, 378, "wgmma"), (32, 379, "popc"),
-                                        (3, 378, "wgmma"), (36, 370, "wgmma"),
-                                        (36, 371, "popc"), (1 << 16, 370, "wgmma"),
+@pytest.mark.parametrize("nb,m,route", [(32, 369, "wgmma"), (32, 370, "popc"),
+                                        (3, 369, "wgmma"), (36, 361, "wgmma"),
+                                        (36, 362, "popc"), (1 << 16, 361, "wgmma"),
                                         (32, tk.MAX_M, "popc")])
 def test_route_limit_is_the_lists_room_in_shared_memory(nb, m, route):
     assert tk.plan_fused(8, 1 << 20, nb, m, sm_count=H100_SXM_SMS).route == route
 
 
-@pytest.mark.parametrize("m,tq,stages", [(16, 128, 8), (89, 128, 8),
-                                         (90, 128, 7), (153, 128, 4),
-                                         (154, 64, 8), (300, 64, 4),
-                                         (378, 64, 2)])
+@pytest.mark.parametrize("m,tq,stages", [(16, 128, 8), (80, 128, 8),
+                                         (81, 128, 7), (144, 128, 4),
+                                         (145, 64, 8), (300, 64, 4),
+                                         (369, 64, 2)])
 def test_wgmma_plan_takes_the_deepest_ring_that_fits(m, tq, stages):
     plan = tk.plan_fused(2048, 1 << 20, 32, m, sm_count=H100_SXM_SMS)
     assert (plan.route, plan.tq, plan.stages) == ("wgmma", tq, stages)
@@ -172,14 +174,115 @@ def test_wgmma_plan_takes_the_deepest_ring_that_fits(m, tq, stages):
         assert tk.smem_bytes("wgmma", tq, m, stages + 1) > 232_448
 
 
+def test_wgmma_plan_fits_lists_and_buffers_for_every_m_it_takes():
+    """Every m the tensor-core route takes: the planned buffer is one the
+    kernel takes (32 keys for m up to a warp's lanes), and the lists, the
+    buffers and the ring fit the block's shared memory; the ring is the
+    deepest the least buffers allow."""
+    top = max(m for m in range(1, tk.MAX_M + 1)
+              if tk.smem_bytes("wgmma", 64, m, 2, 32) <= 232_448)
+    for m in range(1, top + 1):
+        for nq in (64, 2048):
+            p = tk.plan_fused(nq, 1 << 20, 32, m, sm_count=H100_SXM_SMS)
+            assert p.route == "wgmma" and p.buf in (8, 16, 32)
+            assert p.smem_bytes == tk.smem_bytes(
+                "wgmma", p.tq, m, p.stages, 32, p.buf) <= 232_448
+            assert m > 32 or p.buf == 32
+            assert p.stages == 8 or tk.smem_bytes(
+                "wgmma", p.tq, m, p.stages + 1, 32) > 232_448
+            bigger = [b for b in (16, 32) if b > p.buf]
+            assert all(tk.smem_bytes("wgmma", p.tq, m, p.stages, 32, b)
+                       > 232_448 for b in bigger)
+    assert tk.plan_fused(64, 1 << 20, 32, top + 1,
+                         sm_count=H100_SXM_SMS).route == "popc"
+
+
+# the config-4 cells' shapes: the bulk cell's tile over 1B, the open loop's
+# batches (one query up to the server's largest) over one card's 125M
+# shard, an LSH tile's re-rank over its 2^20 slots
+@pytest.mark.parametrize("nq,rows,m", [(2048, 10**9, 16), (1, 125_000_000, 16),
+                                       (48, 125_000_000, 16),
+                                       (8192, 125_000_000, 16),
+                                       (64, 1 << 20, 10)])
+def test_config4_shapes_keep_a_ring_of_eight_stages(nq, rows, m):
+    p = tk.plan_fused(nq, rows, 32, m, sm_count=H100_SXM_SMS)
+    assert (p.route, p.stages, p.buf) == ("wgmma", 8, 32)
+
+
+def _survivor_case(nq, rows, m, corpus, n_dead, seed):
+    rng = np.random.default_rng(seed)
+    B = rng.integers(0, 256, size=(rows, 32), dtype=np.uint8)
+    A = rng.integers(0, 256, size=(nq, 32), dtype=np.uint8)
+    if corpus == "equal":
+        B[:] = B[0]
+    elif corpus == "descending":  # every row nearer than all before it
+        ones = 256 - (np.arange(rows) * 256) // rows
+        B = np.packbits((np.arange(256)[None, :] < ones[:, None])
+                        .astype(np.uint8), axis=1, bitorder="little")
+        A[:] = 0
+    dead = None
+    if n_dead:
+        dead = np.zeros(rows, np.uint8)
+        dead[rng.choice(rows, n_dead, replace=False)] = 1
+        dead = torch.from_numpy(dead)
+    return torch.from_numpy(A), torch.from_numpy(B), dead
+
+
+# (queries, rows, real rows, m, corpus, tombstones, forced splits)
+SURVIVOR_CASES = [
+    (20, 3000, 3000, 16, "random", 0, None),
+    (20, 3000, 3000, 1, "equal", 0, 3),        # every distance equal
+    (21, 3000, 3000, 10, "descending", 0, 2),  # every row survives
+    (17, 4000, 3900, 33, "random", 50, 5),     # m past a warp's lanes
+    (37, 5000, 4990, 40, "equal", 100, 3),
+    (40, 2600, 2571, 32, "last", 30, 4),       # neighbours in last tiles
+    (3, 2000, 2000, 369, "random", 0, None),   # the route's largest m
+]
+
+
+@pytest.mark.parametrize("nq,rows,n_real,m,corpus,n_dead,splits",
+                         SURVIVOR_CASES)
+def test_buffered_selection_keeps_the_plain_top_m(nq, rows, n_real, m, corpus,
+                                                  n_dead, splits):
+    """The tensor-core scan's survivors' path, step for step on the host
+    (``mma_scan_plain``: stale thresholds between merges, ties at the
+    threshold, merges before an overflow and at a split's end), merged
+    over its splits, is the plain top-m bit for bit."""
+    q, codes, dead = _survivor_case(nq, rows, m, corpus, n_dead, rows + m)
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=H100_SXM_SMS)
+    n_tiles = -(-rows // 256)
+    if splits:
+        tps = -(-n_tiles // splits)
+        plan = plan._replace(splits=-(-n_tiles // tps), tiles_per_split=tps)
+    if corpus == "last":  # each split's last tile holds near copies
+        for s in range(plan.splits):
+            t = min((s + 1) * plan.tiles_per_split, n_tiles) - 1
+            codes[t * 256: t * 256 + nq] = q ^ (1 << (s % 8))
+    part, keys, merges = tk.mma_scan_plain(q, codes, n_real, m, plan,
+                                           dead=dead)
+    assert part.shape == (nq, plan.splits, m)
+    assert (np.diff(part, axis=2) >= 0).all()  # each split list ascending
+    key = np.sort(part.reshape(nq, -1), axis=1)[:, :m]
+    gone = (key >> 32) > 256
+    wd, wi = tk.topk_plain(q, codes, n_real, m, dead=dead)
+    np.testing.assert_array_equal(np.where(gone, 257, key >> 32), wd.numpy())
+    np.testing.assert_array_equal(np.where(gone, 2**31 - 1, key & 0xFFFFFFFF),
+                                  wi.numpy())
+    # every list took its m keys at least once, and a merge a list at least
+    assert keys >= nq * min(m, rows // plan.splits) and merges >= nq
+
+
 def test_wgmma_smem_formula():
     # alignment slack, barriers and 8 stages' liveness bits; stages x (c, ~c);
-    # q slots x (q, ~q); the lists
-    assert tk.smem_bytes("wgmma", 128, 16, 8) == \
-        1024 + 128 + 8 * 64 + 8 * 2 * 256 * 32 + 2 * 128 * 32 + 128 * 16 * 8
-    # rows wider than a k-step ring their query steps too
+    # q slots x (q, ~q); the lists; the buffers and a key of padding a row
+    assert tk.smem_bytes("wgmma", 128, 16, 8, 32, 32) == \
+        1024 + 128 + 8 * 64 + 8 * 2 * 256 * 32 + 2 * 128 * 32 + 128 * 16 * 8 \
+        + 128 * 33 * 8
+    # rows wider than a k-step ring their query steps too; the least buffer
+    # by default
     assert tk.smem_bytes("wgmma", 64, 10, 3, 36) == \
-        1024 + 128 + 8 * 64 + 3 * 2 * 256 * 32 + 3 * 2 * 64 * 32 + 64 * 10 * 8
+        1024 + 128 + 8 * 64 + 3 * 2 * 256 * 32 + 3 * 2 * 64 * 32 + 64 * 10 * 8 \
+        + 64 * 9 * 8
     assert tk.smem_bytes("popc", 64, 16) == \
         64 * 16 * 8 + (64 + 128) * 33 * 4 + 64 * 128 * 4
 
@@ -268,6 +371,36 @@ def test_wgmma_plan_at_the_callers_shapes(sms, nq, rows, m):
         # no more splits than the optimum: the least count at the best
         assert p.splits == min(s for s in range(1, most + 1)
                                if tk.wave_steps(q_tiles, n_tiles, s, sms) == best)
+
+
+# (queries, codes, m) -> (route, tq, splits, tiles a split, stages, buf):
+# the bulk cell's tile over 1B, an open-loop batch over one card's 125M
+# shard, an LSH tile's re-rank over its 2^20 slots (the dead mask changes
+# no plan), and the serving shape over 2^24
+PLANS_AT_THE_CALLERS = [
+    ((2048, 10**9, 16), ("wgmma", 128, 33, 118_372, 8, 32)),
+    ((48, 125_000_000, 16), ("wgmma", 64, 132, 3_700, 8, 32)),
+    ((64, 1 << 20, 10), ("wgmma", 64, 128, 32, 8, 32)),
+    ((2048, 1 << 24, 16), ("wgmma", 128, 8, 8_192, 8, 32)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS_AT_THE_CALLERS)
+def test_plans_at_the_callers_under_the_fitted_warmup(shape, want):
+    """The plans the callers run under the re-fitted split warm-up, and
+    the same for any W over the span both fits lie in (1,550 with the
+    survivors' buffers, 1,850 with one insert a survivor)."""
+    nq, rows, m = shape
+    assert tk.SPLIT_WARMUP_TILES == 1550
+    for w in (tk.SPLIT_WARMUP_TILES, 83, 1850, 4931):
+        saved = tk.SPLIT_WARMUP_TILES
+        try:
+            tk.SPLIT_WARMUP_TILES = w
+            p = tk._plan_wgmma(nq, rows, 32, m, H100_SXM_SMS)
+        finally:
+            tk.SPLIT_WARMUP_TILES = saved
+        assert (p.route, p.tq, p.splits, p.tiles_per_split, p.stages,
+                p.buf) == want, w
 
 
 @pytest.mark.parametrize("nq,rows,m", [(1, 1 << 20, 16), (130, 528 * 256, 16),

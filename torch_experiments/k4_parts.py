@@ -16,18 +16,29 @@ and times the scan (``rp_topk_scan`` alone, no merge) on the card, in turns
   staging and barriers alone) and ``no_epilogue_no_complement`` (the
   producer writes no complements): ``no_epilogue`` with one more part out;
 
-at config 4's serving shape (2048 queries × 2²⁴ codes × 32 B, m = 16) and at
-one query tile (64 queries, the plan's row splits).  Run from the repository root on
-a machine with a card and ``nvcc``::
+at the plan of each shape (``--shapes``, default all):
 
-    python3 torch_experiments/k4_parts.py
+* ``serve_2048x2^24``: config 4's serving shape, 2,048 random queries ×
+  2²⁴ random codes × 32 B, m = 16;
+* ``tile_64x2^24``: one query tile over the same codes;
+* ``lsh_64x2^20``: an LSH tile's re-rank, 64 queries × 2²⁰ candidate rows,
+  every third row dead, m = 10;
+* ``bulk_2048x1B``: a tile of the bulk cell, 2,048 planted queries × 1B
+  planted codes (as rpbench makes them), m = 16.
 
-Prints one JSON line with the card's name and power limit beside the
-milliseconds.
+``--root TREE`` builds and plans the kernel of another tree (a parent's
+checkout), so one call times both sides on one card.  Run from the
+repository root on a machine with a card and ``nvcc``::
+
+    python3 torch_experiments/k4_parts.py [--root TREE] [--shapes a,b]
+
+Prints one JSON line a shape as it goes, then one with the card's name and
+power limit beside all the milliseconds.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -35,9 +46,16 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-ROWS, N_BYTES, M = 1 << 24, 32, 16
+HERE = Path(__file__).resolve().parents[1]
+SEED = 2**31 + 2203
 REPS = 5
+# (name, queries, rows, m, corpus)
+SHAPES = [
+    ("serve_2048x2^24", 2048, 1 << 24, 16, "random"),
+    ("tile_64x2^24", 64, 1 << 24, 16, "random"),
+    ("lsh_64x2^20", 64, 1 << 20, 10, "lsh"),
+    ("bulk_2048x1B", 2048, 10**9, 16, "planted"),
+]
 
 # (a line of the kernel, the line that takes a part out); ``a.m < 0`` never
 # holds, so the code stays and never runs
@@ -67,17 +85,46 @@ def _patched(text: str, pairs) -> str:
     return text
 
 
+def inputs(torch, nq, rows, corpus):
+    from rpbench import data
+
+    dev = torch.device("cuda")
+    if corpus == "planted":
+        codes = data.planted_codes(rows, 32, 16, 6,
+                                   data.generator(SEED, dev, 1), device=dev)
+        q = data.planted_queries(codes, nq, 6, data.generator(SEED, dev, 2))
+        return q.contiguous(), codes, None
+    g = data.generator(SEED, dev, 3)
+    codes = torch.randint(0, 256, (rows, 32), generator=g, dtype=torch.uint8,
+                          device=dev)
+    q = torch.randint(0, 256, (nq, 32), generator=g, dtype=torch.uint8,
+                      device=dev)
+    dead = None
+    if corpus == "lsh":
+        dead = (torch.arange(rows, device=dev) % 3 == 0).to(torch.uint8)
+    return q, codes, dead
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE),
+                    help="the tree whose kernel and planner are timed")
+    ap.add_argument("--shapes", default="", help="names to run (default all)")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("k4_parts: no CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    root = Path(args.root).resolve()
+    sys.path[:0] = [str(root), str(HERE)]  # the port from --root, rpbench here
     from randomprojection_tpu_torch.ops import _build as build
     from randomprojection_tpu_torch.ops import topk_kernels as tk
 
     text = (build.CSRC / "topk.cu").read_text()
+    # since the survivors' buffers the scan takes the buffer's size and a
+    # pointer to its counters
+    buffered = "int buf, int splits" in text
     sources = {
         "shipped": text,
         "no_loads": _patched(text, NO_LOADS),
@@ -87,7 +134,8 @@ def main() -> int:
         "no_epilogue_no_products": _patched(text, NO_EPILOGUE + NO_PRODUCTS),
         "no_epilogue_no_complement": _patched(text, NO_EPILOGUE + NO_COMPLEMENT),
     }
-    out = ROOT / "build" / "torch_experiments"
+    tag = "change" if root == HERE else "other"
+    out = HERE / "build" / "torch_experiments" / f"k4_parts_{tag}"
     out.mkdir(parents=True, exist_ok=True)
 
     def compile_(name):
@@ -102,17 +150,16 @@ def main() -> int:
         libs = dict(pool.map(compile_, sources))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for lib in libs.values():
-        lib.rp_topk_scan.argtypes = [p, p, p, i64, i64, i64, i64, i32, i32,
-                                     i32, i32, i32, i32, p, p]
+        lib.rp_topk_scan.argtypes = (
+            [p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32,
+             p, p, p] if buffered else
+            [p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, p, p])
         lib.rp_topk_scan.restype = i32
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    g = torch.Generator(device="cuda").manual_seed(0)
-    codes = torch.randint(0, 256, (ROWS, N_BYTES), generator=g, device="cuda",
-                          dtype=torch.uint8)
     stream = torch.cuda.current_stream().cuda_stream
 
     def timed(fn) -> float:
@@ -127,29 +174,35 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / REPS
 
-    rows = []
-    for nq in (2048, 64):
-        q = torch.randint(0, 256, (nq, N_BYTES), generator=g, device="cuda",
-                          dtype=torch.uint8)
-        plan = tk.plan_fused(nq, ROWS, N_BYTES, M, sm_count=sms)
-        part = torch.empty((nq, plan.splits, M), dtype=torch.int64, device="cuda")
+    names = set(filter(None, args.shapes.split(",")))
+    rows_out = []
+    for name, nq, rows, m, corpus in SHAPES:
+        if names and name not in names:
+            continue
+        q, codes, dead = inputs(torch, nq, rows, corpus)
+        plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+        part = torch.empty((nq, plan.splits, m), dtype=torch.int64, device="cuda")
+        dead_p = None if dead is None else dead.data_ptr()
 
-        def launch(name):
-            rc = libs[name].rp_topk_scan(
-                q.data_ptr(), codes.data_ptr(), None, nq, ROWS, ROWS, N_BYTES,
-                M, 1, plan.tq, plan.stages, plan.splits, plan.tiles_per_split,
-                part.data_ptr(), stream)
+        def launch(lib):
+            head = (q.data_ptr(), codes.data_ptr(), dead_p, nq, rows, rows, 32,
+                    m, 1, plan.tq, plan.stages)
+            tail = (plan.splits, plan.tiles_per_split, part.data_ptr())
+            rc = (lib.rp_topk_scan(*head, plan.buf, *tail, None, stream)
+                  if buffered else lib.rp_topk_scan(*head, *tail, stream))
             if rc:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
 
-        ms = {name: [] for name in libs}
-        order = list(libs) + list(libs)[::-1]
-        for name in order:
-            ms[name].append(timed(lambda: launch(name)))
-        rows.append({"queries": nq, "plan": list(plan), "ms": ms})
-        print(json.dumps(rows[-1]), flush=True)
-    print(json.dumps({"k4_parts": rows, "shape": f"{ROWS}x{N_BYTES}B m={M}",
-                      "card": card}))
+        ms = {n: [] for n in libs}
+        for n in list(libs) + list(libs)[::-1]:
+            ms[n].append(timed(lambda: launch(libs[n])))
+        rows_out.append({"shape": name, "queries": nq, "rows": rows, "m": m,
+                         "plan": list(plan), "ms": ms})
+        print(json.dumps(rows_out[-1]), flush=True)
+        del q, codes, dead, part
+        torch.cuda.empty_cache()
+    print(json.dumps({"k4_parts": rows_out, "root": str(root),
+                      "buffered": buffered, "card": card}))
     return 0
 
 

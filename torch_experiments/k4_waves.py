@@ -6,8 +6,8 @@ splits forced, at the shapes its callers run: 1, 48 and 256 queries over
 one card's 125M-code shard (the open loop's batches; planted codes as
 rpbench makes them), 2,048 queries over 2²⁰ codes (a chunk of the tiered
 index), over 2²⁴ codes and over 1B planted codes (the bulk cell), and an
-LSH tile of 64 queries × 2¹⁹ candidate rows with every third row dead
-(m = 10).  Each shape's times are fitted to the planner's model,
+LSH tile of 64 queries × 2¹⁹ or 2²⁰ (the LSH cell's slots) candidate rows
+with every third row dead (m = 10).  Each shape's times are fitted to the planner's model,
 
     T(s) = a · waves(s) · (ceil(n_tiles / s) + W) + c,
     waves(s) = ceil(q_tiles · s / SMs),
@@ -49,6 +49,7 @@ SHAPES = [
     ("open_48x125M", 48, 125_000_000, 16, "planted", [32, 66, 132, 264, 396]),
     ("open_256x125M", 256, 125_000_000, 16, "planted", [16, 33, 66, 132, 198]),
     ("lsh_64x2^19", 64, 1 << 19, 10, "lsh", [8, 16, 32, 64, 132, 264, 396]),
+    ("lsh_64x2^20", 64, 1 << 20, 10, "lsh", [16, 32, 64, 128, 264, 396]),
     ("tier_2048x2^20", 2048, 1 << 20, 16, "random", [2, 4, 8, 16, 33, 66]),
     ("serve_2048x2^24", 2048, 1 << 24, 16, "random", [4, 8, 16, 33, 66]),
     ("bulk_2048x1B", 2048, 10**9, 16, "planted", [8, 16, 33]),
