@@ -99,9 +99,9 @@ import numpy as np
 
 from randomprojection_tpu_torch.models.sketch import SimHashIndex
 from randomprojection_tpu_torch.ops import probe_kernels, topk_kernels
+# a tensor's copy to the host, started at dispatch and read tiles behind
+from randomprojection_tpu_torch.ops.staging import HostFetch, tile_pipeline
 from randomprojection_tpu_torch.serving.sharded_index import ShardedSimHashIndex
-# a tensor's copy to the host, started at dispatch and read one tile behind
-from randomprojection_tpu_torch.streaming import _HostFetch
 from randomprojection_tpu_torch.utils import observability, telemetry
 from randomprojection_tpu_torch.utils.observability import annotate
 from randomprojection_tpu_torch.utils.telemetry import EVENTS
@@ -122,7 +122,6 @@ _MAX_BAND_BITS = 20
 # band-key extraction block: bounds the unpacked bit matrix however large
 # one add() is
 _KEY_EXTRACT_BLOCK = 1 << 16
-_INT32_MAX = np.int32(2**31 - 1)
 
 _PROBE_PATHS = ("auto", "host", "device")
 
@@ -465,29 +464,6 @@ def _binding_key(b) -> int:
     return b.data_ptr() if hasattr(b, "data_ptr") else id(b)
 
 
-def _merge_topm_rows(bd, bg, nd, ng, sentinel: int):
-    """Row-wise exact merge of two (dist, id) top-m planes under the
-    (distance, lower-global-id) order, deduplicating ids: ``top_m(A ∪ B) =
-    top_m(top_m(A) ∪ top_m(B))`` makes the adaptive rounds exact over
-    their cumulative candidates.  A duplicate id has one distance, so it
-    is key-identical and adjacent after the sort; all but the first
-    re-key to the empty-slot pair."""
-    m = bd.shape[1]
-    d = np.concatenate([bd, nd], axis=1).astype(np.int64)
-    g = np.concatenate([bg, ng], axis=1).astype(np.int64)
-    key = (d << 32) | g
-    key.sort(axis=1)
-    dup = np.zeros(key.shape, bool)
-    dup[:, 1:] = key[:, 1:] == key[:, :-1]
-    key[dup] = (np.int64(sentinel) << 32) | int(_INT32_MAX)
-    key.sort(axis=1)
-    key = key[:, :m]
-    return (
-        (key >> 32).astype(np.int32),
-        (key & 0x7FFFFFFF).astype(np.int32),
-    )
-
-
 def _packed(stat, d, gid):
     """A device tile's stats and ``(dist, gid)`` planes as one int32 plane,
     for one copy to the host (``_unpacked`` splits it)."""
@@ -751,35 +727,18 @@ class LSHSimHashIndex(SimHashIndex):
         nq = A.shape[0]
         out_d = np.empty((nq, m_eff), dtype=np.int32)
         out_i = np.empty((nq, m_eff), dtype=np.int32)
-        # tiles finish _TILES_AHEAD behind: tile i's copy to the host and its
-        # ladder ride under the later tiles' probe and kernels
-        pending: list = []
 
-        def finish(entry):
-            lo, hi, kind, payload = entry
-            if kind == "lsh":
-                d, i = self._lsh_finish_tile(payload, m_eff)
-            elif kind == "lsh_dev":
-                d, i = self._lsh_finish_device_tile(payload, m_eff)
-            elif kind == "exact":
-                d, i = self._topk_finish_tile(payload, m_eff)
-            else:  # 'done': served whole (adaptive rounds)
-                d, i = payload
-            out_d[lo:hi] = d
-            out_i[lo:hi] = i
+        def dispatch(lo, hi):
+            return self._lsh_tile_entry(A[lo:hi], m_eff, masks, p, tile,
+                                        device, adaptive_eff, budget_eff)
+
+        def finish(lo, hi, entry):
+            out_d[lo:hi], out_i[lo:hi] = _finish_lsh_entry(self, entry, m_eff)
 
         with annotate("rp:lsh/query_topk"):
-            for lo in range(0, nq, tile):
-                hi = min(lo + tile, nq)
-                kind, payload = self._lsh_tile_entry(
-                    A[lo:hi], m_eff, masks, p, tile, device, adaptive_eff,
-                    budget_eff,
-                )
-                pending.append((lo, hi, kind, payload))
-                if len(pending) > _TILES_AHEAD:
-                    finish(pending.pop(0))
-            while pending:
-                finish(pending.pop(0))
+            # tiles finish _TILES_AHEAD behind: tile i's copy to the host
+            # and its ladder ride under the later tiles' probe and kernels
+            tile_pipeline(nq, tile, dispatch, finish, behind=_TILES_AHEAD)
         return out_d, out_i
 
     # -- the host rung -----------------------------------------------------------
@@ -860,7 +819,7 @@ class LSHSimHashIndex(SimHashIndex):
         """One K4 re-rank against one gathered candidate plane (the tile's
         whole union, or one residency side of it)."""
         d, i = topk_kernels.fused_topk(a, cand_dev, int(cand.size), m_eff)
-        return _HostFetch(d), _HostFetch(i), cand
+        return HostFetch(d), HostFetch(i), cand
 
     def _lsh_rerank_tiered(self, a, cand: np.ndarray, m_eff: int):
         """The tiered re-rank: split the candidate union by chunk residency,
@@ -941,25 +900,16 @@ class LSHSimHashIndex(SimHashIndex):
         """Wait for one re-rank and map candidate positions back to global
         ids: ``cand`` is ascending, so the kernel's lower-position tie rule
         is the lower-global-id rule.  A ``'tiered'`` payload finishes each
-        residency side the same way, pads the smaller one to ``m_eff``
-        with the empty-slot sentinel pair and merges the two under the
-        (distance, lower-global-id) order; the sides are disjoint, and
-        each of them is ascending in id."""
+        residency side the same way and merges the two under the
+        (distance, lower-global-id) order (``topk_kernels.merge_topm``);
+        the sides are disjoint, and together at least ``m_eff`` wide."""
         if payload[0] == "tiered":
             _, (hp, m_hot), (cp, m_cold) = payload
             cd, ci = self._lsh_finish_tile(cp, m_cold)
             if hp is None:
                 return cd, ci  # all cold: the gate gave m_cold == m_eff
             hd, hi_ = self._lsh_finish_tile(hp, m_hot)
-            sent = np.int32(self.n_bits + 1)
-            cols = ((hd, hi_, m_hot), (cd, ci, m_cold))
-            (hd, hi_), (cd, ci) = [
-                (np.pad(d, ((0, 0), (0, m_eff - m)), constant_values=sent),
-                 np.pad(i, ((0, 0), (0, m_eff - m)),
-                        constant_values=_INT32_MAX))
-                for d, i, m in cols
-            ]
-            return _merge_topm_rows(hd, hi_, cd, ci, int(sent))
+            return topk_kernels.merge_topm([hd, cd], [hi_, ci], m_eff)
         d, i, cand = payload
         return d.result(None), cand[i.result(None)].astype(np.int32)
 
@@ -1113,8 +1063,8 @@ class LSHSimHashIndex(SimHashIndex):
         # each slot's side (0 dead, 1 hot, 2 cold), to the host with the ids
         # ahead of the hot side's kernel
         side = live.to(torch.int32) + (live & ~in_hot).to(torch.int32)
-        ids_h, side_h = _HostFetch(s), _HostFetch(side)
-        sent = self.n_bits + 1
+        ids_h, side_h = HostFetch(s), HostFetch(side)
+        sent = topk_kernels.empty_dist(self.n_bits)
         if hot:
             d, gid = probe_kernels.rerank_slots(
                 q, probe_kernels.gather_rows(hot, sc), s, ~(live & in_hot),
@@ -1122,7 +1072,7 @@ class LSHSimHashIndex(SimHashIndex):
         else:
             d = torch.full((q.shape[0], m_eff), sent, dtype=torch.int32,
                            device=self.device)
-            gid = torch.full_like(d, _INT32_MAX)
+            gid = torch.full_like(d, topk_kernels.EMPTY_ID)
         ids_np, side_np = ids_h.result(None), side_h.result(None)
         t0 = time.perf_counter()
         cand = ids_np[side_np > 0].astype(np.int64)
@@ -1162,7 +1112,7 @@ class LSHSimHashIndex(SimHashIndex):
         if m_cold < m_eff:
             pad = (0, m_eff - m_cold)
             cd = torch.nn.functional.pad(cd, pad, value=sent)
-            cg = torch.nn.functional.pad(cg, pad, value=_INT32_MAX)
+            cg = torch.nn.functional.pad(cg, pad, value=topk_kernels.EMPTY_ID)
         key = torch.cat([(d.long() << 32) | gid.long(),
                          (cd.long() << 32) | cg.long()], dim=1)
         key = torch.sort(key, dim=1).values[:, :m_eff]
@@ -1241,7 +1191,7 @@ class LSHSimHashIndex(SimHashIndex):
             # outputs only after they landed
             fetch = self._lsh_device_composite(
                 a, masks_dev, act_dev, m_eff, cap,
-                fetch=lambda d, gid, stat, _cnt: _HostFetch(_packed(
+                fetch=lambda d, gid, stat, _cnt: HostFetch(_packed(
                     stat, d, gid)),
             )
         payload = (fetch, nq, p, tile, a, cap)
@@ -1324,7 +1274,8 @@ class LSHSimHashIndex(SimHashIndex):
         by ≥ ``f+1`` bits in EVERY band, and bands are disjoint, so its
         distance is ≥ ``bands·(f+1)``: a query whose running m-th distance
         is STRICTLY below that bound is final (strictness covers the tie
-        rule).  (2) Rounds merge exactly (``_merge_topm_rows``).  (3) A
+        rule).  (2) Rounds merge exactly (``topk_kernels.merge_topm``,
+        repeated candidates kept once).  (3) A
         larger budget never retires a query earlier, so recall is monotone
         in ``candidate_budget``.  A truncated last level never exits on
         its own bound.
@@ -1355,9 +1306,9 @@ class LSHSimHashIndex(SimHashIndex):
                 **telemetry.trace_fields(),
             )
             return None
-        sent_d = np.int32(self.n_bits + 1)
-        best_d = np.full((nq, m_eff), sent_d, np.int32)
-        best_g = np.full((nq, m_eff), _INT32_MAX, np.int32)
+        best_d = np.full((nq, m_eff), topk_kernels.empty_dist(self.n_bits),
+                         np.int32)
+        best_g = np.full((nq, m_eff), topk_kernels.EMPTY_ID, np.int32)
         active = np.ones(nq, bool)
         used = np.zeros(nq, np.int64)
         yielded = np.zeros(nq, np.int64)
@@ -1400,9 +1351,9 @@ class LSHSimHashIndex(SimHashIndex):
                 return None
             # merge ACTIVE rows only: retired rows stay frozen, which is
             # what makes the budget's superset argument hold
-            best_d[active], best_g[active] = _merge_topm_rows(
-                best_d[active], best_g[active], nd[active], ng[active],
-                int(sent_d),
+            best_d[active], best_g[active] = topk_kernels.merge_topm(
+                [best_d[active], nd[active]], [best_g[active], ng[active]],
+                m_eff, dedup=True, n_bits=self.n_bits,
             )
             used[active] += int(hi - lo)
             yielded[active] += cnt[active]
@@ -1417,7 +1368,7 @@ class LSHSimHashIndex(SimHashIndex):
                 stops = active & (yielded >= budget)
                 budget_stops += int(stops.sum())
                 active &= ~stops
-        starved = best_g[:, m_eff - 1] == _INT32_MAX
+        starved = best_g[:, m_eff - 1] == topk_kernels.EMPTY_ID
         if starved.any():
             reg.counter_inc("index.lsh.fallbacks")
             telemetry.emit(
@@ -1567,7 +1518,8 @@ class LSHShardedSimHashIndex(ShardedSimHashIndex):
 
 
 def _finish_lsh_entry(shard, entry, m_s: int):
-    """Finish one shard's ``_lsh_tile_entry``: ``(dist, local id)``."""
+    """Finish one ``_lsh_tile_entry`` of an index (a shard, in the sharded
+    tier): ``(dist, local id)``."""
     kind, payload = entry
     if kind == "lsh":
         return shard._lsh_finish_tile(payload, m_s)

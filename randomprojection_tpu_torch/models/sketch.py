@@ -47,14 +47,14 @@ import scipy.sparse as sp
 
 from randomprojection_tpu_torch.models.base import BaseRandomProjection, ParamsMixin
 from randomprojection_tpu_torch.ops import topk_kernels
+# a tensor's copy to the host: pinned memory, non_blocking, an event
+# behind it on a card; .result(None) waits for that copy alone
+from randomprojection_tpu_torch.ops.staging import HostFetch, tile_pipeline
 from randomprojection_tpu_torch.parallel.mesh import concrete_device
 from randomprojection_tpu_torch.parallel.sharded import (
     row_bucket,
     token_balanced_bounds,
 )
-# a tensor's copy to the host: pinned memory, non_blocking, an event
-# behind it on a card; .result(None) waits for that copy alone
-from randomprojection_tpu_torch.streaming import _HostFetch
 from randomprojection_tpu_torch.utils import telemetry
 from randomprojection_tpu_torch.utils.observability import (
     annotate,
@@ -607,20 +607,13 @@ class SimHashIndex:
         copy to the host starts at dispatch and is read one tile behind."""
         A = self._check_queries(A)
         out = np.empty((A.shape[0], self.n_codes), dtype=np.int32)
-        pending: list = []  # [(lo, hi, [per-chunk host fetches])]
 
-        def finish(entry):
-            lo, hi, fetches = entry
-            for c, f in zip(self._chunks, fetches):
-                out[lo:hi, c.row0: c.row0 + c.n] = f.result(None)
-
-        for lo in range(0, A.shape[0], tile):
-            hi = min(lo + tile, A.shape[0])
+        def dispatch(lo, hi):
             a = self._on_chunk_devices(A[lo:hi])
-            pending.append((lo, hi, [
-                _HostFetch(topk_kernels.hamming_counts(
+            fetches = [
+                HostFetch(topk_kernels.hamming_counts(
                     a[self._chunk_device(c)], self._resident_codes(c)))
-                for c in self._chunks]))
+                for c in self._chunks]
             telemetry.registry().counter_inc(
                 "simhash.chunk_dispatches", len(self._chunks)
             )
@@ -630,10 +623,13 @@ class SimHashIndex:
                     chunks=len(self._chunks), n_codes=self.n_codes,
                     **telemetry.trace_fields(),
                 )
-            if len(pending) >= 2:
-                finish(pending.pop(0))
-        while pending:
-            finish(pending.pop(0))
+            return fetches
+
+        def finish(lo, hi, fetches):
+            for c, f in zip(self._chunks, fetches):
+                out[lo:hi, c.row0: c.row0 + c.n] = f.result(None)
+
+        tile_pipeline(A.shape[0], tile, dispatch, finish)
         return out
 
     def query_cosine(self, A, *, tile: int = 2048):
@@ -672,24 +668,17 @@ class SimHashIndex:
             nq = A.shape[0]
             out_d = np.empty((nq, m_eff), dtype=np.int32)
             out_i = np.empty((nq, m_eff), dtype=np.int32)
-            # tiles finish one behind: tile i's copy to the host and its
-            # merge ride under tile i+1's kernels
-            pending: list = []
 
-            def finish(entry):
-                lo, hi, handles = entry
+            def finish(lo, hi, handles):
                 out_d[lo:hi], out_i[lo:hi] = self._topk_finish_tile(
                     handles, m_eff)
 
-            for lo in range(0, nq, tile):
-                hi = min(lo + tile, nq)
-                pending.append(
-                    (lo, hi, self._topk_dispatch_tile(A[lo:hi], m_eff))
-                )
-                if len(pending) >= 2:
-                    finish(pending.pop(0))
-            while pending:
-                finish(pending.pop(0))
+            # tiles finish one behind: tile i's copy to the host and its
+            # merge ride under tile i+1's kernels
+            tile_pipeline(
+                nq, tile,
+                lambda lo, hi: self._topk_dispatch_tile(A[lo:hi], m_eff),
+                finish)
             return out_d, out_i
 
     def _check_m(self, m_eff: int) -> None:
@@ -727,7 +716,7 @@ class SimHashIndex:
                 b = stager.resolve(ci) if stager is not None else None
                 d, i = self._chunk_topk(a_on[self._chunk_device(c)], c,
                                         int(min(m_eff, c.n)), b=b)
-                handles.append((_HostFetch(d), _HostFetch(i)))
+                handles.append((HostFetch(d), HostFetch(i)))
             if stager is not None:
                 stager.finish()
             telemetry.registry().counter_inc(
@@ -751,23 +740,15 @@ class SimHashIndex:
         with annotate("rp:index/wait_tile"):
             got = [(d.result(None), i.result(None)) for d, i in handles]
         with annotate("rp:index/merge_tile"):
-            # distances fit 25 bits and ids int32, so (dist << shift) | id
-            # is an exact int64 total-order key
-            shift = max(self.n_codes.bit_length(), 1)
-            d = np.concatenate([d for d, _i in got], axis=1)
-            i = np.concatenate([i.astype(np.int64) + c.row0
-                                for c, (_d, i) in zip(self._chunks, got)],
-                               axis=1)
-            # clamp sentinel ids (empty slots carry id 2^31-1) so they
-            # cannot bleed into the dist bits of the key; their sentinel
-            # dist already orders them last
-            key = (d.astype(np.int64) << shift) | np.minimum(
-                i, (1 << shift) - 1)
-            sel = np.argsort(key, axis=1, kind="stable")[:, :m_eff]
-            return (
-                np.take_along_axis(d, sel, axis=1),
-                np.take_along_axis(i, sel, axis=1).astype(np.int32),
-            )
+            # a chunk's local ids widen before its offset is added, so an
+            # empty slot's id cannot wrap; live slots fill m_eff, and so no
+            # empty slot is ever chosen
+            d, i = topk_kernels.merge_topm(
+                [d for d, _i in got],
+                [i if c.row0 == 0 else i.astype(np.int64) + c.row0
+                 for c, (_d, i) in zip(self._chunks, got)],
+                m_eff)
+            return d, i.astype(np.int32, copy=False)
 
     def _sync_upload(self, b):
         """The degraded rung of a staged upload: a cold binding uploaded on

@@ -133,8 +133,6 @@ _MIN_BLK = 64  # the TPU kernel's smallest DMA block
 _CAP_SLACK = 4
 _CAP_CEILING = 1 << 22
 
-_INT32_MAX = (1 << 31) - 1
-_SENTINEL_ID = _INT32_MAX  # empty slot: sorts past every real id
 _SRC = "probe"
 
 
@@ -352,7 +350,8 @@ def probe_plain(qkeys, masks, active, indptr, ids, *, cap: int):
     counts = ln.sum(dim=1).to(torch.int32)
     start, ln = start.reshape(-1), ln.reshape(-1)
     total = int(ln.sum())
-    slots = torch.full((int(cap),), _SENTINEL_ID, dtype=torch.int32, device=dev)
+    slots = torch.full((int(cap),), topk_kernels.EMPTY_ID, dtype=torch.int32,
+                       device=dev)
     stats = torch.zeros(8, dtype=torch.int32, device=dev)
     if total > cap:
         stats[1] = 1
@@ -563,7 +562,8 @@ def rerank_slots(q, rows, s, dead, m: int, *, counts=None):
     cap = int(s.shape[0])
     d, idx = topk_kernels.fused_topk(q, rows, cap, m, dead=dead.to(torch.uint8),
                                      counts=counts)
-    gid = torch.where(idx >= cap, _INT32_MAX, s[idx.long().clamp(0, cap - 1)])
+    gid = torch.where(idx >= cap, topk_kernels.EMPTY_ID,
+                      s[idx.long().clamp(0, cap - 1)])
     return d, gid
 
 

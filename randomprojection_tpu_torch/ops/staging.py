@@ -1,4 +1,4 @@
-"""Host-to-device uploads on the card's copy stream.
+"""Copies between the host and the card, and the tile pipeline they feed.
 
 The backend's, CountSketch's and the tier staging's uploads go through
 ``stage_upload``: the rows are copied into a pinned staging block (a
@@ -15,11 +15,26 @@ event, and the tensor's use there is recorded with the caching allocator,
 which otherwise would hand the block (allocated on the copy stream) to the
 next upload while a kernel on the consumer's stream still reads it.  An
 upload that is read at once is ``stage_upload(t, device).wait()``.
+
+The way back is ``HostFetch``: a card output's copy into pinned host
+memory, queued right behind its kernel with an event after it, read when
+the host needs it.  ``tile_pipeline`` runs a serving call's query tiles
+through both halves: each tile is dispatched (its kernels launched and its
+results' fetches started) and finished (its fetches read and merged) a
+fixed number of tiles later, so the host's finish of one tile rides under
+the kernels of the tiles behind it.
 """
 
 from __future__ import annotations
 
-__all__ = ["StagedBatch", "copy_stream", "stage_upload"]
+import collections
+import sys
+
+import numpy as np
+import scipy.sparse as sp
+
+__all__ = ["HostFetch", "StagedBatch", "copy_stream", "stage_upload",
+           "tile_pipeline"]
 
 _COPY_STREAMS: dict = {}
 
@@ -88,3 +103,59 @@ def stage_upload(t, device) -> StagedBatch:
             done = torch.cuda.Event()
             done.record(stream)
     return StagedBatch(x, done)
+
+
+class HostFetch:
+    """A batch output on its way to the host.
+
+    A card tensor's copy into pinned host memory is queued right behind
+    its kernel on the current stream, with an event after it; ``result``
+    waits for that event alone, then copies into pageable memory so the
+    pinned block goes back to torch's allocator.  Host outputs (numpy
+    arrays, CSR, CPU tensors) pass through.
+    """
+
+    __slots__ = ("_y", "_done")
+
+    def __init__(self, y):
+        self._done = None
+        torch = sys.modules.get("torch")
+        if torch is not None and isinstance(y, torch.Tensor) and y.is_cuda:
+            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+            host.copy_(y, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+            y = host
+        self._y = y
+
+    def result(self, out_dtype):
+        y = self._y
+        if self._done is not None:
+            self._done.synchronize()
+        torch = sys.modules.get("torch")
+        if torch is not None and isinstance(y, torch.Tensor):
+            if y.dtype == torch.bfloat16:
+                y = y.float()
+            y = np.array(y.numpy(), dtype=out_dtype, copy=True)
+        elif not sp.issparse(y):
+            y = np.asarray(y)
+            if out_dtype is not None:
+                y = y.astype(out_dtype, copy=False)
+        return y
+
+
+def tile_pipeline(n: int, tile: int, dispatch, finish, *,
+                  behind: int = 1) -> None:
+    """Run ``dispatch(lo, hi)`` on each tile ``[lo, hi)`` of ``n`` rows in
+    order, and ``finish(lo, hi, payload)`` on what it returned once
+    ``behind`` more tiles are dispatched; then finish the tiles still in
+    flight, in order.  An exception from either propagates at once, and
+    the tiles in flight are dropped unfinished."""
+    pending = collections.deque()
+    for lo in range(0, n, tile):
+        hi = min(lo + tile, n)
+        pending.append((lo, hi, dispatch(lo, hi)))
+        if len(pending) > behind:
+            finish(*pending.popleft())
+    while pending:
+        finish(*pending.popleft())

@@ -4,9 +4,17 @@ The port of ``randomprojection_tpu/ops/topk_kernels.py``.  ``fused_topk``
 returns, for each query row, the ``m`` nearest code rows of one chunk by
 Hamming distance, ascending, with exact ties broken by the LOWER
 chunk-local id.  Rows with id ``>= n_real`` and rows with ``dead[id] == 1``
-never displace a live row; a slot no live row fills is exactly
-``(n_bytes·8 + 1, 2³¹−1)``, which the index's cross-chunk host merge
-relies on.  Bit for bit the contract of the reference's ``fused_topk``.
+never displace a live row; a slot no live row fills is exactly the empty
+pair ``(empty_dist(n_bytes·8), EMPTY_ID)`` = ``(n_bytes·8 + 1, 2³¹−1)``.
+Bit for bit the contract of the reference's ``fused_topk``.
+
+The candidate list
+------------------
+Every serving path speaks the list this kernel writes: ``(distance, id)``
+rows in (distance, lower id) order, empty slots last as the empty pair.
+``merge_topm`` is its one host merge: the index's chunks, the sharded
+tier's shards, the LSH tier's residency sides and its adaptive rounds all
+finish through it.
 
 Kernel and plain version
 ------------------------
@@ -55,17 +63,22 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
+
 from randomprojection_tpu_torch.ops import _build
 from randomprojection_tpu_torch.utils import observability
 
 __all__ = [
+    "EMPTY_ID",
     "LAUNCHES",
     "MAX_M",
     "SPLIT_WARMUP_TILES",
     "TopkPlan",
     "and_popc_distances",
+    "empty_dist",
     "fused_topk",
     "hamming_counts",
+    "merge_topm",
     "mma_scan_plain",
     "plan_fused",
     "reset_launches",
@@ -86,7 +99,8 @@ LAUNCHES = {"rp_fused_topk_wgmma": 0, "rp_fused_topk_popc": 0,
 
 MAX_M = 1024  # largest m a plan serves (popc route, tq = 16: 16·1024 keys)
 _MAX_BITS_EXACT = 1 << 24  # the reference's bound on a plannable row width
-_INT32_MAX = (1 << 31) - 1
+#: the id of an empty slot: past every device-local (int32) id
+EMPTY_ID = (1 << 31) - 1
 _SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
 _MAX_SPLITS = 65_535  # kMaxSplits: a launch's grid y, one split a block row
 _SCRATCH_BYTES = 256 << 20  # bound on the (nq, splits, m) int64 split lists
@@ -368,7 +382,7 @@ def topk_plain(q, codes, n_real: int, m: int, *, dead=None):
     dist = carry >> s
     empty = dist >= sentinel
     return (torch.where(empty, sentinel, dist).to(torch.int32),
-            torch.where(empty, _INT32_MAX, carry & low).to(torch.int32))
+            torch.where(empty, EMPTY_ID, carry & low).to(torch.int32))
 
 
 def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
@@ -395,7 +409,7 @@ def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
     _validate(q, codes, n_real, m, dead)
     nq, nb = q.shape
     sentinel = nb * 8 + 1
-    empty = (sentinel << 32) | _INT32_MAX
+    empty = (sentinel << 32) | EMPTY_ID
     n_tiles = -(-int(n_real) // _MMA_TILE_ROWS)
     span = n_tiles * _MMA_TILE_ROWS
     live = np.zeros(span, bool)
@@ -464,6 +478,61 @@ def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
             ok = wr < nq
             part[wr[ok], split] = lists[ok]
     return part, keys, merges
+
+
+def empty_dist(n_bits: int) -> int:
+    """The distance of an empty slot over codes of ``n_bits`` bits: one
+    past every real distance, so an empty slot sorts after them."""
+    return n_bits + 1
+
+
+def merge_topm(d_parts, i_parts, m: int, *, dedup: bool = False,
+               n_bits: Optional[int] = None):
+    """The top ``m`` of each row's union of candidate lists, in (distance,
+    lower id) order: the host merge of every list this kernel writes.
+
+    ``d_parts`` and ``i_parts`` are host planes, one pair a list, each row
+    already in that order; widths may differ, ids are int32 or int64 and
+    not negative.  Returns ``(dist int32, ids)``, ``m`` wide, the ids in
+    the inputs' widest dtype.  A pair comes back as it was given, so an
+    empty slot stays the exact empty pair.  One plane at least ``m`` wide
+    passes through as its first ``m`` columns.  ``dedup`` keeps one copy
+    of a repeated pair (an id has one distance) and turns the others into
+    the empty pair of ``n_bits``, which also fills a union narrower than
+    ``m``; ``n_bits`` is needed only then.
+
+    A row's keys ``(dist << s) | id`` sort in that order: ``s`` is 32
+    where every id is below 2³² (int32 ids always are), else the ids' bit
+    length, so no id bleeds into the distance bits."""
+    if len(d_parts) == 1 and not dedup and d_parts[0].shape[1] >= m:
+        return d_parts[0][:, :m], i_parts[0][:, :m]
+    ids = np.concatenate(i_parts, axis=1)
+    s = 32
+    if ids.dtype.itemsize > 4 and ids.size:
+        s = max(s, int(ids.max()).bit_length())
+    if s + _MAX_BITS_EXACT.bit_length() > 63:
+        raise ValueError(f"ids of {s} bits leave no room for the distance "
+                         "in a 63-bit key")
+    key = (np.concatenate(d_parts, axis=1).astype(np.int64) << s) | ids
+    rows, width = key.shape
+    if dedup or width < m:
+        if n_bits is None:
+            raise ValueError("merge_topm needs n_bits for the empty pair "
+                             "that fills a deduplicated or narrow union")
+        empty = (empty_dist(n_bits) << s) | EMPTY_ID
+    if dedup:
+        key.sort(axis=1)
+        dup = np.zeros(key.shape, bool)
+        dup[:, 1:] = key[:, 1:] == key[:, :-1]
+        key[dup] = empty
+    if width < m:
+        key = np.concatenate(
+            [key, np.full((rows, m - width), empty, np.int64)], axis=1)
+    elif m < width:
+        key = np.partition(key, m - 1, axis=1)[:, :m]
+    key.sort(axis=1)
+    return ((key >> s).astype(np.int32),
+            (key & ((1 << s) - 1)).astype(ids.dtype))
 
 
 # -- the CUDA kernel -------------------------------------------------------------

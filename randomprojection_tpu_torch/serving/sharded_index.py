@@ -21,13 +21,13 @@ past ``2**31 - 1`` codes.  ``ShardedSimHashIndex`` is the tier above it:
   ``id_offset`` starts the global id space anywhere in int64.
 - **One cross-shard merge.**  A query tile is dispatched to every live
   shard (each shard's kernels queue on its device), each returns its
-  top-``min(m, shard live)`` candidates, and one host sort of each row's
-  packed (distance, global id) keys finishes the tile: bit for bit
+  top-``min(m, shard live)`` candidates, and the candidate lists' host
+  merge (``topk_kernels.merge_topm``) finishes the tile: bit for bit
   ``topk_bruteforce`` on the concatenated corpus, because a shard's top-m
   under that order holds every global top-m member of the shard.  One
   live shard needs no merge: its answer is already in that order.  Tiles
-  finish one behind, so tile ``i``'s copies and merge ride under tile
-  ``i+1``'s kernels.
+  finish one behind (``ops.staging.tile_pipeline``), so tile ``i``'s
+  copies and merge ride under tile ``i+1``'s kernels.
 
 The reference sends a shard whose shape its kernel cannot plan to a dense
 host leg; the port's card index has no such route and refuses past the
@@ -60,6 +60,8 @@ from typing import Optional
 import numpy as np
 
 from randomprojection_tpu_torch.models.sketch import SimHashIndex
+from randomprojection_tpu_torch.ops import topk_kernels
+from randomprojection_tpu_torch.ops.staging import tile_pipeline
 from randomprojection_tpu_torch.utils import telemetry
 from randomprojection_tpu_torch.utils.telemetry import EVENTS
 
@@ -487,31 +489,16 @@ class ShardedSimHashIndex:
 
     def _merge_tile(self, d_parts: list, g_parts: list, m_eff: int):
         """The cross-shard merge: the shards' ``(dist, 0-based global id)``
-        candidate columns side by side, the top ``m_eff`` a row under the
-        exact (distance, lower-global-id) order.  Each row's packed keys
-        ``(dist << shift) | gid`` are unique, so a partition and a sort of
-        the ``m_eff`` survivors give that order.  One shard's columns pass
-        as they are: they are in that order already (local → global ids
-        rise together).  Returns ``(dist, idx)`` with ``id_offset`` added.
+        candidate columns, the top ``m_eff`` a row under the exact
+        (distance, lower-global-id) order (``topk_kernels.merge_topm``).
+        One shard's columns pass as they are: they are in that order
+        already (local → global ids rise together).  Returns ``(dist,
+        idx)`` with ``id_offset`` added.
         Shared with the LSH tier (``ann.LSHShardedSimHashIndex``); owns the
         merge tallies and the ``shard.merge`` event."""
         t0 = time.perf_counter()
-        if len(d_parts) == 1:
-            out_d = d_parts[0][:, :m_eff]
-            out_i = g_parts[0][:, :m_eff] + self.id_offset
-        else:
-            # a finished shard column holds live codes only, so dist <=
-            # n_bits: the key fits int64 below 2**(63 - n_bits.bit_length())
-            # codes (2**54 at 256 bits)
-            shift = max(self.n_codes.bit_length(), 1)
-            key = np.concatenate(
-                [(d.astype(np.int64) << shift) | g
-                 for d, g in zip(d_parts, g_parts)], axis=1)
-            if m_eff < key.shape[1]:
-                key = np.partition(key, m_eff - 1, axis=1)[:, :m_eff]
-            key.sort(axis=1)
-            out_d = (key >> shift).astype(np.int32)
-            out_i = (key & ((1 << shift) - 1)) + self.id_offset
+        out_d, out_i = topk_kernels.merge_topm(d_parts, g_parts, m_eff)
+        out_i = out_i + self.id_offset
         t, k = out_d.shape[0], sum(d.shape[1] for d in d_parts)
         wall = time.perf_counter() - t0
         with self._merge_stats_lock:
@@ -592,10 +579,17 @@ class ShardedSimHashIndex:
         nq = A.shape[0]
         out_d = np.empty((nq, m_eff), dtype=np.int32)
         out_i = np.empty((nq, m_eff), dtype=np.int64)
-        pending: list = []  # [(lo, hi, [(shard index, payload, m_s)])]
 
-        def drain(entry):
-            lo, hi, per_shard = entry
+        def dispatch_tile(lo, hi):
+            per_shard = []  # [(shard index, payload, m_s)]
+            for si, m_s in live:
+                shard = self._shards[si]
+                with _on(shard.device):
+                    per_shard.append((si, dispatch(shard, A[lo:hi], m_s), m_s))
+            self._note_tile(hi - lo, m_eff, len(per_shard))
+            return per_shard
+
+        def finish_tile(lo, hi, per_shard):
             d_parts, g_parts = [], []
             for si, payload, m_s in per_shard:
                 d_s, li_s = finish(self._shards[si], payload, m_s)
@@ -604,17 +598,5 @@ class ShardedSimHashIndex:
             out_d[lo:hi], out_i[lo:hi] = self._merge_tile(
                 d_parts, g_parts, m_eff)
 
-        for lo in range(0, nq, tile):
-            hi = min(lo + tile, nq)
-            per_shard = []
-            for si, m_s in live:
-                shard = self._shards[si]
-                with _on(shard.device):
-                    per_shard.append((si, dispatch(shard, A[lo:hi], m_s), m_s))
-            self._note_tile(hi - lo, m_eff, len(per_shard))
-            pending.append((lo, hi, per_shard))
-            if len(pending) >= 2:
-                drain(pending.pop(0))
-        while pending:
-            drain(pending.pop(0))
+        tile_pipeline(nq, tile, dispatch_tile, finish_tile)
         return out_d, out_i

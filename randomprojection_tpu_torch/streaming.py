@@ -42,13 +42,13 @@ import json
 import numbers
 import os
 import queue
-import sys
 import threading
 from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 
+from randomprojection_tpu_torch.ops.staging import HostFetch
 from randomprojection_tpu_torch.utils import telemetry
 from randomprojection_tpu_torch.utils.observability import (
     annotate,
@@ -826,45 +826,6 @@ class StreamCursor:
         return cls(rows_done=int(d["rows_done"]))
 
 
-class _HostFetch:
-    """A batch output on its way to the host.
-
-    A card tensor's copy into pinned host memory is queued right behind
-    its kernel on the current stream, with an event after it; ``result``
-    waits for that event alone, then copies into pageable memory so the
-    pinned block goes back to torch's allocator.  Host outputs (numpy
-    arrays, CSR, CPU tensors) pass through.
-    """
-
-    __slots__ = ("_y", "_done")
-
-    def __init__(self, y):
-        self._done = None
-        torch = sys.modules.get("torch")
-        if torch is not None and isinstance(y, torch.Tensor) and y.is_cuda:
-            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-            host.copy_(y, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record()
-            y = host
-        self._y = y
-
-    def result(self, out_dtype):
-        y = self._y
-        if self._done is not None:
-            self._done.synchronize()
-        torch = sys.modules.get("torch")
-        if torch is not None and isinstance(y, torch.Tensor):
-            if y.dtype == torch.bfloat16:
-                y = y.float()
-            y = np.array(y.numpy(), dtype=out_dtype, copy=True)
-        elif not sp.issparse(y):
-            y = np.asarray(y)
-            if out_dtype is not None:
-                y = y.astype(out_dtype, copy=False)
-        return y
-
-
 def stream_transform(
     estimator,
     source: RowBatchSource,
@@ -903,7 +864,7 @@ def stream_transform(
     if stats is not None:
         stats.start()
 
-    pending: list = []  # [(start_row, n_rows, _HostFetch, in_nbytes, root)]
+    pending: list = []  # [(start_row, n_rows, HostFetch, in_nbytes, root)]
 
     def emit():
         # Yield the oldest pending batch FIRST; advance/save the cursor
@@ -963,7 +924,7 @@ def stream_transform(
                 # the next batch's work; keep only the input's byte count
                 # (retaining the batch would pin pipeline_depth extra
                 # input batches of host memory)
-                pending.append((start_row, n_rows, _HostFetch(y),
+                pending.append((start_row, n_rows, HostFetch(y),
                                 batch_nbytes(batch), root))
             if len(pending) >= pipeline_depth:
                 yield from emit()

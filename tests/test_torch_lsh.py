@@ -2,9 +2,10 @@
 on the CPU.
 
 The host half (band keys, probe masks, ``BandPlan``, ``BandedBuckets`` with
-its incremental merge and compact remap, ``_merge_topm_rows``) is held to
-the reference bit for bit.  ``LSHSimHashIndex(device='cpu')`` is held to
-the reference's host-path index (``probe_path='host'``; its own
+its incremental merge and compact remap, and the adaptive rounds' merge,
+``topk_kernels.merge_topm`` with ``dedup``, against ``_merge_topm_rows``)
+is held to the reference bit for bit.  ``LSHSimHashIndex(device='cpu')``
+is held to the reference's host-path index (``probe_path='host'``; its own
 device-probe path cannot run here, see tests/test_torch_probe.py) in a few
 calls, since each new shape costs the reference seconds through its
 interpreted top-k kernel, and to ``_model_topk`` (the reference's buckets,
@@ -222,8 +223,9 @@ def test_merge_topm_rows_equals_the_reference(m, seed):
     bd, bg = plane()
     nd, ng = plane()
     nd[:5], ng[:5] = bd[:5], bg[:5]  # duplicates across the two rounds
-    got = lsh._merge_topm_rows(bd, bg, nd, ng, sent)
+    got = tk.merge_topm([bd, nd], [bg, ng], m, dedup=True, n_bits=sent - 1)
     _same(got, ref_lsh._merge_topm_rows(bd, bg, nd, ng, sent))
+    assert got[0].dtype == got[1].dtype == np.int32
     assert lsh._level_size(8, 3) == ref_lsh._level_size(8, 3) == 56
 
 

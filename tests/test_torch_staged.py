@@ -7,7 +7,9 @@ serial stream; a fault through the pool commits the serial prefix and the
 cursor resume covers every row once; a prepare failure keeps its
 traceback; a break joins every ``rp-torch-staged-*`` thread; host memory
 stays within ``2·workers + depth + 2`` produced batches; the config-5
-token pipeline through the pool equals the prefetched one.
+token pipeline through the pool equals the prefetched one.  The serving
+tiles' ``tile_pipeline`` finishes each tile a fixed number of tiles after
+its dispatch, in order, and drops the tiles in flight when a half raises.
 """
 
 import threading
@@ -21,6 +23,7 @@ import randomprojection_tpu as ref
 from randomprojection_tpu import streaming as ref_stream
 from randomprojection_tpu_torch import CountSketch, GaussianRandomProjection
 from randomprojection_tpu_torch.ops.hashing import FeatureHasher
+from randomprojection_tpu_torch.ops.staging import tile_pipeline
 from randomprojection_tpu_torch.streaming import (
     ArraySource,
     CallableSource,
@@ -267,3 +270,68 @@ def test_staged_token_pipeline_matches_prefetch():
         got, ref.CountSketch(16, random_state=0, backend="numpy").fit(X)
         .transform(X.astype(np.float64)), rtol=2e-5, atol=2e-5)
     assert not staged_threads()
+
+
+# -- the serving tiles' pipeline ---------------------------------------------------
+
+
+def _pipeline_log(n, tile, behind, *, fail_at=None, fail_in="finish"):
+    """Run ``tile_pipeline`` with recording halves; the half named
+    ``fail_in`` raises at the tile starting at row ``fail_at``."""
+    log = []
+
+    def dispatch(lo, hi):
+        log.append(("dispatch", lo, hi))
+        if fail_in == "dispatch" and lo == fail_at:
+            raise RuntimeError("dispatch failed")
+        return ("payload", lo, hi)
+
+    def finish(lo, hi, payload):
+        assert payload == ("payload", lo, hi)
+        log.append(("finish", lo, hi))
+        if fail_in == "finish" and lo == fail_at:
+            raise RuntimeError("finish failed")
+
+    try:
+        tile_pipeline(n, tile, dispatch, finish, behind=behind)
+    except RuntimeError as e:
+        return log, e
+    return log, None
+
+
+@pytest.mark.parametrize("behind", [1, 8])
+@pytest.mark.parametrize("tiles", ["fewer", "equal", "more"])
+def test_tile_pipeline_finishes_each_tile_behind_tiles_later(behind, tiles):
+    n_tiles = {"fewer": behind // 2, "equal": behind, "more": 2 * behind + 3}[tiles]
+    tile = 5
+    n = max(n_tiles * tile - 2, 0)  # a ragged last tile
+    log, err = _pipeline_log(n, tile, behind)
+    assert err is None
+    bounds = [(k * tile, min(k * tile + tile, n)) for k in range(n_tiles)]
+    want = []
+    for k, (lo, hi) in enumerate(bounds):
+        want.append(("dispatch", lo, hi))
+        if k >= behind:  # finished right after the dispatch `behind` later
+            want.append(("finish",) + bounds[k - behind])
+    want += [("finish",) + b for b in bounds[max(n_tiles - behind, 0):]]
+    assert log == want
+
+
+@pytest.mark.parametrize("behind", [1, 8])
+@pytest.mark.parametrize("fail_in", ["dispatch", "finish"])
+def test_tile_pipeline_raises_and_drops_the_tiles_in_flight(behind, fail_in):
+    tile, fail_at = 4, 2
+    log, err = _pipeline_log(tile * (behind + 4), tile, behind,
+                             fail_at=fail_at * tile, fail_in=fail_in)
+    assert err is not None and str(err) == f"{fail_in} failed"
+    dispatched = [lo // tile for what, lo, _ in log if what == "dispatch"]
+    finished = [lo // tile for what, lo, _ in log if what == "finish"]
+    if fail_in == "finish":
+        # the failing finish came after tile fail_at + behind's dispatch;
+        # nothing was dispatched or finished after it
+        assert dispatched == list(range(fail_at + behind + 1))
+        assert finished == list(range(fail_at + 1))
+        assert log[-1] == ("finish", fail_at * tile, fail_at * tile + tile)
+    else:
+        assert dispatched == list(range(fail_at + 1))
+        assert finished == list(range(max(fail_at - behind, 0)))

@@ -463,3 +463,119 @@ def test_argument_checks(q, codes, n_real, m, dead, match):
                       m, dead=None if dead is None else torch.zeros(dead, **u8))
     with pytest.raises(ValueError, match="uint8"):
         tk.topk_plain(torch.zeros((2, 8)), torch.zeros((10, 8), **u8), 10, 3)
+
+
+# -- the candidate lists' host merge ---------------------------------------------------
+
+
+def _lexsort_merge(d_parts, i_parts, m, dedup, n_bits):
+    """``merge_topm``'s contract row by row: the union's pairs (a repeated
+    pair's later copies made empty under ``dedup``), the empty pair
+    filling a narrow union, ``np.lexsort`` by (distance, id), the first
+    ``m``."""
+    d = np.concatenate(d_parts, axis=1).astype(np.int64)
+    ids = np.concatenate(i_parts, axis=1).astype(np.int64)
+    out_d = np.empty((d.shape[0], m), np.int64)
+    out_i = np.empty((d.shape[0], m), np.int64)
+    for r in range(d.shape[0]):
+        dr, ir = d[r], ids[r]
+        if dedup:
+            _, first = np.unique(np.stack([dr, ir]), axis=1, return_index=True)
+            keep = np.zeros(dr.size, bool)
+            keep[first] = True
+            dr = np.where(keep, dr, tk.empty_dist(n_bits))
+            ir = np.where(keep, ir, tk.EMPTY_ID)
+        if dr.size < m:
+            dr = np.concatenate([dr, np.full(m - dr.size, tk.empty_dist(n_bits))])
+            ir = np.concatenate([ir, np.full(m - ir.size, tk.EMPTY_ID)])
+        o = np.lexsort((ir, dr))[:m]
+        out_d[r], out_i[r] = dr[o], ir[o]
+    return out_d, out_i
+
+
+def _lists(rng, widths, ids, n_bits, *, empties=0, rows=12):
+    """One candidate list a width, as the kernel writes them: each row's
+    pairs drawn from ``ids`` (distinct within a list; a pair's distance is
+    a function of its id, heavy in ties), in (distance, lower id) order,
+    the last ``empties`` slots of every row the empty pair."""
+    dist_of = {int(g): int(g) * 7 % 5 for g in np.unique(ids)}
+    d_parts, i_parts = [], []
+    for w in widths:
+        d = np.empty((rows, w), np.int32)
+        g = np.empty((rows, w), ids.dtype)
+        for r in range(rows):
+            pick = rng.choice(ids, size=w, replace=False)
+            pd = np.array([dist_of[int(x)] for x in pick])
+            o = np.lexsort((pick, pd))
+            d[r], g[r] = pd[o], pick[o]
+        if empties:
+            d[:, w - empties:] = tk.empty_dist(n_bits)
+            g[:, w - empties:] = tk.EMPTY_ID
+        d_parts.append(d)
+        i_parts.append(g)
+    return d_parts, i_parts
+
+
+@pytest.mark.parametrize("case", [
+    "one_plane", "two_planes", "three_planes", "sixteen_planes",
+    "empties_everywhere", "small_index", "ids_past_2_32",
+    "dedup_repeated_ids", "dedup_disjoint", "narrow_union",
+])
+def test_merge_topm_equals_a_lexsort(case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n_bits, m, dedup = 256, 9, False
+    pool = np.arange(10_000, 10_400, dtype=np.int32)
+    empties, widths = 0, (9, 5)
+    if case == "one_plane":
+        widths = (12,)
+    elif case == "three_planes":
+        widths = (3, 9, 6)
+    elif case == "sixteen_planes":
+        widths = tuple(1 + k % 9 for k in range(16))
+    elif case == "empties_everywhere":
+        widths, empties = (9, 6, 4), 3
+    elif case == "small_index":
+        # ids below 2^6: a key shifted by the ids' own 6 bits would let the
+        # empty id 2^31-1 bleed into the distance bits
+        pool, n_bits = np.arange(40, dtype=np.int32), 16
+        widths, empties = (9, 7), 4
+    elif case == "ids_past_2_32":
+        pool = (1 << 32) + np.arange(0, 1 << 34, 1 << 25, dtype=np.int64)
+    elif case == "dedup_repeated_ids":
+        pool, dedup, empties = pool[:14], True, 2
+    elif case == "dedup_disjoint":
+        dedup = True
+    elif case == "narrow_union":
+        widths = (3, 2)
+    if case in ("dedup_repeated_ids", "dedup_disjoint", "two_planes"):
+        widths = (9, 9)
+    if case == "dedup_disjoint":
+        d0, i0 = _lists(rng, widths[:1], pool[:200], n_bits)
+        d1, i1 = _lists(rng, widths[1:], pool[200:], n_bits)
+        d_parts, i_parts = d0 + d1, i0 + i1
+    else:
+        d_parts, i_parts = _lists(rng, widths, pool, n_bits, empties=empties)
+    if case == "dedup_repeated_ids":
+        # the lists share ids, with their one distance each
+        shared = [np.intersect1d(i_parts[0][r], i_parts[1][r])
+                  for r in range(i_parts[0].shape[0])]
+        assert any((s != tk.EMPTY_ID).any() for s in shared)
+    got = tk.merge_topm(d_parts, i_parts, m, dedup=dedup, n_bits=n_bits)
+    want = _lexsort_merge(d_parts, i_parts, m, dedup, n_bits)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[0].dtype == np.int32
+    assert got[1].dtype == np.result_type(*i_parts)
+    if case == "one_plane":
+        # one list passes through as its first m columns
+        assert np.shares_memory(got[0], d_parts[0])
+        np.testing.assert_array_equal(got[1], i_parts[0][:, :m])
+    if case == "dedup_disjoint":
+        # nothing repeats, so dedup changes nothing
+        plain = tk.merge_topm(d_parts, i_parts, m)
+        np.testing.assert_array_equal(plain[0], got[0])
+        np.testing.assert_array_equal(plain[1], got[1])
+    if case == "narrow_union":
+        assert (got[1][:, sum(widths):] == tk.EMPTY_ID).all()
+        with pytest.raises(ValueError, match="n_bits"):
+            tk.merge_topm(d_parts, i_parts, m)

@@ -164,7 +164,7 @@ def _tile_parts(idx, call, m=10, probes=16, tile=64):
            "card_replay": ev[0].elapsed_time(ev[1]) / n}
     # the host's share of a dispatch, piece by piece (ms a tile, the card
     # drained every 32 tiles so that no launch waits for a full queue)
-    from randomprojection_tpu_torch.streaming import _HostFetch
+    from randomprojection_tpu_torch.ops.staging import HostFetch
 
     def host_ms(fn):
         total = 0.0
@@ -187,12 +187,12 @@ def _tile_parts(idx, call, m=10, probes=16, tile=64):
             for b, x in zip(entry.inputs, (q, mdev, act))]),
         "graph_launch": host_ms(entry.graph.replay),
         "replay": host_ms(lambda: entry.replay(q, mdev, act)),
-        "fetch3": host_ms(lambda: [_HostFetch(o) for o in outs[:3]]),
-        "fetch1": host_ms(lambda: _HostFetch(outs[0])),
+        "fetch3": host_ms(lambda: [HostFetch(o) for o in outs[:3]]),
+        "fetch1": host_ms(lambda: HostFetch(outs[0])),
         "dispatch_no_size": host_ms(lambda: idx._lsh_device_composite(
             tiles[0], mdev, act, m, 1 << 20,
-            fetch=lambda d, g, st, _c: (_HostFetch(d), _HostFetch(g),
-                                        _HostFetch(st)))),
+            fetch=lambda d, g, st, _c: (HostFetch(d), HostFetch(g),
+                                        HostFetch(st)))),
     }
     return out
 

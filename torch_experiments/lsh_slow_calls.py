@@ -8,7 +8,7 @@ sends the cell's calls back to back in windows of ``--seconds``, each
 window with ``--ahead`` tiles queued behind the running one
 (``ann.lsh._TILES_AHEAD``), in turns.  For every call it keeps: the wall;
 the host's time in the tiles' sizing and dispatch (``_lsh_tile_entry``)
-and in its waits for the card (``_HostFetch.result``), their sums and the
+and in its waits for the card (``HostFetch.result``), their sums and the
 longest single one; the calling thread's CPU time; the process's
 voluntary and involuntary context switches and page faults
 (``getrusage``); and the interpreter's collections.  A call whose excess
@@ -93,7 +93,7 @@ def main(argv=None):
             if cur[0] is not None:
                 cur[0].dispatch.append(time.perf_counter() - t)
 
-    class TimedFetch(lsh._HostFetch):
+    class TimedFetch(lsh.HostFetch):
         __slots__ = ()
 
         def result(self, out_dtype):
@@ -109,7 +109,7 @@ def main(argv=None):
             cur[0].gc[info["generation"]] += 1
 
     lsh.LSHSimHashIndex._lsh_tile_entry = timed_entry
-    lsh._HostFetch = TimedFetch
+    lsh.HostFetch = TimedFetch
     gc.callbacks.append(on_gc)
 
     t_start = time.perf_counter()
