@@ -476,25 +476,26 @@ def _count_rerank(nq: int, cap: int, n_bytes: int, m: int, stat,
                   device) -> None:
     """Count a device tile's re-rank (``observability.count_survivors``)
     while a profiler records: its query rows times the splits of its K4
-    plan, and the keys and merges the scan added to the tile's stats
-    (``probe_kernels.rerank_counts``).  A graph replay launches K4 where
-    the host does not see it; a tile whose stats carry no keys took its
-    re-rank eagerly (the tiered rung), which counts itself."""
+    plan, and the counts the scan added to the tile's stats (keys,
+    merges, row-tiles, bound tighter: ``probe_kernels.rerank_counts``).  A
+    graph replay launches K4 where the host does not see it; a tile whose
+    stats carry no keys took its re-rank eagerly (the tiered rung), which
+    counts itself."""
     if not observability.recording() or device.type != "cuda":
         return
-    keys, merges = probe_kernels.rerank_counts(stat)
+    counts = probe_kernels.rerank_counts(stat)
     plan = topk_kernels.plan_fused(nq, cap, n_bytes, m,
                                    sm_count=topk_kernels._sm_count(device))
-    if keys and plan is not None and plan.route == "wgmma":
-        observability.count_survivors(nq * plan.splits, (keys, merges))
+    if counts[0] and plan is not None and plan.route == "wgmma":
+        observability.count_survivors(nq * plan.splits, counts)
 
 
 def _unpacked(out: np.ndarray, nq: int, m: int):
-    """``(stats (8,), dist (nq, m), gid (nq, m))`` of a ``_packed`` plane
-    on the host (anything after them is left)."""
-    k = nq * m
-    return (out[:8], out[8: 8 + k].reshape(nq, m),
-            out[8 + k: 8 + 2 * k].reshape(nq, m))
+    """``(stats (STATS_WORDS,), dist (nq, m), gid (nq, m))`` of a
+    ``_packed`` plane on the host (anything after them is left)."""
+    k, w = nq * m, probe_kernels.STATS_WORDS
+    return (out[:w], out[w: w + k].reshape(nq, m),
+            out[w + k: w + 2 * k].reshape(nq, m))
 
 
 def _level_size(band_bits: int, f: int) -> int:
@@ -1336,7 +1337,7 @@ class LSHSimHashIndex(SimHashIndex):
             stat, nd, ng = _unpacked(out, nq, m_eff)
             observability.count_probe(nq, bands, hi - lo, stat[0], caps[f])
             _count_rerank(nq, caps[f], self.n_bytes, m_eff, stat, self.device)
-            cnt = out[8 + 2 * nq * m_eff:]
+            cnt = out[probe_kernels.STATS_WORDS + 2 * nq * m_eff:]
             reg.observe("index.lsh.probe.dispatch_s", time.perf_counter() - t1)
             rounds += 1
             reg.counter_inc("index.lsh.device.dispatches")

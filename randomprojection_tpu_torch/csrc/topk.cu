@@ -80,6 +80,27 @@
 //       Measured (PERF.md): the survivors' path of a 2048-query tile over
 //       1B planted codes fell from 100 of 330 ms to 64 of 302; the scan's
 //       time follows its code size, so the merges are out of line.
+//     * A bound shared by a query's row splits.  A split whose list is
+//       full holds m distinct keys at or under its m-th distance T, so no
+//       key farther than T is in the query's top m, in any split.  Each
+//       query has one word in global memory, the least such T so far (the
+//       sentinel at first); a merge that leaves a list full lowers it
+//       (atomicMin, in the out-of-line merge), and a key passes only at or
+//       under min(threshold, bound): ties at the bound pass, since another
+//       split may hold the bound's key at a higher id.  A stale word is a
+//       looser bound, never a wrong one, so the lists merge to the same
+//       answer bit for bit.  Each consumer thread reads its two rows' words
+//       with a relaxed load issued under the tile's products, at each of
+//       the split's first kBoundEvery tiles and then at every
+//       kBoundEvery-th: what is left of a load's latency cost a long scan
+//       (2048 queries over 1B codes) more than a bound that moves between
+//       reads saves it.  So that the split which meets a query's near
+//       neighbours tells the others at once, a tile that leaves a row's
+//       buffer holding m keys (or full) merges it at the tile's end.
+//       Measured (PERF.md): at an LSH tile the keys a list takes fell from
+//       141 to 66 and the scan from 0.31 to 0.12 ms; a split's first
+//       tiles, scanned before any list is full, are what is left of its
+//       warm-up.
 //     * Rows that never enter.  The producer reads the tile's 256
 //       tombstone bytes with its copies and leaves, beside the stage, a
 //       bit a row (live: below n_real and not tombstoned) and a flag; a
@@ -118,6 +139,9 @@ constexpr int kProducerThreads = 128;
 constexpr int kSmemLimit = 232448;         // dynamic shared memory a block can use
 constexpr int kLiveBytes = 64;             // a stage's row-liveness bits (32) and flag
 constexpr int kMinBuf = 8;                 // the least keys a row's buffer holds
+constexpr int kBoundEvery = 64;            // a split's tiles between reads of the
+                                           // shared bounds past its first as many
+                                           // (a power of two)
 constexpr int kSmemSlack =                 // 1024-byte alignment, barriers, liveness
     1024 + 128 + kMaxStages * kLiveBytes;
 
@@ -495,7 +519,10 @@ struct MmaArgs {
   int stages;
   int buf;              // keys a row's buffer holds, kMinBuf..32
   uint32_t sentinel;    // n_bytes * 8 + 1
-  unsigned long long* counts;  // nullptr, or [keys buffered, merges] to add to
+  unsigned long long* counts;  // nullptr, or [keys buffered, merges, row-tiles
+                               // tested, row-tiles the bound tightened] to add to
+  int* bound;           // nullptr, or (nq): the least m-th distance any split's
+                        // full list has held, the sentinel at first
 };
 
 constexpr int kCodeStage = 2 * kTileN * kStepBytes;  // a tile's k-step, and its complement
@@ -577,6 +604,13 @@ __device__ __forceinline__ void complement16(uint8_t* dst, const uint8_t* src) {
   *reinterpret_cast<uint4*>(dst) = make_uint4(~v.x, ~v.y, ~v.z, ~v.w);
 }
 
+// A word another block may be writing, read from L2 without a fence.
+__device__ __forceinline__ int load_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 // One key a lane, sorted ascending across the warp (bitonic, shuffles).
 __device__ __forceinline__ long long warp_sort(long long v, int lane) {
 #pragma unroll
@@ -592,13 +626,25 @@ __device__ __forceinline__ long long warp_sort(long long v, int lane) {
   return v;
 }
 
+// A merged list's m-th distance d: where the list is full (d below the
+// sentinel), its m keys bound the query's top m in every split, so d goes
+// to the query's shared bound (`bound` null: none is kept).
+__device__ __forceinline__ int publish(int* bound, long long last, int sentinel,
+                                       int lane) {
+  const int d = static_cast<int>(last >> 32);
+  if (bound != nullptr && lane == 0 && d < sentinel) atomicMin(bound, d);
+  return d;
+}
+
 // The m least of a row's ascending list (m <= 32) and the n keys of its
 // buffer, back into the list: the buffer sorted across the warp, then the
 // list against it reversed (the least of each pair: the 32 least of both,
 // in a bitonic run), then that run merged.  Returns the new m-th key's
-// distance.  The whole warp calls it with the same arguments.
+// distance, published to the row's bound.  The whole warp calls it with
+// the same arguments.
 __device__ __noinline__ int merge_small(long long* list, const long long* buf,
-                                       int m, int n, int lane) {
+                                       int m, int n, int lane, int* bound,
+                                       int sentinel) {
   const long long b = warp_sort(lane < n ? buf[lane] : kMaxKey, lane);
   const long long l = lane < m ? list[lane] : kMaxKey;
   const long long r = __shfl_sync(0xFFFFFFFFu, b, 31 - lane);
@@ -611,7 +657,7 @@ __device__ __noinline__ int merge_small(long long* list, const long long* buf,
   if (lane < m) list[lane] = v;
   const long long last = __shfl_sync(0xFFFFFFFFu, v, m - 1);
   __syncwarp();  // the buffer is read before its row's next appends
-  return static_cast<int>(last >> 32);
+  return publish(bound, last, sentinel, lane);
 }
 
 // Keys of the ascending a[0, n) below key.
@@ -631,7 +677,8 @@ __device__ __forceinline__ int rank_below(const long long* a, int n,
 // never an empty slot's).  The list moves in place from the top down, 32
 // keys a step, as no key moves below its index.
 __device__ __noinline__ int merge_large(long long* list, long long* buf,
-                                        int m, int n, int lane) {
+                                        int m, int n, int lane, int* bound,
+                                        int sentinel) {
   const long long b = warp_sort(lane < n ? buf[lane] : kMaxKey, lane);
   __syncwarp();
   if (lane < n) buf[lane] = b;
@@ -649,7 +696,7 @@ __device__ __noinline__ int merge_large(long long* list, long long* buf,
   __syncwarp();
   const long long last = list[m - 1];
   __syncwarp();
-  return static_cast<int>(last >> 32);
+  return publish(bound, last, sentinel, lane);
 }
 
 // acc[BASE + i] for a run-time i in [0, 32): a tree of selects, so the
@@ -673,16 +720,21 @@ __device__ __forceinline__ int pick32(const int (&acc)[128], int i) {
 // to `buf` keys beside it (`stride` = buf + 1 keys apart, so that rows
 // appending at the same slot fall in different banks).  Lane 4g + t holds
 // rows g and g + 8 of the warp (its "half" 0 and 1): each row's threshold
-// (the distance of its list's m-th key, -1 past nq) and its buffer's count,
-// the same in the row's four lanes; and the current tile's liveness bits
-// (bit c of the 256: code row c of the tile is below n_real and not
-// tombstoned).  `keys` and `merges` count the keys taken into buffers and
-// the merges (the same in every lane).
+// (the distance of its list's m-th key, -1 past nq), one past the query's
+// shared bound as last read (`bp`: a key above the bound is in no split's
+// top m) and its buffer's count, the same in the row's four lanes; and the
+// current tile's liveness bits (bit c of the 256: code row c of the tile
+// is below n_real and not tombstoned).  `keys` and `merges` count the keys
+// taken into buffers and the merges, `tiles` the tiles tested (the same in
+// every lane); `tight` the row-tiles at which the bound was below the
+// row's threshold, each counted in the row's four lanes.
 struct Selection {
   long long* lists;     // the warp's 16 lists
   long long* bufs;      // the warp's 16 buffers
-  int m, buf, stride;
-  int thr0, thr1, cnt0, cnt1;  // half 0, half 1 (named: never a local array)
+  int* bounds;          // the warp's 16 queries' shared bounds, or nullptr
+  int m, buf, stride, sentinel;
+  int thr0, thr1, bp0, bp1, cnt0, cnt1;  // half 0, half 1 (named: never a local array)
+  unsigned tiles, tight;
   unsigned long long keys, merges;
   uint4 live_lo, live_hi;
   __device__ __forceinline__ bool live(int c) const {
@@ -700,8 +752,9 @@ struct Selection {
     __syncwarp();  // the row's appends are seen by every lane
     long long* list = lists + static_cast<int64_t>(r) * m;
     long long* b = bufs + static_cast<int64_t>(r) * stride;
-    const int t = m <= 32 ? merge_small(list, b, m, n, lane)
-                          : merge_large(list, b, m, n, lane);
+    int* bw = bounds == nullptr ? nullptr : bounds + r;
+    const int t = m <= 32 ? merge_small(list, b, m, n, lane, bw, sentinel)
+                          : merge_large(list, b, m, n, lane, bw, sentinel);
     if ((lane >> 2) == (r & 7)) {
       if (r >> 3) {
         thr1 = t;
@@ -713,13 +766,29 @@ struct Selection {
     }
     ++merges;
   }
+  // merge every row that holds at least `least` buffered keys
+  __device__ __forceinline__ void flush(int least, int lane) {
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      unsigned due = __ballot_sync(
+          0xFFFFFFFFu, (lane & 3) == 0 && (h ? cnt1 : cnt0) >= least);
+      while (due) {
+        const int src = __ffs(due) - 1;
+        due &= due - 1;
+        merge((src >> 2) + 8 * h,
+              __shfl_sync(0xFFFFFFFFu, h ? cnt1 : cnt0, src), lane);
+      }
+    }
+  }
 };
 
 // One group of 32 accumulator registers of a tile in which some lane's
-// distance beat its row's threshold.  The registers any lane hit, as a bit
-// mask; then, a register at a time, its survivors: a distance at or under
-// its row's threshold as it stands, the code row live (ties pass, since a
-// merge in this tile may have set the threshold from a later row).  They
+// distance beat its row's limit, the least of its threshold and one past
+// its shared bound.  The registers any lane hit, as a bit mask; then, a
+// register at a time, its survivors: a distance at or under its row's
+// threshold as it stands and at or under the bound, the code row live
+// (ties pass: a merge in this tile may have set the threshold from a later
+// row, and another split may hold the bound's key at a higher id).  They
 // go to their rows' buffers together, each lane at its row's count plus
 // the survivors of the row's lower lanes; a row the register's survivors
 // would overflow is merged first, and its lanes test again.  Between
@@ -729,10 +798,12 @@ struct Selection {
 template <int BASE>
 __device__ __forceinline__ void take_group(const int (&acc)[128], Selection& t,
                                            int64_t r0, int lane) {
+  const int lim0 = t.thr0 < t.bp0 ? t.thr0 : t.bp0;
+  const int lim1 = t.thr1 < t.bp1 ? t.thr1 : t.bp1;
   unsigned part[4] = {0u, 0u, 0u, 0u};  // four short chains, not one long
 #pragma unroll
   for (int i = 0; i < 32; ++i)
-    if (acc[BASE + i] < ((i & 2) ? t.thr1 : t.thr0)) part[i >> 3] |= 1u << i;
+    if (acc[BASE + i] < ((i & 2) ? lim1 : lim0)) part[i >> 3] |= 1u << i;
   unsigned todo = __reduce_or_sync(
       0xFFFFFFFFu, (part[0] | part[1]) | (part[2] | part[3]));
   const int row_lanes = lane & ~3;
@@ -744,7 +815,7 @@ __device__ __forceinline__ void take_group(const int (&acc)[128], Selection& t,
     const bool h = idx & 2;  // the register's half: rows g + 8, else g
     const int col = 8 * (idx >> 2) + (idx & 1) + 2 * (lane & 3);
     const int d = pick32<BASE>(acc, i);
-    const bool ok = t.live(col);
+    const bool ok = t.live(col) && d < (h ? t.bp1 : t.bp0);
     bool hit = ok && d <= (h ? t.thr1 : t.thr0);
     unsigned mask = __ballot_sync(0xFFFFFFFFu, hit);
     int n = __popc((mask >> row_lanes) & 0xFu);
@@ -955,22 +1026,39 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
     t.lists = lists + static_cast<int64_t>(row_w) * a.m;
     t.bufs = lists + static_cast<int64_t>(tq) * a.m +
              static_cast<int64_t>(row_w) * (a.buf + 1);
+    t.bounds = a.bound == nullptr ? nullptr : a.bound + q0 + row_w;
     t.m = a.m;
     t.buf = a.buf;
     t.stride = a.buf + 1;
+    t.sentinel = static_cast<int>(a.sentinel);
     // the empty lists' threshold, n_bits + 1: every distance passes; rows
     // past nq pass nothing
-    t.thr0 = q0 + row < a.nq ? static_cast<int>(a.sentinel) : -1;
-    t.thr1 = q0 + row + 8 < a.nq ? static_cast<int>(a.sentinel) : -1;
+    t.thr0 = q0 + row < a.nq ? t.sentinel : -1;
+    t.thr1 = q0 + row + 8 < a.nq ? t.sentinel : -1;
+    t.bp0 = t.bp1 = t.sentinel + 1;  // no bound read yet: none binds
     t.cnt0 = t.cnt1 = 0;
+    t.tiles = t.tight = 0;
     t.keys = t.merges = 0;
+    // this thread's rows' bound words (a row past nq reads the last query's
+    // and passes nothing all the same)
+    const int bi0 = static_cast<int>(q0 + row < a.nq ? q0 + row : a.nq - 1);
+    const int bi1 = static_cast<int>(q0 + row + 8 < a.nq ? q0 + row + 8 : a.nq - 1);
     int acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0;
 
+    int b0 = t.sentinel, b1 = t.sentinel;  // the rows' shared bounds, as read
+
     int st = 0;       // the ring stage of the next item,
     uint32_t ph = 0;  // and its phase
-    for (int64_t tile = tile0; tile < tile_end; ++tile) {
+    int step = 0;  // the tile's place in the split
+    for (int64_t tile = tile0; tile < tile_end; ++tile, ++step) {
+      // The shared bounds are read at each of the split's first
+      // kBoundEvery tiles, while every split's lists fill, then at every
+      // kBoundEvery-th: the load is issued under the tile's products, but
+      // what is left of its latency costs a long scan more than a bound
+      // between reads gives (PERF.md).  A stale word is a looser bound,
+      // never a wrong one.
       bool any_live = true;
       for (int ks = 0; ks < n_steps; ++ks) {
         mbar_wait(full(st), ph);
@@ -994,6 +1082,11 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
                          smem_desc(sc + kTileN * kStepBytes), ks > 0);
           wgmma_and_popc(acc, smem_desc(sq + tq * kStepBytes), smem_desc(sc), 1);
           asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+          if (a.bound != nullptr && ks + 1 == n_steps &&
+              (step < kBoundEvery || (step & (kBoundEvery - 1)) == 0)) {
+            b0 = load_relaxed(a.bound + bi0);
+            b1 = load_relaxed(a.bound + bi1);
+          }
           asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
         }
         if (lane == 0) mbar_arrive(empty(st));
@@ -1005,6 +1098,10 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
       if (any_live) {  // selection
 #pragma unroll
         for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+        t.bp0 = b0 + 1;
+        t.bp1 = b1 + 1;
+        ++t.tiles;
+        t.tight += (t.bp0 < t.thr0) + (t.bp1 < t.thr1);
         // register 4j + {0, 1}: row, code rows 8j + 2 (lane & 3) + {0, 1} of
         // the tile; 4j + {2, 3}: row + 8, the same code rows.  The least
         // distance of each row in each group of 32 registers, by two
@@ -1021,12 +1118,14 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
             slot = v < slot ? v : slot;
           }
         }
+        const int lim0 = t.thr0 < t.bp0 ? t.thr0 : t.bp0;
+        const int lim1 = t.thr1 < t.bp1 ? t.thr1 : t.bp1;
         bool hit[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int m0 = least[k][0][0] < least[k][0][1] ? least[k][0][0] : least[k][0][1];
           const int m1 = least[k][1][0] < least[k][1][1] ? least[k][1][0] : least[k][1][1];
-          hit[k] = m0 < t.thr0 || m1 < t.thr1;
+          hit[k] = m0 < lim0 || m1 < lim1;
         }
         if (__any_sync(0xFFFFFFFFu, hit[0] | hit[1] | hit[2] | hit[3])) {
           const int64_t r0 = tile * kTileN;
@@ -1037,6 +1136,11 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
           if (groups & 2u) take_group<32>(acc, t, r0, lane);
           if (groups & 4u) take_group<64>(acc, t, r0, lane);
           if (groups & 8u) take_group<96>(acc, t, r0, lane);
+          // publish without waiting for an overflow: a row that took as
+          // many keys as its list holds (or a full buffer) is merged at
+          // the tile's end, so the split that meets a query's near
+          // neighbours sets the other splits' bound at once
+          if (a.bound != nullptr) t.flush(a.m < a.buf ? a.m : a.buf, lane);
           __syncwarp();
         }
       }
@@ -1046,9 +1150,14 @@ __global__ void __launch_bounds__(384, 1) topk_mma_kernel(MmaArgs a) {
       const int n = __shfl_sync(0xFFFFFFFFu, r < 8 ? t.cnt0 : t.cnt1, 4 * (r & 7));
       if (n > 0) t.merge(r, n, lane);
     }
+    const unsigned tight = __reduce_add_sync(0xFFFFFFFFu, t.tight) >> 2;
     if (a.counts != nullptr && lane == 0) {
+      const int64_t left = a.nq - q0 - row_w;  // the warp's rows below nq
       atomicAdd(a.counts, t.keys);
       atomicAdd(a.counts + 1, t.merges);
+      atomicAdd(a.counts + 2, static_cast<unsigned long long>(t.tiles) *
+                                  (left < 16 ? (left > 0 ? left : 0) : 16));
+      atomicAdd(a.counts + 3, static_cast<unsigned long long>(tight));
     }
     __syncwarp();
     for (int r = 0; r < 16; ++r) {
@@ -1102,15 +1211,20 @@ extern "C" {
 // n_bytes) and dead (rows, or null) are contiguous uint8 on the card.
 // route 1 is the tensor-core scan (tq 64 or 128, `stages` ring stages,
 // buffers of `buf` keys a row, tiles of 256 rows; `counts`, when not null,
-// two uint64 to which it adds the keys its rows buffered and the merges),
-// route 0 the CUDA-core scan (tq 16, 32 or 64, tiles of 128 rows; `stages`,
-// `buf` and `counts` unused); the plan comes from the wrapper's planner and
-// one the kernel cannot run is refused with cudaErrorInvalidValue.  Returns
+// four uint64 to which it adds the keys its rows buffered, the merges, the
+// row-tiles it tested and those at which the shared bound was below the
+// row's threshold; `bound`, when not null, nq int32 that the row splits
+// share, each at the sentinel n_bytes * 8 + 1 or at or above its query's
+// m-th distance when the launch starts), route 0 the CUDA-core scan (tq 16,
+// 32 or 64, tiles of 128 rows; `stages`, `buf`, `counts` and `bound`
+// unused); the plan comes from the wrapper's planner and one the kernel
+// cannot run is refused with cudaErrorInvalidValue.  Returns
 // cudaGetLastError() after the launch.
 int rp_topk_scan(const void* q, const void* codes, const void* dead,
                  int64_t nq, int64_t rows, int64_t n_real, int64_t n_bytes,
                  int m, int route, int tq, int stages, int buf, int splits,
-                 int tiles_per_split, void* part, void* counts, void* stream) {
+                 int tiles_per_split, void* part, void* counts, void* bound,
+                 void* stream) {
   const int tile_rows = route == 1 ? kTileN : kRows;
   if (splits < 1 || splits > kMaxSplits || m < 1 || nq < 1 ||
       static_cast<int64_t>(splits) * tiles_per_split * tile_rows < rows)
@@ -1139,6 +1253,7 @@ int rp_topk_scan(const void* q, const void* codes, const void* dead,
     a.buf = buf;
     a.sentinel = static_cast<uint32_t>(n_bytes * 8 + 1);
     a.counts = static_cast<unsigned long long*>(counts);
+    a.bound = static_cast<int*>(bound);
     if (n_bytes % 16 == 0 && both % 16 == 0) return launch_mma<0>(a, tq, s);
     if (n_bytes % 4 == 0 && both % 4 == 0) return launch_mma<1>(a, tq, s);
     return launch_mma<2>(a, tq, s);

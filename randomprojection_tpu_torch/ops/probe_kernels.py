@@ -91,6 +91,7 @@ __all__ = [
     "LAUNCHES",
     "MAX_CAP",
     "ProbePlan",
+    "STATS_WORDS",
     "TileGraphs",
     "band_key",
     "capture_tile",
@@ -119,6 +120,11 @@ GRAPH_CAPTURES = 0
 #: graph holds its composite's intermediates, about 25 MB at the bench tile
 #: (64 queries, cap 2^19, 32-byte rows), so at most ~200 MB an index there
 GRAPH_CACHE_SIZE = 8
+
+#: int32 words of a device tile's stats: K5's gathered total and overflow,
+#: the live candidates, a zero, then K4's four int64 counts (keys, merges,
+#: row-tiles, bound tighter) in two words each
+STATS_WORDS = 12
 
 #: the largest slot budget of one dispatch: K4 returns candidate-local
 #: positions as int32, and the next power of two would not fit them
@@ -504,10 +510,11 @@ def device_probe_topk(q, masks, active, indptr, ids, dead_full, chunks, m: int,
     ``ids`` as ``probe_gather``, ``dead_full`` (n_total,) uint8 tombstones
     over global ids, ``chunks`` ``[(codes, row0, rows), ...]`` the resident
     code chunks.  Returns device tensors ``(dist (tq, m), gid (tq, m),
-    stats (8,), counts (tq,))``, ``stats = [gathered, overflow,
-    live_candidates, 0, k4_keys, k4_merges]`` (the last two int64, each in
-    two words: ``rerank_counts``); the caller applies the fallback ladder
-    (overflow, starved, dense) before trusting the tile."""
+    stats (12,), counts (tq,))``, ``stats = [gathered, overflow,
+    live_candidates, 0, k4_keys, k4_merges, k4_row_tiles,
+    k4_bound_tighter]`` (the last four int64, each in two words:
+    ``rerank_counts``); the caller applies the fallback ladder (overflow,
+    starved, dense) before trusting the tile."""
     import torch
 
     s, sc, dead_c, stat, cnt = device_probe_slots(
@@ -520,13 +527,14 @@ def device_probe_topk(q, masks, active, indptr, ids, dead_full, chunks, m: int,
 
 
 def rerank_counts(stats) -> tuple:
-    """``(keys, merges)`` that the re-rank's tensor-core scan added to a
-    tile's stats (words 4–7, two int64; 0 where none ran on the card), from
-    the stats on the host as int32."""
+    """``(keys, merges, row_tiles, bound_tighter)`` that the re-rank's
+    tensor-core scan added to a tile's stats (words 4–11, four int64, as
+    ``rp_fused_topk``'s ``counts``; 0 where none ran on the card), from the
+    stats on the host as int32."""
     import numpy as np
 
-    keys, merges = np.ascontiguousarray(stats[4:8]).view(np.int64)
-    return int(keys), int(merges)
+    return tuple(int(v) for v in np.ascontiguousarray(
+        stats[4:STATS_WORDS]).view(np.int64))
 
 
 def device_probe_slots(q, masks, active, indptr, ids, dead_full, *, cap: int,
@@ -536,7 +544,8 @@ def device_probe_slots(q, masks, active, indptr, ids, dead_full, *, cap: int,
     slots ``s`` (``cap``, int32; ascending slot order is ascending global
     id, the tie rule), ``sc`` the same as int64 clamped to the index, the
     dead plane (every duplicate, sentinel or tombstoned slot) and ``stats
-    = [gathered, overflow, live_candidates, 0, ...]``."""
+    = [gathered, overflow, live_candidates, 0, ...]`` (``STATS_WORDS``
+    int32, zero past K5's first three)."""
     import torch
 
     n_total = int(dead_full.shape[0])
@@ -548,7 +557,8 @@ def device_probe_slots(q, masks, active, indptr, ids, dead_full, *, cap: int,
     sc = s.clamp(0, max(n_total - 1, 0)).long()
     dead_c = (s >= n_total) | dup | (dead_full[sc] != 0)
     n_live = (~dead_c).sum(dtype=torch.int32)
-    stat = torch.cat([stat[:2], n_live.reshape(1), stat[3:]])
+    stat = torch.cat([stat[:2], n_live.reshape(1), stat[3:],
+                      stat.new_zeros(STATS_WORDS - stat.shape[0])])
     return s, sc, dead_c, stat, cnt
 
 

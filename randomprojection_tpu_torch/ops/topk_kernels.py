@@ -39,8 +39,11 @@ The scan has two routes, and ``plan_fused`` picks one from the shape alone
   in torch ops), selection from the accumulator registers, survivors
   appended a register at a time to a buffer of ``buf`` keys a query row
   and merged into its sorted list by a warp sort when the buffer would
-  overflow.  A block holds ``tq`` = 128 or 64 queries and scans tiles of
-  256 rows through a ring of 2–8 stages.  It takes every width and
+  overflow.  A query's row splits share a bound, the least m-th distance
+  any of their full lists has held: no key past it can be in the top m,
+  so no split admits one (``mma_scan_plain`` has the rules).  A block
+  holds ``tq`` = 128 or 64 queries and scans tiles of 256 rows through a
+  ring of 2–8 stages.  It takes every width and
   alignment; its limit is shared memory, the ``tq·m`` int64 keys of its
   lists and the ``tq·(buf + 1)`` of its buffers beside the ring (m ≤ 369
   for rows of at most 32 bytes, 361 for wider ones).
@@ -117,6 +120,7 @@ _MMA_MAX_STAGES = 8  # kMaxStages
 _MMA_MIN_STAGES = 4  # a shallower ring is taken only where no tile fits this
 _MMA_BUFS = (32, 16, 8)  # keys a row's buffer may hold, the planner's choices
 _MMA_MIN_BUF = _MMA_BUFS[-1]  # kMinBuf
+_BOUND_EVERY = 64  # kBoundEvery: tiles between a split's reads of its bound
 #: W, what one row split of the tensor-core scan spends beyond its tiles,
 #: in tile steps: its lists' warm-up (the survivors' buffers filled and
 #: merged while the lists fill), paid once a block and so once a wave on an
@@ -124,7 +128,13 @@ _MMA_MIN_BUF = _MMA_BUFS[-1]  # kMinBuf
 #: k4_waves.py; PERF.md §6): 1,291, 1,716 and 1,640 steps at 48 and 256
 #: queries over 125M codes and 2,048 over 2^24, their mean taken (1,850
 #: with one sorted insert a survivor); 85 at one query and 70 at an LSH
-#: tile, where one wave holds every split and W decides nothing.
+#: tile, where one wave holds every split and W decides nothing.  Since
+#: the splits share each query's bound, a split's warm-up shrinks with
+#: the splits beside it: 9, 14 and 21 steps at 48, 256 and 1 queries over
+#: 125M (132, 66 and 132 splits), 4 at the LSH tile (128), 41 and 241 at
+#: 2,048 over 2^20 and 2^24 (8).  Every caller's plan under its own fit is
+#: its plan under this constant (the 2^24 plan moves only below 83), so
+#: the constant stays.
 SPLIT_WARMUP_TILES = 1550
 # kSmemSlack: alignment, barriers, 8 stages' row-liveness bits
 _MMA_SLACK = 1024 + 128 + 8 * 64
@@ -386,30 +396,51 @@ def topk_plain(q, codes, n_real: int, m: int, *, dead=None):
 
 
 def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
-                   dead=None):
+                   dead=None, bound=None):
     """The tensor-core scan's selection (``topk_mma_kernel``), step for step
-    on the host: the split lists it leaves and the survivors' counts it
-    adds up.  ``plan`` is a ``'wgmma'`` plan (its ``splits``,
-    ``tiles_per_split`` and ``buf``).
+    on the host: the split lists it leaves and the counts it adds up.
+    ``plan`` is a ``'wgmma'`` plan (its ``splits``, ``tiles_per_split`` and
+    ``buf``).
 
     A consumer warp owns 16 query rows; lane ``4g + t`` holds rows ``g``
     and ``g + 8`` and register ``4j + 2h + e`` the distance of row ``g +
     8h`` to the tile's code row ``8j + e + 2t``.  A tile with no live row
-    is passed over; in the others each row's least distance in each group
-    of 32 registers is held to its threshold (strictly), then a flagged
-    group's registers any lane holds below its row's threshold are taken
-    in order, their survivors (at or under the threshold as it stands, the
-    code row live) appended to their rows' buffers, a row its register
-    would overflow merged first; a row's threshold is its list's, read
-    again at each merge.  Every buffer is merged at the split's end.  Returns
-    ``(part, keys, merges)``: ``(nq, splits, m)`` int64 keys as the kernel
-    writes them, the keys taken into buffers and the merges."""
+    is passed over; in the others each row's limit is the least of its
+    threshold and one past its query's shared bound as the split last read
+    it (at each of its first 64 tiles, then at every 64th), each row's
+    least distance in each group of 32 registers is held to it
+    (strictly), then a flagged group's registers any lane holds below its
+    row's limit are taken in order, their survivors (at or under the
+    threshold as it stands and the bound, the code row live) appended to
+    their rows' buffers, a row its register would overflow merged first;
+    a row's threshold is its list's, read again at each merge, and a
+    merge that leaves the list full lowers the query's bound to the list's
+    m-th distance.  Where a bound is kept, a tile in which any group was
+    flagged ends with a merge of every row holding ``min(m, buf)`` keys or
+    more.  Every buffer is merged at the split's end.
+
+    ``bound`` is the queries' shared bound as the scan starts, a ``(nq,)``
+    integer array lowered in place as the kernel lowers its words (the
+    kernel's fresh bound is the sentinel ``n_bits + 1``), or None for none
+    (the kernel keeps none where a query has one split).  The splits run
+    here one after another, so they see each other's bounds in that order;
+    on the card they run at once, and the counts with a bound that moves
+    depend on the blocks' timing, not the lists.  A bound that
+    starts at each query's m-th distance is never lowered (no full list's
+    m-th distance is below it), and then the card's counts are these.
+    Returns ``(part, keys, merges, row_tiles, tight)``: ``(nq, splits, m)``
+    int64 keys as the kernel writes them, the keys taken into buffers, the
+    merges, the (query row, tile) pairs tested and those at which the
+    bound was below the row's threshold."""
     import numpy as np
 
     _validate(q, codes, n_real, m, dead)
     nq, nb = q.shape
     sentinel = nb * 8 + 1
     empty = (sentinel << 32) | EMPTY_ID
+    if bound is not None:
+        bound = bound.reshape(nq)
+    due = min(m, plan.buf)
     n_tiles = -(-int(n_real) // _MMA_TILE_ROWS)
     span = n_tiles * _MMA_TILE_ROWS
     live = np.zeros(span, bool)
@@ -428,13 +459,14 @@ def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
     reg_row = (lane >> 2) + 8 * half  # (32, 128): the warp's row
     reg_col = 8 * (idx >> 2) + (idx & 1) + 2 * (lane & 3)  # the tile's row
     part = np.full((nq, plan.splits, m), empty, np.int64)
-    keys = merges = 0
+    keys = merges = row_tiles = tight = 0
     for w0 in range(0, nq, 16):
         wr = np.arange(w0, w0 + 16)
+        ok = wr < nq
         for split in range(plan.splits):
             lists = np.full((16, m), empty, np.int64)
             bufs = [[] for _ in range(16)]
-            thr = np.where(wr < nq, sentinel, -1)
+            thr = np.where(ok, sentinel, -1)
 
             def merge(r):
                 nonlocal merges
@@ -442,42 +474,56 @@ def mma_scan_plain(q, codes, n_real: int, m: int, plan: TopkPlan, *,
                 lists[r] = both[:m]
                 bufs[r].clear()
                 thr[r] = lists[r, m - 1] >> 32
+                if bound is not None and thr[r] < sentinel:
+                    bound[w0 + r] = min(bound[w0 + r], thr[r])
                 merges += 1
 
             t0 = split * plan.tiles_per_split
+            bp = np.full(16, sentinel + 1)
             for tile in range(t0, min(t0 + plan.tiles_per_split, n_tiles)):
                 r0 = tile * _MMA_TILE_ROWS
                 tl = live[r0:r0 + _MMA_TILE_ROWS]
                 if not tl.any():
                     continue
+                step = tile - t0
+                if bound is not None and (step < _BOUND_EVERY
+                                          or step % _BOUND_EVERY == 0):
+                    bp[ok] = bound[wr[ok]] + 1
+                row_tiles += int(ok.sum())
+                tight += int((bp < thr).sum())
                 d_t = np.full((16, _MMA_TILE_ROWS), sentinel, np.int64)
-                d_t[wr < nq] = dist[wr[wr < nq], r0:r0 + _MMA_TILE_ROWS]
+                d_t[ok] = dist[wr[ok], r0:r0 + _MMA_TILE_ROWS]
                 acc = d_t[reg_row, reg_col]  # (32, 128)
                 # the groups flagged at the tile's start
-                flagged = (acc < thr[reg_row]).reshape(32, 4, 32).any(axis=(0, 2))
+                lim = np.minimum(thr, bp)
+                flagged = (acc < lim[reg_row]).reshape(32, 4, 32).any(axis=(0, 2))
                 for k in np.flatnonzero(flagged):
                     grp = slice(32 * k, 32 * k + 32)
-                    todo = np.flatnonzero((acc[:, grp] < thr[reg_row[:, grp]])
+                    lim = np.minimum(thr, bp)
+                    todo = np.flatnonzero((acc[:, grp] < lim[reg_row[:, grp]])
                                           .any(axis=0)) + 32 * k
                     for i in todo:
                         r, c, d = reg_row[:, i], reg_col[:, i], acc[:, i]
-                        hit = tl[c] & (d <= thr[r])
+                        hit = tl[c] & (d < bp[r]) & (d <= thr[r])
                         over = [g + 8 * half[i] for g in range(8)
                                 if len(bufs[g + 8 * half[i]])
                                 + hit[4 * g:4 * g + 4].sum() > plan.buf]
                         for row in over:
                             merge(row)
                         if over:
-                            hit = tl[c] & (d <= thr[r])
+                            hit = tl[c] & (d < bp[r]) & (d <= thr[r])
                         for ln in np.flatnonzero(hit):
                             bufs[r[ln]].append((int(d[ln]) << 32) | (r0 + int(c[ln])))
                         keys += int(hit.sum())
+                if bound is not None and flagged.any():
+                    for r in range(16):
+                        if len(bufs[r]) >= due:
+                            merge(r)
             for r in range(16):
                 if bufs[r]:
                     merge(r)
-            ok = wr < nq
             part[wr[ok], split] = lists[ok]
-    return part, keys, merges
+    return part, keys, merges, row_tiles, tight
 
 
 def empty_dist(n_bits: int) -> int:
@@ -545,7 +591,7 @@ def _lib():
     if _SRC not in _DECLARED:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.rp_topk_scan.argtypes = [p, p, p, i64, i64, i64, i64, i32, i32,
-                                     i32, i32, i32, i32, i32, p, p, p]
+                                     i32, i32, i32, i32, i32, p, p, p, p]
         lib.rp_topk_scan.restype = i32
         lib.rp_topk_merge.argtypes = [p, i64, i32, i32, i64, p, p, p]
         lib.rp_topk_merge.restype = i32
@@ -572,18 +618,27 @@ def _check_launch(lib, rc: int, what: str) -> None:
 
 
 def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None,
-                  counts=None):
+                  counts=None, bound=None):
     """Launch the kernel's two passes on the tensors' card.  ``q``, ``codes``
     and ``dead`` are contiguous CUDA uint8 tensors on one device.  Returns
     ``(dist, idx)``, each ``(nq, m)`` int32.  ``plan`` overrides
     ``plan_fused``'s choice (the tests hold each route to the plain version
-    with it).  ``counts``, a (2,) int64 tensor on the card, receives what a
+    with it).  ``counts``, a (4,) int64 tensor on the card, receives what a
     tensor-core scan adds up: the keys its query rows took into their
-    buffers and the buffers' merges (a CUDA graph's caller reads them from
-    its outputs); without it, a tensor-core scan is counted in
-    ``observability.count_survivors`` while a profiler records, and not at
-    all otherwise.  Raises ``ValueError`` for a shape ``plan_fused``
-    cannot serve."""
+    buffers, the buffers' merges, the (query row, tile) pairs it tested and
+    those at which the shared bound was below the row's own threshold (a
+    CUDA graph's caller reads them from its outputs); without it, a
+    tensor-core scan is counted in ``observability.count_survivors`` while
+    a profiler records, and not at all otherwise.
+
+    A tensor-core scan of more than one row split shares each query's
+    bound between its splits: a (nq,) int32 word a query, the least m-th
+    distance a split's full list has held, which no other split's key may
+    pass (``mma_scan_plain`` has the rule).  ``bound`` is that plane,
+    contiguous on the card, at the sentinel ``n_bits + 1`` or at or above
+    each query's m-th distance (a test seeds it at the answer's); without
+    it the launch fills a fresh one.  One split shares nothing and is given
+    none.  Raises ``ValueError`` for a shape ``plan_fused`` cannot serve."""
     import torch
 
     _validate(q, codes, n_real, m, dead)
@@ -591,6 +646,13 @@ def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None,
     if not all(t.is_cuda and t.device == q.device and t.is_contiguous()
                for t in tensors):
         raise ValueError("rp_fused_topk takes contiguous CUDA tensors on one device")
+    if bound is not None and not (
+        isinstance(bound, torch.Tensor) and bound.dtype == torch.int32
+        and tuple(bound.shape) == (q.shape[0],) and bound.device == q.device
+        and bound.is_contiguous()
+    ):
+        raise ValueError(f"bound must be a contiguous ({q.shape[0]},) int32 "
+                         "tensor on the queries' card")
     nq, nb = q.shape
     rows = codes.shape[0]
     dev = q.device
@@ -609,17 +671,22 @@ def rp_fused_topk(q, codes, n_real: int, m: int, *, dead=None, plan=None,
     lib = _lib()
     with torch.cuda.device(dev):
         mma = plan.route == "wgmma"
+        shared = mma and plan.splits > 1
+        if shared and bound is None:
+            bound = torch.full((nq,), empty_dist(nb * 8), dtype=torch.int32,
+                               device=dev)
         traced = mma and observability.recording()
         own = traced and counts is None
         if own:
-            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            counts = torch.zeros(4, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rp_topk_scan(
             q.data_ptr(), codes.data_ptr(),
             None if dead is None else dead.data_ptr(), nq, rows, int(n_real),
             nb, m, _ROUTE_CODES[plan.route], plan.tq, plan.stages, plan.buf,
             plan.splits, plan.tiles_per_split, part.data_ptr(),
-            counts.data_ptr() if mma and counts is not None else None, stream,
+            counts.data_ptr() if mma and counts is not None else None,
+            bound.data_ptr() if shared else None, stream,
         )
         _check_launch(lib, rc, f"rp_fused_topk ({plan.route} scan)")
         LAUNCHES[f"rp_fused_topk_{plan.route}"] += 1

@@ -9,9 +9,9 @@ profiler hooks on ``torch.profiler``: ``profile_trace`` writes a
 Chrome/Perfetto trace, ``annotate`` names a region in its timeline and,
 while a profiler records, keeps it in an in-memory span store beside the
 interpreter's collections, the waves of counted kernel launches, the
-LSH tier's probe launches and the top-k scan's survivors
+LSH tier's probe launches and the top-k scan's survivors and shared bound
 (``recorded_spans``, ``gc_collections``, ``launch_waves``,
-``probe_launches``, ``survivor_counts``).
+``probe_launches``, ``survivor_counts``, ``bound_counts``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ __all__ = [
     "stage", "recording", "record_span", "perf_offset_ns", "recorded_spans",
     "dropped_spans", "gc_collections", "clear_spans", "count_waves",
     "launch_waves", "count_probe", "probe_launches", "count_survivors",
-    "survivor_counts",
+    "survivor_counts", "bound_counts",
 ]
 
 
@@ -316,9 +316,11 @@ _gc_open = None  # (generation, start_ns, record_function or None)
 _waves: dict = {}
 # (rows, bands, probes, gathered, cap) of each probe launch, while recording
 _probes: collections.deque = collections.deque(maxlen=SPAN_CAPACITY)
-# [lists, keys, merges] of the top-k tensor-core scans, while recording; the
-# launches' counts on the card wait in _survivors_pending until read
+# [lists, keys, merges] of the top-k tensor-core scans and [row-tiles, row-
+# tiles the shared bound tightened], while recording; the launches' counts
+# on the card wait in _survivors_pending until read
 _survivors = [0, 0, 0]
+_bound = [0, 0]
 _survivors_pending: list = []
 _PENDING_MAX = 4096  # device counts kept unread before they are read at once
 
@@ -456,10 +458,12 @@ def probe_launches() -> list:
 def count_survivors(lists: int, counts) -> None:
     """Count one tensor-core scan of the top-k kernel (``topk_mma_kernel``):
     its (query, split) ``lists`` and ``counts``, the keys its query rows
-    took into their buffers and the buffers' merges: two numbers, or a
-    (2,) tensor on the card that the scan fills, read without a wait here
-    and with one copy when ``survivor_counts`` is asked.  Dropped while no
-    profiler records."""
+    took into their buffers, the buffers' merges, the (query row, tile)
+    pairs it tested and those at which the query's bound shared by its
+    splits was below the row's own threshold: four numbers (two: keys and
+    merges alone), or a (4,) tensor on the card that the scan fills, read
+    without a wait here and with one copy when the totals are asked for.
+    Dropped while no profiler records."""
     if not recording():
         return
     with _spans_lock:
@@ -469,16 +473,23 @@ def count_survivors(lists: int, counts) -> None:
             if len(_survivors_pending) > _PENDING_MAX:
                 _read_pending()
         else:
-            _survivors[1] += int(counts[0])
-            _survivors[2] += int(counts[1])
+            _add_counts(counts)
+
+
+def _add_counts(counts) -> None:
+    """Add a scan's (keys, merges[, row-tiles, tightened]) (under
+    ``_spans_lock``)."""
+    c = [int(v) for v in counts]
+    _survivors[1] += c[0]
+    _survivors[2] += c[1]
+    for i, v in enumerate(c[2:4]):
+        _bound[i] += v
 
 
 def _read_pending() -> None:
     """Add the device counts waiting to be read (under ``_spans_lock``)."""
     for t in _survivors_pending:
-        keys, merges = t.tolist()
-        _survivors[1] += int(keys)
-        _survivors[2] += int(merges)
+        _add_counts(t.tolist())
     _survivors_pending.clear()
 
 
@@ -490,9 +501,20 @@ def survivor_counts() -> tuple:
         return tuple(_survivors)
 
 
+def bound_counts() -> tuple:
+    """The top-k tensor-core scans counted while recording: ``(row_tiles,
+    bound_tighter)``, the (query row, tile) pairs they tested and those at
+    which the bound the query's row splits share was below the row's own
+    threshold, summed over them."""
+    with _spans_lock:
+        _read_pending()
+        return tuple(_bound)
+
+
 def clear_spans() -> None:
     """Empty the store, its drop counter, the collection counters, the
-    launches' waves, the probe launches and the survivors' counts."""
+    launches' waves, the probe launches and the survivors' and bound's
+    counts."""
     global _dropped
     with _spans_lock:
         _spans.clear()
@@ -502,6 +524,7 @@ def clear_spans() -> None:
         _waves.clear()
         _probes.clear()
         _survivors[:] = [0, 0, 0]
+        _bound[:] = [0, 0]
         _survivors_pending.clear()
 
 

@@ -503,9 +503,12 @@ def test_topk_buffers_keep_the_exact_lists(cuda, corpus, n_dead, n_real, m,
 
 
 def test_topk_survivor_counts_equal_a_host_count_of_the_scan(cuda):
-    """The keys the scan's rows buffered and its merges, as the kernel adds
-    them up, equal ``mma_scan_plain``'s count of the same scan; the lists
-    equal the plain top-m."""
+    """The keys the scan's rows buffered, its merges, the row-tiles it
+    tested and those its shared bound tightened, as the kernel adds them
+    up, equal ``mma_scan_plain``'s count of the same scan, with the bound
+    seeded at each query's m-th distance: no list's merge lowers it then,
+    so the counts do not hang on the order in which the splits' blocks
+    run.  The lists equal the plain top-m."""
     from randomprojection_tpu_torch.ops import topk_kernels as tk
 
     nq, rows, m = 40, 20_000, 16
@@ -513,16 +516,117 @@ def test_topk_survivor_counts_equal_a_host_count_of_the_scan(cuda):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
     plan = plan._replace(splits=3, tiles_per_split=27)
-    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
-    d, i = tk.rp_fused_topk(q, codes, rows - 9, m, dead=dead, plan=plan,
-                            counts=counts)
-    torch.cuda.synchronize()
-    part, keys, merges = tk.mma_scan_plain(q.cpu(), codes.cpu(), rows - 9, m,
-                                           plan, dead=dead.cpu())
-    assert counts.tolist() == [keys, merges]
-    assert keys > nq * plan.splits * m and merges >= nq * plan.splits
     wd, wi = tk.topk_plain(q, codes, rows - 9, m, dead=dead)
+    seed = wd[:, -1].contiguous()
+    bound = seed.clone()
+    counts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    d, i = tk.rp_fused_topk(q, codes, rows - 9, m, dead=dead, plan=plan,
+                            counts=counts, bound=bound)
+    torch.cuda.synchronize()
+    host_bound = seed.cpu().numpy().astype(np.int64)
+    part, keys, merges, row_tiles, tight = tk.mma_scan_plain(
+        q.cpu(), codes.cpu(), rows - 9, m, plan, dead=dead.cpu(),
+        bound=host_bound)
+    assert counts.tolist() == [keys, merges, row_tiles, tight]
+    assert torch.equal(bound, seed) and (host_bound == seed.cpu().numpy()).all()
+    _, keys0, _, _, _ = tk.mma_scan_plain(q.cpu(), codes.cpu(), rows - 9, m,
+                                          plan, dead=dead.cpu())
+    assert nq * m <= keys < keys0 and merges >= nq
+    assert row_tiles == nq * 79 and 0 < tight <= row_tiles
     assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+def _planted_copies(q, codes, m, first, seed):
+    """Each query's m near copies (a few bits flipped) at rows from
+    ``first`` on."""
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    near = q.repeat_interleave(m, dim=0)
+    flip = torch.randint(0, 256, near.shape, generator=g, device=q.device,
+                         dtype=torch.uint8) & torch.randint(
+        0, 256, near.shape, generator=g, device=q.device,
+        dtype=torch.uint8) & 0x11
+    codes[first: first + near.shape[0]] = near ^ flip
+
+
+def test_a_fresh_bound_takes_fewer_keys_and_keeps_the_lists(cuda):
+    """The launch's own bound on planted codes over many splits: the
+    answer is the plain top-m, and the splits take fewer keys than the
+    same scan with no bound (``mma_scan_plain``); the bound binds at some
+    row-tiles."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    nq, rows, m = 40, 160 * 256, 16
+    q, codes, _ = _topk_inputs(nq, rows, 32, 0, "random", cuda)
+    _planted_copies(q, codes, m, 3 * 256, 5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+    plan = plan._replace(splits=40, tiles_per_split=4)
+    counts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    d, i = tk.rp_fused_topk(q, codes, rows, m, plan=plan, counts=counts)
+    torch.cuda.synchronize()
+    wd, wi = tk.topk_plain(q, codes, rows, m)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+    _, keys0, _, rows0, tight0 = tk.mma_scan_plain(q.cpu(), codes.cpu(), rows,
+                                                   m, plan)
+    keys, _, row_tiles, tight = counts.tolist()
+    assert keys < keys0 and row_tiles == rows0 == nq * 160 and tight0 == 0
+    assert 0 < tight < row_tiles
+
+
+# (where each query's m near copies lie, tombstones, real rows) at 70
+# queries over 514 row tiles of 256: in the first split, in the last, and
+# across the boundary of the first two
+BOUND_CASES = [("first", 0, 514 * 256), ("last", 500, 514 * 256 - 77),
+               ("boundary", 0, 514 * 256 - 300)]
+
+
+@pytest.mark.parametrize("splits", [2, 33, 132, 257])
+@pytest.mark.parametrize("m", [1, 10, 16, "max"])
+@pytest.mark.parametrize("where,n_dead,n_real", BOUND_CASES)
+def test_a_shared_bound_keeps_the_exact_lists(cuda, where, n_dead, n_real, m,
+                                              splits):
+    """The bound the row splits share, engaged at forced split counts:
+    the plain top-m bit for bit wherever the near copies lie, with
+    tombstones and real rows that end short."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    m = _route_max_m() if m == "max" else m
+    nq, rows = 70, 514 * 256
+    q, codes, dead = _topk_inputs(nq, rows, 32, n_dead, "random", cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+    tps = -(-514 // splits)
+    plan = plan._replace(splits=-(-514 // tps), tiles_per_split=tps)
+    copies = nq * min(m, 16)
+    first = {"first": 0, "last": (plan.splits - 1) * tps * 256,
+             "boundary": tps * 256 - copies // 2}[where]
+    _planted_copies(q, codes, min(m, 16), min(first, n_real - copies), m)
+    d, i = tk.rp_fused_topk(q, codes, n_real, m, dead=dead, plan=plan)
+    torch.cuda.synchronize()
+    wd, wi = tk.topk_plain(q, codes, n_real, m, dead=dead)
+    assert torch.equal(d, wd) and torch.equal(i, wi)
+
+
+@pytest.mark.parametrize("splits", [33, 132, 257])
+@pytest.mark.parametrize("m", [1, 10, 16, "max"])
+def test_equal_distances_under_a_shared_bound_take_the_lowest_ids(cuda, m,
+                                                                  splits):
+    """Every distance equal over many splits: each split's full list
+    publishes that distance, the other splits' keys tie with the bound and
+    pass, and the answer is ids 0..m-1."""
+    from randomprojection_tpu_torch.ops import topk_kernels as tk
+
+    m = _route_max_m() if m == "max" else m
+    nq, rows = 70, 514 * 256
+    q, codes, _ = _topk_inputs(nq, rows, 32, 0, "equal", cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
+    tps = -(-514 // splits)
+    plan = plan._replace(splits=-(-514 // tps), tiles_per_split=tps)
+    d, i = tk.rp_fused_topk(q, codes, rows, m, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(i.cpu(), torch.arange(m, dtype=torch.int32).expand(nq, m))
+    assert (d == d[:, :1]).all()
 
 
 @pytest.mark.parametrize("nq,splits,m", [(64, 132, 16), (5, 4096, 16),
@@ -755,26 +859,35 @@ def test_graph_replay_equals_the_eager_composite(cuda, rows, cap):
     mdev = idx._lsh_device_masks(masks)
     act = torch.ones((1, rows), dtype=torch.int32, device=cuda)
     act[0, 1] = 0
-    tiles = [torch.from_numpy(A[lo: lo + rows]).to(cuda) for lo in (0, 50)]
+    tiles = [torch.from_numpy(A[lo: lo + rows]).to(cuda)
+             for lo in (0, 50, 0)]
     pk.reset_launches()
     entry = pk.capture_tile(tiles[0], mdev, act, *rest, 7, cap=cap,
                             band_bits=8)
     assert pk.GRAPH_CAPTURES == 1 and pk.LAUNCHES == {"rp_probe": 2}
-    # two tiles of one key in flight: each replay's copies are queued
-    # behind it, before the next replay overwrites the outputs
+    # three tiles of one key in flight, the queries changed between them:
+    # each replay's copies are queued behind it, before the next replay
+    # overwrites the outputs, and each replay's re-rank starts from a fresh
+    # shared bound (a bound left by the tile before would drop its keys)
     fetched = []
     for t in tiles:
         fetched.append([o.to("cpu", non_blocking=True)
                         for o in entry.replay(t, mdev, act)])
     torch.cuda.synchronize()
-    assert pk.GRAPH_REPLAYS == 2 and pk.LAUNCHES == {"rp_probe": 6}
+    assert pk.GRAPH_REPLAYS == 3 and pk.LAUNCHES == {"rp_probe": 8}
     for k, t in enumerate(tiles):
         eager = pk.device_probe_topk(t, mdev, act, *rest, 7, cap=cap,
                                      band_bits=8)
         if k == 0:
             eager = entry.warmup
-        for g, w in zip(fetched[k], eager):
-            assert torch.equal(g, w.cpu())
+        (gd, gg, gs, gc), (wd, wg, ws, wc) = fetched[k], eager
+        assert torch.equal(gd, wd.cpu()) and torch.equal(gg, wg.cpu())
+        assert torch.equal(gc, wc.cpu())
+        # K5's stats exactly; the re-rank's counts (words 4-11) depend on
+        # how its row splits' blocks interleave under the shared bound
+        assert torch.equal(gs[:4], ws[:4].cpu())
+        assert gs.shape == (pk.STATS_WORDS,)
+        assert pk.rerank_counts(gs.numpy())[0] > 0
 
 
 def test_graph_replay_equals_the_host_rung_across_mutations(cuda):

@@ -189,13 +189,13 @@ def test_launch_waves_clear_with_the_spans():
 
 
 class _CardCounts:
-    """Stands in for the (2,) counts a scan on the card fills: read, with
+    """Stands in for the (4,) counts a scan on the card fills: read, with
     one copy, only when the totals are asked for."""
 
     is_cuda = True
 
-    def __init__(self, keys, merges):
-        self.values, self.reads = [keys, merges], 0
+    def __init__(self, keys, merges, row_tiles=0, tight=0):
+        self.values, self.reads = [keys, merges, row_tiles, tight], 0
 
     def tolist(self):
         self.reads += 1
@@ -231,21 +231,58 @@ def test_survivor_counts_clear_with_the_spans():
     assert obs.survivor_counts() == (0, 0, 0)
 
 
+def test_bound_counts_are_kept_only_while_recording(monkeypatch):
+    """The row-tiles a scan tested and those its shared bound tightened:
+    kept beside the survivors' counts while a profiler records, from the
+    scan's four numbers or its (4,) counts on the card, read without a
+    wait; a scan counted with keys and merges alone adds none; the
+    survivors' totals stay three numbers."""
+    obs.count_survivors(64, (100, 5, 40, 30))
+    assert obs.bound_counts() == (0, 0)
+    card = _CardCounts(300, 20, 6_000, 5_100)
+    with _traced():
+        obs.count_survivors(64 * 128, (1000, 40, 64 * 32, 900))
+        obs.count_survivors(48 * 132, card)
+        obs.count_survivors(16, (7, 1))
+        assert card.reads == 0
+    obs.count_survivors(1, (1, 1, 1, 1))
+    assert obs.bound_counts() == (64 * 32 + 6_000, 900 + 5_100)
+    assert card.reads == 1
+    assert obs.survivor_counts() == (64 * 128 + 48 * 132 + 16, 1307, 61)
+    assert card.reads == 1  # read once
+    checks = []
+    monkeypatch.setattr(obs, "recording", lambda: checks.append(1) or False)
+    obs.count_survivors(5, _CardCounts(5, 5, 5, 5))
+    assert checks == [1]
+    assert obs.bound_counts() == (64 * 32 + 6_000, 900 + 5_100)
+
+
+def test_bound_counts_clear_with_the_spans():
+    with _traced():
+        obs.count_survivors(16, (32, 2, 64, 10))
+        obs.count_survivors(16, _CardCounts(7, 1, 9, 3))
+    obs.clear_spans()
+    assert obs.bound_counts() == (0, 0)
+    assert obs.survivor_counts() == (0, 0, 0)
+
+
 def test_a_device_tile_counts_its_rerank_from_its_stats(monkeypatch):
-    """The LSH tier's device tile: the keys and merges its re-rank left in
-    words 4-7 of the tile's stats, and its lists from the re-rank's plan,
-    while a profiler records and for a card index only; a tile whose stats
-    carry no keys (its re-rank ran eagerly and counted itself) adds
-    nothing."""
+    """The LSH tier's device tile: the keys, merges, row-tiles and bound's
+    tightened row-tiles its re-rank left in words 4-11 of the tile's
+    stats, and its lists from the re-rank's plan, while a profiler records
+    and for a card index only; a tile whose stats carry no keys (its
+    re-rank ran eagerly and counted itself) adds nothing."""
     from randomprojection_tpu_torch.ann import lsh
     from randomprojection_tpu_torch.ops import probe_kernels as pk
     from randomprojection_tpu_torch.ops import topk_kernels as tk
 
     monkeypatch.setattr(tk, "_sm_count", lambda device: 132)
-    stat = np.zeros(8, np.int32)
+    assert pk.STATS_WORDS == 12
+    stat = np.zeros(pk.STATS_WORDS, np.int32)
     stat[:3] = (975_000, 0, 960_000)
-    stat[4:8] = np.array([2**33 + 5, 61_000], np.int64).view(np.int32)
-    assert pk.rerank_counts(stat) == (2**33 + 5, 61_000)
+    stat[4:12] = np.array([2**33 + 5, 61_000, 2**32 + 7, 1_900],
+                          np.int64).view(np.int32)
+    assert pk.rerank_counts(stat) == (2**33 + 5, 61_000, 2**32 + 7, 1_900)
     card, cpu = torch.device("cuda"), torch.device("cpu")
     lsh._count_rerank(64, 1 << 20, 32, 10, stat, card)
     assert obs.survivor_counts() == (0, 0, 0)
@@ -253,8 +290,30 @@ def test_a_device_tile_counts_its_rerank_from_its_stats(monkeypatch):
     with _traced():
         lsh._count_rerank(64, 1 << 20, 32, 10, stat, card)
         lsh._count_rerank(64, 1 << 20, 32, 10, stat, cpu)
-        lsh._count_rerank(64, 1 << 20, 32, 10, np.zeros(8, np.int32), card)
+        lsh._count_rerank(64, 1 << 20, 32, 10,
+                          np.zeros(pk.STATS_WORDS, np.int32), card)
     assert obs.survivor_counts() == (64 * splits, 2**33 + 5, 61_000)
+    assert obs.bound_counts() == (2**32 + 7, 1_900)
+
+
+def test_a_device_tile_plane_carries_the_widened_stats():
+    """A device tile's stats, planes and per-query counts go to the host
+    as one int32 plane and come back apart: the stats whole (K4's four
+    counts included), nothing of them read as a distance."""
+    from randomprojection_tpu_torch.ann import lsh
+    from randomprojection_tpu_torch.ops import probe_kernels as pk
+
+    nq, m = 3, 4
+    stat = torch.arange(pk.STATS_WORDS, dtype=torch.int32) + 100
+    d = torch.arange(nq * m, dtype=torch.int32).reshape(nq, m)
+    gid = d + 1000
+    cnt = torch.tensor([7, 8, 9], dtype=torch.int32)
+    out = torch.cat([lsh._packed(stat, d, gid), cnt]).numpy()
+    s, nd, ng = lsh._unpacked(out, nq, m)
+    np.testing.assert_array_equal(s, stat.numpy())
+    np.testing.assert_array_equal(nd, d.numpy())
+    np.testing.assert_array_equal(ng, gid.numpy())
+    np.testing.assert_array_equal(out[pk.STATS_WORDS + 2 * nq * m:], [7, 8, 9])
 
 
 def test_a_cpu_index_counts_no_survivors():

@@ -258,8 +258,8 @@ def test_buffered_selection_keeps_the_plain_top_m(nq, rows, n_real, m, corpus,
         for s in range(plan.splits):
             t = min((s + 1) * plan.tiles_per_split, n_tiles) - 1
             codes[t * 256: t * 256 + nq] = q ^ (1 << (s % 8))
-    part, keys, merges = tk.mma_scan_plain(q, codes, n_real, m, plan,
-                                           dead=dead)
+    part, keys, merges, row_tiles, tight = tk.mma_scan_plain(
+        q, codes, n_real, m, plan, dead=dead)
     assert part.shape == (nq, plan.splits, m)
     assert (np.diff(part, axis=2) >= 0).all()  # each split list ascending
     key = np.sort(part.reshape(nq, -1), axis=1)[:, :m]
@@ -270,6 +270,113 @@ def test_buffered_selection_keeps_the_plain_top_m(nq, rows, n_real, m, corpus,
                                   wi.numpy())
     # every list took its m keys at least once, and a merge a list at least
     assert keys >= nq * min(m, rows // plan.splits) and merges >= nq
+    # every query row is tested once a tile that holds a live row; with no
+    # bound, no bound is tighter than a row's threshold
+    assert row_tiles == nq * _live_tiles(n_real, dead) and tight == 0
+
+
+def _live_tiles(n_real, dead):
+    """The 256-row tiles below n_real that hold a live row."""
+    live = np.ones(n_real, bool)
+    if dead is not None:
+        live &= dead.numpy()[:n_real] == 0
+    live = np.pad(live, (0, -n_real % 256)).reshape(-1, 256)
+    return int(live.any(axis=1).sum())
+
+
+def _merged(part, m):
+    """The m least keys of each query's split lists, as (dist, id) with
+    the empty pair of 256-bit rows."""
+    key = np.sort(part.reshape(part.shape[0], -1), axis=1)[:, :m]
+    gone = (key >> 32) > 256
+    return (np.where(gone, 257, key >> 32),
+            np.where(gone, 2**31 - 1, key & 0xFFFFFFFF))
+
+
+def _planted(nq, rows, m, splits, where, seed):
+    """Random codes with each query's m near copies (a few bits flipped)
+    in one split: the first, the last, or across the boundary of the
+    first two; the plan forced to ``splits``."""
+    q, codes, _ = _survivor_case(nq, rows, m, "random", 0, seed)
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=H100_SXM_SMS)
+    n_tiles = -(-rows // 256)
+    tps = -(-n_tiles // splits)
+    plan = plan._replace(splits=-(-n_tiles // tps), tiles_per_split=tps)
+    rng = np.random.default_rng(seed + 1)
+    first = {"first": 0, "last": (plan.splits - 1) * tps * 256,
+             "boundary": tps * 256 - (nq * m) // 2}[where]
+    near = q.numpy().repeat(m, axis=0) ^ (
+        rng.integers(0, 256, (nq * m, 32), dtype=np.uint8)
+        & rng.integers(0, 256, (nq * m, 32), dtype=np.uint8) & 0x11)
+    codes[first: first + nq * m] = torch.from_numpy(near)
+    return q, codes, plan
+
+
+@pytest.mark.parametrize("where", ["first", "last", "boundary"])
+@pytest.mark.parametrize("splits", [2, 5, 11])
+def test_a_shared_bound_keeps_the_plain_top_m(where, splits):
+    """The splits share each query's bound (a full list's m-th distance,
+    lowered at each merge and at the end of a tile that fills a row's
+    buffer to m keys): the merged lists are the plain top-m bit for bit,
+    wherever the near copies lie; the bound ends at the least m-th
+    distance of the splits' full lists, never below the answer's; and the
+    splits after the near copies' take fewer keys than with no bound."""
+    nq, rows, m = 20, 11 * 4 * 256, 16
+    q, codes, plan = _planted(nq, rows, m, splits, where, 7 + splits)
+    wd, wi = tk.topk_plain(q, codes, rows, m)
+    bound = np.full(nq, 257)
+    part, keys, merges, row_tiles, tight = tk.mma_scan_plain(
+        q, codes, rows, m, plan, bound=bound)
+    d, i = _merged(part, m)
+    np.testing.assert_array_equal(d, wd.numpy())
+    np.testing.assert_array_equal(i, wi.numpy())
+    full = (part[:, :, -1] >> 32) < 257
+    want = np.where(full, part[:, :, -1] >> 32, 257).min(axis=1)
+    np.testing.assert_array_equal(bound, want)
+    assert (bound >= wd.numpy()[:, -1]).all()
+    _, keys0, _, rows0, tight0 = tk.mma_scan_plain(q, codes, rows, m, plan)
+    assert row_tiles == rows0 == nq * -(-rows // 256) and tight0 == 0
+    if where == "first":  # every later split starts at the copies' bound
+        assert keys < keys0 and tight > 0
+
+
+@pytest.mark.parametrize("m", [1, 10, 16, 40])
+def test_a_bound_seeded_at_the_answer_is_never_lowered(m):
+    """A bound that starts at each query's m-th distance: no full list's
+    m-th distance lies below it, so no merge lowers it, and the lists
+    still merge to the plain top-m (ties at the bound pass: a split may
+    hold the bound's key at a higher id)."""
+    nq, rows = 19, 7 * 3 * 256 - 40
+    _, _, dead = _survivor_case(nq, rows, m, "random", 60, 40 + m)
+    q, codes, plan = _planted(nq, rows, m, 7, "boundary", 40 + m)
+    wd, wi = tk.topk_plain(q, codes, rows - 9, m, dead=dead)
+    seed = wd.numpy()[:, -1].astype(np.int64)
+    bound = seed.copy()
+    part, keys, _, row_tiles, tight = tk.mma_scan_plain(
+        q, codes, rows - 9, m, plan, dead=dead, bound=bound)
+    np.testing.assert_array_equal(bound, seed)
+    d, i = _merged(part, m)
+    np.testing.assert_array_equal(d, wd.numpy())
+    np.testing.assert_array_equal(i, wi.numpy())
+    assert row_tiles == nq * _live_tiles(rows - 9, dead) and tight > 0
+
+
+@pytest.mark.parametrize("splits", [3, 11])
+@pytest.mark.parametrize("m", [1, 16])
+def test_equal_distances_under_a_shared_bound_take_the_lowest_ids(splits, m):
+    """Every distance equal, many splits: the first split's full list sets
+    the bound at that distance, the other splits' keys tie with it and
+    pass, and the answer is ids 0..m-1."""
+    nq, rows = 9, 11 * 2 * 256
+    q, codes, _ = _survivor_case(nq, rows, m, "equal", 0, 3)
+    plan = tk.plan_fused(nq, rows, 32, m, sm_count=H100_SXM_SMS)
+    tps = -(-(rows // 256) // splits)
+    plan = plan._replace(splits=-(-(rows // 256) // tps), tiles_per_split=tps)
+    bound = np.full(nq, 257)
+    part, *_ = tk.mma_scan_plain(q, codes, rows, m, plan, bound=bound)
+    d, i = _merged(part, m)
+    assert (i == np.arange(m)).all() and (d == d[:, :1]).all()
+    assert (bound == d[:, 0]).all()
 
 
 def test_wgmma_smem_formula():

@@ -123,8 +123,10 @@ def main() -> int:
 
     text = (build.CSRC / "topk.cu").read_text()
     # since the survivors' buffers the scan takes the buffer's size and a
-    # pointer to its counters
+    # pointer to its counters; since the shared bound, a pointer to the
+    # queries' bound words
     buffered = "int buf, int splits" in text
+    bounded = "void* counts, void* bound" in text
     sources = {
         "shipped": text,
         "no_loads": _patched(text, NO_LOADS),
@@ -152,7 +154,7 @@ def main() -> int:
     for lib in libs.values():
         lib.rp_topk_scan.argtypes = (
             [p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32,
-             p, p, p] if buffered else
+             p, p] + [p] * bounded + [p] if buffered else
             [p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, p, p])
         lib.rp_topk_scan.restype = i32
 
@@ -183,12 +185,18 @@ def main() -> int:
         plan = tk.plan_fused(nq, rows, 32, m, sm_count=sms)
         part = torch.empty((nq, plan.splits, m), dtype=torch.int64, device="cuda")
         dead_p = None if dead is None else dead.data_ptr()
+        # each launch starts from a fresh bound, as rp_fused_topk's does
+        bound = torch.empty(nq, dtype=torch.int32, device="cuda")
+        shared = (bound.data_ptr(),) if bounded and plan.splits > 1 else (None,)
 
         def launch(lib):
             head = (q.data_ptr(), codes.data_ptr(), dead_p, nq, rows, rows, 32,
                     m, 1, plan.tq, plan.stages)
             tail = (plan.splits, plan.tiles_per_split, part.data_ptr())
-            rc = (lib.rp_topk_scan(*head, plan.buf, *tail, None, stream)
+            if bounded:
+                bound.fill_(32 * 8 + 1)
+            rc = (lib.rp_topk_scan(*head, plan.buf, *tail, None,
+                                   *shared[:bounded], stream)
                   if buffered else lib.rp_topk_scan(*head, *tail, stream))
             if rc:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -202,7 +210,7 @@ def main() -> int:
         del q, codes, dead, part
         torch.cuda.empty_cache()
     print(json.dumps({"k4_parts": rows_out, "root": str(root),
-                      "buffered": buffered, "card": card}))
+                      "buffered": buffered, "bounded": bounded, "card": card}))
     return 0
 
 

@@ -16,8 +16,11 @@ by least squares over (a, a·W, c): ``a`` the time of a tile step, ``W``
 one split's warm-up of its lists in tile steps, ``c`` what a call costs
 whatever its grid (the merge's launch included).  Counts past one wave
 separate ``W`` from ``c``.  Every forced count must give the lists the
-planned count gives, bit for bit.  Then the merge alone at a few
-(queries, splits).
+planned count gives, bit for bit.  At the planned count the scan's own
+counters are read too: the keys a (query, split) list took, its merges,
+and the share of (query row, tile) pairs at which the bound the query's
+splits share was below the row's own threshold.  Then the merge alone at
+a few (queries, splits).
 
 Run from the repository root on a machine with a card and ``nvcc``::
 
@@ -145,7 +148,14 @@ def main() -> int:
         print(f"{name} planned splits={plan.splits} {row['planned_ms']:.4f} ms",
               file=sys.stderr, flush=True)
         if own:
-            want = tk.rp_fused_topk(q, codes, rows, m, dead=dead, plan=plan)
+            counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+            want = tk.rp_fused_topk(q, codes, rows, m, dead=dead, plan=plan,
+                                    counts=counts)
+            keys, merges, row_tiles, tight = counts.tolist()
+            lists = nq * plan.splits
+            row.update(keys_per_list=keys / lists,
+                       merges_per_list=merges / lists,
+                       bound_share_pct=100.0 * tight / max(row_tiles, 1))
             same, runs = True, {s: [] for s in splits}
             for turn in range(args.turns):
                 for s in (splits if turn % 2 == 0 else splits[::-1]):
